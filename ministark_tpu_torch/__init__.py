@@ -1,0 +1,28 @@
+"""ministark_tpu_torch: the ministark parity prover on PyTorch and CUDA.
+
+A port of ``ministark_tpu`` (JAX + Pallas) to PyTorch, with hand-written
+CUDA C++ kernels for NVIDIA Hopper (``sm_90a``). The JAX package stays the
+reference: the same inputs give byte-identical proofs in both.
+
+Layer map (module paths mirror ``ministark_tpu``):
+  fields/     host field oracle (pure Python copy)
+  poly/       host polynomials and FFT domains (pure Python copy)
+  commit/     hashlib Merkle oracle (copy) + tensor-resident PackedMerkleTree
+  transcript/ Fiat-Shamir sponge (pure Python copy)
+  fri/        host FRI oracle (pure Python copy)
+  air/        host traces and constraints (pure Python copy)
+  stark/      host oracle ``Stark`` (copy) + tensor ``DeviceEngine``
+  models/     Fibonacci AIR: host claim (copy) + tensor witness ladder
+  ops/        field ops, NTT, SHA-256 and leaf hashing over torch tensors;
+              each kernel has a plain PyTorch version beside it
+  csrc/       the CUDA C++ kernels, built with nvcc at first use
+
+Dispatch is by tensor device: a CPU tensor takes the plain PyTorch version
+of a kernel, a CUDA tensor launches the CUDA kernel or raises.
+
+The pure-Python host layers are copies, not imports, of the JAX package's:
+importing any module of ``ministark_tpu`` runs a package ``__init__`` that
+imports jax, and this package must import without it.
+"""
+
+__version__ = "0.1.0"

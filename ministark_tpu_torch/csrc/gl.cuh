@@ -1,0 +1,43 @@
+// Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) on canonical uint64_t.
+//
+// The device counterpart of ops/field.py: a product is the full 128-bit
+// value from a * b and __umul64hi, reduced with 2^64 == 2^32 - 1 and
+// 2^96 == -1 (mod p), the identities of ministark_tpu/ops/gl.py::_reduce128.
+// Every function takes and returns canonical values (< p).
+#pragma once
+#include <cstdint>
+
+namespace gl {
+
+constexpr uint64_t P = 0xFFFFFFFF00000001ull;
+constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
+
+__device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
+  uint64_t s = a + b;
+  // a carry out of 2^64 is worth EPS; a + b < 2p, so it cannot carry twice
+  if (s < a) s += EPS;
+  return s >= P ? s - P : s;
+}
+
+__device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
+  uint64_t d = a - b;
+  // a borrow wrapped by 2^64: subtracting EPS makes it a - b + p
+  return a < b ? d - EPS : d;
+}
+
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
+  const uint64_t hi_hi = hi >> 32;  // weight 2^96 == -1
+  const uint64_t hi_lo = hi & EPS;  // weight 2^64 == EPS
+  uint64_t t = lo - hi_hi;
+  if (lo < hi_hi) t -= EPS;         // borrow; t >= 2^64 - 2^32 cannot underflow
+  const uint64_t m = hi_lo * EPS;   // < 2^64
+  uint64_t r = t + m;
+  if (r < m) r += EPS;              // carry; cannot carry twice
+  return r >= P ? r - P : r;
+}
+
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+  return reduce128(a * b, __umul64hi(a, b));
+}
+
+}  // namespace gl

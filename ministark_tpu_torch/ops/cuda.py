@@ -1,0 +1,123 @@
+"""Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
+
+All kernels go into one shared library with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` (Hopper) into ``ministark_tpu_torch/_build/``. The
+library's file name carries a hash of the sources and flags, so an edit
+rebuilds it; a file lock makes concurrent first uses build it once. Nothing
+here is imported or built until a CUDA tensor reaches a kernel wrapper.
+
+Every entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launches;
+``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu")
+HEADERS = ("gl.cuh", "sha256.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U64 = ctypes.c_uint64
+# name -> argtypes; every function returns int (a cudaError_t)
+_SIGNATURES = {
+    # x, y, batch, log_n, twiddles, pre_pows, post_pows, scale, stream
+    "ms_ntt_gl": [_P, _P, _I, _I, _P, _P, _P, _U64, _P],
+    # children, parents, n_parents, stream
+    "ms_sha256_inner_level": [_P, _P, _I, _P],
+    # comps, digests, n_groups, leafs_per_node, fmt, stream
+    "ms_leaf_hash_gl": [_P, _P, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the library if it is not built yet; returns its path. The
+    compiler's output (ptxas register and spill counts) goes to
+    ``_build/build.log``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libministark_kernels_{_source_hash()}.so")
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = f"{so}.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *(os.path.join(CSRC, s) for s in SOURCES)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            with open(os.path.join(BUILD_DIR, "build.log"), "w") as log:
+                log.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+            os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ms_error_string.argtypes = [ctypes.c_int]
+        lib.ms_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        msg = library().ms_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and rank."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

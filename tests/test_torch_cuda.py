@@ -1,0 +1,68 @@
+"""The three CUDA kernels against their plain PyTorch versions on the card,
+at small shapes, and the engine's proof on the card against the host
+oracle. Marked ``cuda``: they skip on a host without a CUDA device (run them
+on one with ``python -m pytest tests/test_torch_cuda.py -m cuda``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import ministark_tpu_torch.stark.engine as t_eng
+from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.models import fibonacci_air
+from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+from ministark_tpu_torch.ops import leaf_hash as lh
+from ministark_tpu_torch.ops import ntt
+from ministark_tpu_torch.ops import sha256 as sh
+from ministark_tpu_torch.stark import Stark, StarkConfig
+
+pytestmark = pytest.mark.cuda
+
+P = Goldilocks.base.p
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed):
+    v = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+    v.reshape(-1)[:3] = [0, P - 1, 1 << 63]
+    return torch.from_numpy(v.view(np.int64))
+
+
+@pytest.mark.parametrize("log_n", [1, 3, 12, 13, 16])
+def test_ntt_kernel_matches_plain(dev, log_n):
+    x = _rand((3, 1 << log_n), log_n).to(dev)
+    for kw in ({}, {"inverse": True}, {"pre": 7}, {"inverse": True, "post": 11}):
+        assert torch.equal(ntt.transform_cuda(x, **kw), ntt.transform_plain(x, **kw))
+
+
+@pytest.mark.parametrize("fmt,k", [(0, 6), (1, 2)])
+def test_leaf_hash_kernel_matches_plain(dev, fmt, k):
+    c = _rand((4096 * k, fmt + 1), fmt).to(dev)
+    c[:1000] %= 1000
+    assert torch.equal(lh.leaf_hash_cuda(c, k, fmt), lh.leaf_hash_plain(c, k, fmt))
+
+
+def test_inner_level_kernel_matches_plain(dev):
+    d = torch.from_numpy(np.random.default_rng(1).integers(
+        -2**31, 2**31, size=(8192, 8)).astype(np.int32)).to(dev)
+    assert torch.equal(sh.inner_level_cuda(d), sh.inner_level_plain(d))
+
+
+def test_engine_on_card_matches_host(dev, monkeypatch):
+    monkeypatch.setattr(t_eng, "DEVICE_MIN_SIZE", 32)
+    claim, witness = fibonacci_air(Goldilocks, 61)
+    cfg = StarkConfig(Goldilocks, 20, 2, 61, claim.trace(witness).constrain_number())
+    host = Stark(cfg).prove(claim, witness)
+    trace = fibonacci_device_trace(Goldilocks, 61, on_device=True, device=dev)
+    engine = t_eng.DeviceEngine(cfg, device=dev)
+    proof = engine.prove(trace)
+    assert proof.arthur == host.arthur
+    assert proof.trace_commit == host.trace_commit
+    assert proof.fri_proof.to_host().points == host.fri_proof.points
+    assert engine.verify(engine.constrain_coeffs(trace), proof)

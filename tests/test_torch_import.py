@@ -1,0 +1,76 @@
+"""ministark_tpu_torch stands alone: it imports and proves with jax blocked,
+it never falls back from a CUDA device to the CPU, and a kernel wrapper
+given a tensor it cannot take raises instead of running the plain version."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ministark_tpu_torch
+from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.ops import leaf_hash, ntt, sha256
+from ministark_tpu_torch.stark import StarkConfig
+from ministark_tpu_torch.stark.engine import DeviceEngine
+
+PKG = pathlib.Path(ministark_tpu_torch.__file__).parent
+ROOT = PKG.parent
+
+_BLOCKED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any "import jax" now raises ImportError
+import ministark_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+from ministark_tpu_torch.stark import StarkConfig
+from ministark_tpu_torch.stark.engine import DeviceEngine
+trace = fibonacci_device_trace(Goldilocks, 9, on_device=True)
+engine = DeviceEngine(StarkConfig(Goldilocks, 20, 2, 9, trace.constrain_number()))
+proof = engine.prove(trace)
+assert engine.verify(engine.constrain_coeffs(trace), proof)
+assert not any(n == "ministark_tpu" or n.startswith("ministark_tpu.") for n in sys.modules)
+print("proved", len(proof.arthur))
+"""
+
+
+def test_imports_and_proves_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "proved 320"
+
+
+def test_no_module_imports_jax():
+    for path in PKG.rglob("*.py"):
+        if "_build" in path.relative_to(PKG).parts:   # build outputs
+            continue
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")), path
+
+
+def test_cuda_engine_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = StarkConfig(Goldilocks, 20, 2, 9, 6)
+    with pytest.raises((RuntimeError, AssertionError)):
+        DeviceEngine(cfg, device="cuda")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers never run the plain version: a CPU tensor is an
+    error there (the dispatchers send CPU tensors to the plain version)."""
+    x = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        ntt.transform_cuda(x)
+    with pytest.raises(ValueError):
+        sha256.inner_level_cuda(torch.zeros((4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        leaf_hash.leaf_hash_cuda(torch.zeros((12, 1), dtype=torch.int64), 6, 0)
