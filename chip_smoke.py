@@ -6,18 +6,26 @@
 Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
-  2. build     nvcc builds the three kernels from ministark_tpu_torch/csrc
+  2. build     nvcc builds the kernels from ministark_tpu_torch/csrc
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
-               at the main path's shapes: exact equality, times in ms
+               at the main paths' shapes: exact equality, times in ms beside
+               the least time the card could take (bound)
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
                Stark.prove, steps 9 equal to tests/golden/goldilocks_fib9.json
-  5. main      Fibonacci over Goldilocks + Fp2, security 20, blowup 2, witness
-               built on the card: the pinned sizes against digests of the JAX
-               package's proofs, then 2^20 - 1 steps proved cold and warm,
-               verified, and its two commitments recomputed with the plain
-               versions on the card
-  6. launches  every kernel was launched by the cold 2^20 - 1 prove
+  5. main      the parity prover, Fibonacci over Goldilocks + Fp2, security
+               20, blowup 2, witness built on the card: the pinned sizes
+               against digests of the JAX package's proofs, then 2^20 - 1
+               steps proved cold and warm, verified, and its two commitments
+               recomputed with the plain versions on the card
+  6. fast      the fast-mode prover (FastStark: batched FRI, 4-ary index
+               trees) in bench.py's configuration: tests/golden/
+               fast_fri_fib100.bin, the pinned sizes against the JAX
+               package's proof bytes, 2^20 - 1 steps proved cold and warm,
+               verified, both group roots recomputed with the plain versions
+               on the card, then prove_many of 4 traces at 2^20 - 1, verified
+  7. launches  every kernel was launched by the 2^20 - 1 proves of the paths
+               it is on (counts set to 0 just before each cold prove)
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -60,6 +68,36 @@ PINS = {
 }
 MAIN_STEPS = (1 << 20) - 1
 SEED = 20261016
+
+# sha256 of fast_proof_to_bytes of ministark_tpu's FastStark (JAX on the
+# CPU, witness on the device) in bench.py::fast_prove's configuration
+# (FAST_CFG): (steps, traces given to prove_many) -> digest.
+FAST_PINS = {
+    (16383, 1): "465c2b3d49113bc8ac0319772732acf5e6e49c3b41aca93e2e14effd31cebcd4",
+    (16383, 4): "2e28bd5794f410b1dcb50fa46e1382cef3f422f945af40a70f136d76876b2eb9",
+    (131071, 1): "1a378eeb1b22590fb22cb011bc165155a488b8c5ef6b15133a67fe5c61130915",
+}
+FAST_CFG = dict(queries=32, point_queries=2, blowup=2, arity=4, fold_factor=4,
+                final_len=32, lde_backend="fri", grinding_bits=0)
+FAST_BATCH = 4                     # bench.py's fast_prove_many_batch4
+
+# The least time the card could take for a call (bound_ms): the larger of
+# its bytes (each input read once, each output written once) over the
+# H100 SXM's 3.35 TB/s, and its 32-bit integer operations over the INT32
+# peak, 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.73e12 per second.
+# The operation counts are lower bounds taken from the kernels' arithmetic:
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# one SHA-256 block: 64 rounds of 14 (3-input LOP3 and IADD3 fused) plus 48
+# schedule steps of 10, plus the 8 feed-forward adds; a block of constant
+# words needs no schedule (its words fold to immediates)
+OPS_SHA_BLOCK = 64 * 14 + 48 * 10 + 8
+OPS_SHA_CONST_BLOCK = 64 * 14 + 8
+# Goldilocks: a product is four 32x32->64 multiplies (two instructions
+# each) with 4 adds, and the reduction of gl.cuh about 17; an add 8, a sub 5
+OPS_GL_MUL = 8 + 4 + 17
+OPS_BUTTERFLY = OPS_GL_MUL + 8 + 5
+OPS_DIGIT = 4                      # one decimal digit: multiply-high, shift, multiply, sub
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -152,6 +190,47 @@ def _rand_u64(rng, shape, p):
     return torch.from_numpy(v.view(np.int64)).cuda()
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the byte time and the op time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sha_blocks(msg_bytes):
+    """SHA-256 blocks of messages of these byte lengths (int or tensor)."""
+    return (msg_bytes + 9 + 63) // 64
+
+
+def _ntt_work(batch, n, coset_mul: bool, scale_mul: bool):
+    log_n = n.bit_length() - 1
+    ops = batch * ((n // 2) * log_n * OPS_BUTTERFLY
+                   + n * OPS_GL_MUL * (int(coset_mul) + int(scale_mul)))
+    return 16 * batch * n + 8 * (n // 2), ops
+
+
+def _leaf_hash_work(comps, k, fmt):
+    """Bytes and ops of the leaf hash on these inputs: the preimage lengths
+    (and so the block counts) depend on the values' decimal digits."""
+    from ministark_tpu_torch.ops.leaf_hash import u64_digits
+
+    _, length = u64_digits(comps)                   # (n, comps)
+    per_elem = length.sum(1) + (21 if fmt else 0)   # "QuadExtField(" " + " " * u)"
+    msg = per_elem.reshape(-1, k).sum(1)
+    blocks = int(_sha_blocks(msg).sum())
+    ops = blocks * OPS_SHA_BLOCK + int(length.sum()) * OPS_DIGIT
+    return comps.numel() * 8 + msg.numel() * 32, ops
+
+
+def _level_work(n_parents, fan):
+    ops = n_parents * ((fan // 2) * OPS_SHA_BLOCK + OPS_SHA_CONST_BLOCK)
+    return n_parents * (fan + 1) * 32, ops
+
+
+def _rows_work(n, C):
+    return n * (8 * C + 32), n * _sha_blocks(8 * C) * OPS_SHA_BLOCK
+
+
 def phase_kernels(results):
     import numpy as np
     import torch
@@ -163,7 +242,7 @@ def phase_kernels(results):
 
     rng = np.random.default_rng(SEED)
 
-    def compare(name, label, kern, plain, reps=5, plain_reps=2):
+    def compare(name, label, kern, plain, work, reps=5, plain_reps=2):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -172,25 +251,30 @@ def phase_kernels(results):
                  f"(max_abs_err {err})")
         ms = timed(kern, reps)
         pms = timed(plain, plain_reps)
+        bms, by = bound(*work)
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
-                       f"{ms:.3f} ms, plain {pms:.3f} ms")
+                       f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
+                       f"({by})")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms})
-        return ms, pms
+        r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms,
+                            "bound_ms": bms, "bound_by": by})
 
-    # K1: the NTT at every main-path shape
+    # K1: the NTT at every main-path shape (the parity prover's; the fast
+    # mode's are (6, 2^20) ifft, (12, 2^21) fft and its FRI layers)
     shift = 0x1234567 * 7 % F.p
     for label, batch, n, kw in [
         ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
         ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
         ("fft (2, 2^21)", 2, 1 << 21, {}),
+        ("fft (12, 2^21)", 12, 1 << 21, {}),
         ("fft (2, 2^3)", 2, 1 << 3, {}),
         ("coset_ifft (2, 2^14)", 2, 1 << 14, {"inverse": True, "post": shift}),
     ]:
         x = _rand_u64(rng, (batch, n), F.p)
+        work = _ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")))
         compare("ntt", label, lambda: ntt.transform_cuda(x, **kw),
-                lambda: ntt.transform_plain(x, **kw))
+                lambda: ntt.transform_plain(x, **kw), work)
 
     # K3: leaf hashes of the trace / constraint trees (fmt 0, 6 per group)
     # and of the first FRI round tree (fmt 1, 2 per group)
@@ -202,9 +286,11 @@ def phase_kernels(results):
         # short digit strings too, for every block count
         comps[: groups // 4] %= 1000
         compare("leaf_hash", label, lambda: lh.leaf_hash_cuda(comps, k, fmt),
-                lambda: lh.leaf_hash_plain(comps, k, fmt), reps=3, plain_reps=1)
+                lambda: lh.leaf_hash_plain(comps, k, fmt),
+                _leaf_hash_work(comps, k, fmt), reps=3, plain_reps=1)
 
-    # K2: every fan-2 level of a 2^21-leaf tree
+    # K2: every fan-2 level of a 2^21-leaf tree, and the fast mode's fan-4
+    # level above a 2^19-leaf index tree
     leaves = torch.from_numpy(rng.integers(-2**31, 2**31, size=(1 << 21, 8),
                                            dtype=np.int64).astype(np.int32)).cuda()
 
@@ -217,9 +303,24 @@ def phase_kernels(results):
             return torch.cat(out)
         return run
 
+    work = [sum(w) for w in zip(*(_level_work(1 << j, 2) for j in range(21)))]
     compare("sha256_inner_level", "all 21 levels of a 2^21-leaf tree",
-            levels(sh.inner_level_cuda), levels(sh.inner_level_plain),
+            levels(sh.inner_level_cuda), levels(sh.inner_level_plain), work,
             reps=5, plain_reps=1)
+    d4 = leaves[: 1 << 19]
+    compare("sha256_inner_level", "fan 4, 2^19 -> 2^17",
+            lambda: sh.inner_level_cuda(d4, 4), lambda: sh.inner_level_plain(d4, 4),
+            _level_work(1 << 17, 4))
+
+    # K2b: the fast mode's row leaves over 2^19 coset rows: the witness group
+    # (6 polynomials x F 4 x Fp2 = 48 u64 per row), the validity group and
+    # every FRI layer (C 8), and prove_many's witness group of 4 traces (192)
+    for C in (48, 8, 192):
+        comps = _rand_u64(rng, (1 << 19, C), F.p)
+        compare("sha256_rows", f"2^19 rows, C {C}",
+                lambda: sh.binary_row_digests_cuda(comps),
+                lambda: sh.binary_row_digests_plain(comps),
+                _rows_work(1 << 19, C), reps=5, plain_reps=1)
 
 
 def _host_proof(sf, steps):
@@ -334,13 +435,31 @@ def _reference_commits(engine, trace):
     return trace_root, root(lde.T.contiguous())
 
 
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from ministark_tpu_torch.ops import leaf_hash as lh
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import sha256 as sh
+
+    ntt.launches = lh.launches = sh.launches = sh.row_launches = 0
+    sh.fan_launches = {}
+
+
+def read_counts():
+    """({kernel: launches}, {fan: inner-level launches}) since reset_counts."""
+    from ministark_tpu_torch.ops import leaf_hash as lh
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import sha256 as sh
+
+    return ({"ntt": ntt.launches, "sha256_inner_level": sh.launches,
+             "leaf_hash": lh.launches, "sha256_rows": sh.row_launches},
+            dict(sh.fan_launches))
+
+
 def phase_main(results):
     import torch
 
     from ministark_tpu_torch.fields import Goldilocks
-    from ministark_tpu_torch.ops import leaf_hash as lh
-    from ministark_tpu_torch.ops import ntt
-    from ministark_tpu_torch.ops import sha256 as sh
     from ministark_tpu_torch.stark.proof_io import proof_digests
 
     for steps, pins in PINS.items():
@@ -362,13 +481,11 @@ def phase_main(results):
     say("main", f"steps {MAIN_STEPS}: witness (3, {trace.domain_size}) built on "
                 f"the card in {time.time() - t0:.3f} s")
 
-    for mod in (ntt, sh, lh):
-        mod.launches = 0
+    reset_counts()
     t0 = time.time()
     proof = engine.prove(trace)
     cold = time.time() - t0
-    launches = {"ntt": ntt.launches, "sha256_inner_level": sh.launches,
-                "leaf_hash": lh.launches}
+    launches, _ = read_counts()
     cold_phases = engine.phase_seconds
     say("main", f"cold prove {cold:.3f} s; phase_seconds "
                 + json.dumps({k: round(v, 4) for k, v in cold_phases.items()}))
@@ -403,8 +520,185 @@ def phase_main(results):
     say("main", "trace_commit and constrain_trace_commit equal the plain "
                 "versions' on the card")
     for name, count in launches.items():
-        results[name]["launches"] = count
-    return cold, warm, vsecs
+        results[name]["paths"]["parity"] = count
+
+
+def _fast(steps, batch=1, **cfg):
+    from ministark_tpu_torch.fields import Goldilocks
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+
+    traces = [fibonacci_device_trace(Goldilocks, steps, on_device=True,
+                                     device="cuda") for _ in range(batch)]
+    stark = FastStark(FastStarkConfig(Goldilocks, steps, **(cfg or FAST_CFG)),
+                      device="cuda")
+    return stark, traces
+
+
+def _fast_reference_roots(stark, trace):
+    """Both group roots of a fast prove, recomputed on the card with the
+    plain versions of the NTT, row-leaf and inner-level kernels, and the
+    coset-row layout written out here afresh."""
+    import torch
+
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import sha256 as sh
+    from ministark_tpu_torch.ops.field import lift_base_array
+    from ministark_tpu_torch.ops.poly import mix_columns
+
+    cfg, ke, ext = stark.config, stark.ke, stark.ext
+    F, arity = cfg.fold_factor, cfg.arity
+
+    def coset_rows(polys):                       # (B, n, 2) coefficients
+        B, n = polys.shape[0], polys.shape[1]
+        N = cfg.blowup * n
+        padded = torch.zeros((2 * B, N), dtype=torch.int64, device=polys.device)
+        padded[:, :n] = polys.movedim(-1, 1).reshape(2 * B, n)
+        ev = ntt.transform_plain(padded).reshape(B, 2, N)
+        # row i: for each polynomial, for t < F, the Fp2 value at i + t * N / F
+        rows = ev.reshape(B, 2, F, N // F).permute(3, 0, 2, 1)
+        return rows.reshape(N // F, B * F * 2).contiguous()
+
+    def root(rows):
+        cur = sh.binary_row_digests_plain(rows)
+        while cur.shape[0] > 1:
+            cur = sh.inner_level_plain(cur, min(arity, cur.shape[0]))
+        return sh.digests_to_bytes(cur)[0].tobytes()
+
+    tp = ntt.transform_plain(trace.cols_dev, inverse=True)
+    coeffs = lift_base_array(ke, torch.cat([tp] + [f(tp)[None]
+                                                   for f in trace.transitions]))
+    root_w = root(coset_rows(coeffs))
+    total = coeffs.shape[0]
+    tr = stark._transcript(trace.width, total - trace.width, tp.shape[1], 1)
+    tr.absorb(root_w)
+    r = tr.challenge_scalar(ext)
+    weights = ke.pack([ext.pow(r, i) for i in range(total)], coeffs.device)
+    root_v = root(coset_rows(mix_columns(ke, coeffs, weights)[None]))
+    return root_w, root_v
+
+
+def phase_fast(results):
+    import copy
+    import hashlib
+
+    import torch
+
+    from ministark_tpu_torch.fields import Goldilocks
+    from ministark_tpu_torch.stark.proof_io import (
+        fast_proof_from_bytes,
+        fast_proof_to_bytes,
+    )
+
+    def proof_bytes(proof):
+        return fast_proof_to_bytes(Goldilocks, proof)
+
+    # the golden fixture (tests/test_golden_proofs.py's configuration)
+    stark, (trace,) = _fast(100, queries=4, final_len=8)
+    golden = open(os.path.join(ROOT, "tests", "golden", "fast_fri_fib100.bin"),
+                  "rb").read()
+    proof = stark.prove(trace)
+    if proof_bytes(proof) != golden:
+        fail("fast: steps 100 differ from tests/golden/fast_fri_fib100.bin")
+    cons = stark._constraint_polys(trace)
+    if not stark.verify(cons, fast_proof_from_bytes(Goldilocks, golden)):
+        fail("fast: the golden proof was not accepted")
+    bad = copy.deepcopy(proof)
+    row = bytearray(bad.fri_proof.batch_openings[0][0].row)
+    row[3] ^= 0x10
+    bad.fri_proof.batch_openings[0][0].row = bytes(row)
+    try:
+        stark.verify(cons, bad)
+        fail("fast: a tampered batch row was accepted")
+    except AssertionError:
+        pass
+    say("fast", "steps 100: equal to fast_fri_fib100.bin, verified, tampered "
+                "row rejected")
+
+    for (steps, batch), pin in FAST_PINS.items():
+        stark, traces = _fast(steps, batch)
+        t0 = time.time()
+        proof = stark.prove_many(traces)
+        secs = time.time() - t0
+        got = hashlib.sha256(proof_bytes(proof)).hexdigest()
+        if got != pin:
+            fail(f"fast: steps {steps} x {batch}: sha256 {got} differs from "
+                 "the JAX pin")
+        if not stark.verify_many([stark._constraint_polys(t) for t in traces],
+                                 proof):
+            fail(f"fast: steps {steps} x {batch}: verify returned False")
+        say("fast", f"steps {steps} x {batch} traces: equal to the JAX "
+                    f"package's pinned proof bytes, verified; prove {secs:.2f} s")
+
+    stark, (trace,) = _fast(MAIN_STEPS)
+    reset_counts()
+    t0 = time.time()
+    proof = stark.prove(trace)
+    cold = time.time() - t0
+    launches, fans = read_counts()
+    say("fast", f"steps {MAIN_STEPS}: cold prove {cold:.3f} s; phase_seconds "
+                + json.dumps({k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    proof2 = stark.prove(trace)
+    warm = time.time() - t0
+    say("fast", f"steps {MAIN_STEPS}: warm prove {warm:.3f} s; peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                "phase_seconds "
+                + json.dumps({k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+    blob = proof_bytes(proof)
+    if proof_bytes(proof2) != blob:
+        fail("fast: cold and warm proofs differ")
+    t0 = time.time()
+    ok = stark.verify(stark._constraint_polys(trace), proof)
+    torch.cuda.synchronize()
+    vsecs = time.time() - t0
+    if not ok:
+        fail("fast: verify returned False")
+    say("fast", f"steps {MAIN_STEPS}: {len(blob)} proof bytes, sha256 "
+                f"{hashlib.sha256(blob).hexdigest()}; verify True in {vsecs:.3f} s")
+    roots = _fast_reference_roots(stark, trace)
+    if list(roots) != proof.fri_proof.group_roots:
+        fail("fast: the group roots differ from the plain versions' roots")
+    say("fast", "tree_w and tree_v roots equal the plain versions' on the card")
+    for name, count in launches.items():
+        results[name]["paths"]["fast"] = count
+    if fans.get(4, 0) <= 0:
+        fail("fast: the fan-4 inner level was not launched")
+    say("fast", f"inner-level launches by fan: {json.dumps(fans)}")
+    del proof, proof2, stark, trace
+
+    stark, traces = _fast(MAIN_STEPS, FAST_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    proof = stark.prove_many(traces)
+    secs = time.time() - t0
+    cons = [stark._constraint_polys(t) for t in traces]
+    t0 = time.time()
+    ok = stark.verify_many(cons, proof)
+    vsecs = time.time() - t0
+    if not ok:
+        fail("fast: prove_many verify returned False")
+    say("fast", f"steps {MAIN_STEPS} x {FAST_BATCH} traces (prove_many): "
+                f"prove {secs:.3f} s ({secs / FAST_BATCH:.3f} s per trace), "
+                f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB, {len(proof_bytes(proof))} proof bytes, verify True in "
+                f"{vsecs:.3f} s; phase_seconds "
+                + json.dumps({k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+
+
+# the paths whose 2^20 - 1 prove must launch each kernel
+KERNELS = {
+    "ntt": ("ministark_tpu_torch/csrc/ntt.cu",
+            "ministark_tpu/ops/ntt_mxu.py:370", ("parity", "fast")),
+    "sha256_inner_level": ("ministark_tpu_torch/csrc/sha256.cu",
+                           "ministark_tpu/ops/sha256_pallas.py:113",
+                           ("parity", "fast")),
+    "leaf_hash": ("ministark_tpu_torch/csrc/leaf_hash.cu",
+                  "ministark_tpu/ops/sha256_pallas.py:163", ("parity",)),
+    "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
+                    "ministark_tpu/ops/sha256_pallas.py:113", ("fast",)),
+}
 
 
 def main():
@@ -412,32 +706,33 @@ def main():
     import torch
 
     phase_build()
-    results = {
-        "ntt": {"source": "ministark_tpu_torch/csrc/ntt.cu",
-                "replaces": "ministark_tpu/ops/ntt_mxu.py:370"},
-        "sha256_inner_level": {"source": "ministark_tpu_torch/csrc/sha256.cu",
-                               "replaces": "ministark_tpu/ops/sha256_pallas.py:113"},
-        "leaf_hash": {"source": "ministark_tpu_torch/csrc/leaf_hash.cu",
-                      "replaces": "ministark_tpu/ops/sha256_pallas.py:163"},
-    }
-    for r in results.values():
-        r.update(max_abs_err=0, shapes=[], launches=0)
+    results = {name: {"max_abs_err": 0, "shapes": [], "paths": {}}
+               for name in KERNELS}
     phase_kernels(results)
     phase_parity()
     phase_main(results)
+    phase_fast(results)
 
-    for name, r in results.items():
-        if r["launches"] <= 0:
-            fail(f"{name} was not launched by the 2^20 - 1 prove")
-    say("launches", json.dumps({k: r["launches"] for k, r in results.items()}))
+    for name, (_, _, paths) in KERNELS.items():
+        for path in paths:
+            if results[name]["paths"].get(path, 0) <= 0:
+                fail(f"{name} was not launched by the {path} 2^20 - 1 prove")
+    say("launches", json.dumps({k: r["paths"] for k, r in results.items()}))
 
     kernels = []
-    for name, r in results.items():
+    for name, (source, replaces, _) in KERNELS.items():
+        r = results[name]
         main_shape = max(r["shapes"], key=lambda s: s["ms"])
-        kernels.append({"name": name, "route": "cuda", "source": r["source"],
-                        "replaces": r["replaces"], "launches": r["launches"],
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sum(r["paths"].values()),
+                        "launches_by_path": r["paths"],
                         "max_abs_err": r["max_abs_err"],
                         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+                        "bound_ms": main_shape["bound_ms"],
+                        "bound_by": main_shape["bound_by"],
+                        # torch has no Goldilocks NTT and no SHA-256
+                        "library_ms": None,
                         "shape": main_shape["shape"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,10 @@ def _is_ext(field) -> bool:
 
 def from_jax_packed(arr, field, device=None) -> torch.Tensor:
     """JAX packed u32 array -> int64 tensor. ``field``: any host field of
-    degree 1 (GL base, (..., 2) input) or 2 (GL Fp2, (..., 2, 2) input)."""
+    degree 1 (GL base, (..., 2) input) or 2 (GL Fp2, (..., 2, 2) input).
+    The JAX ``FastStark._constraint_polys`` output, (w+t, n, 2) with the
+    base field, becomes the (w+t, n) tensor the port's ``FastStark.verify``
+    takes."""
     a = np.asarray(arr, dtype=np.uint32)
     assert a.shape[-1] == 2, a.shape
     if _is_ext(field):

@@ -18,7 +18,7 @@ from ..utils.rng import ark_test_rng
 
 
 def fibonacci_trace_cols_on_device(stark_field, steps: int, secret_b: int = 2,
-                                   device="cpu") -> torch.Tensor:
+                                   device="cuda") -> torch.Tensor:
     """Witness generation on ``device``: row i of the trace is
     M^i [a0; b0] with M = [[0, 1], [1, 1]], so every row comes from an
     exponent-bit ladder of 2x2 matrix powers in log2(n) steps, with no host
@@ -58,7 +58,7 @@ def fibonacci_trace_cols_on_device(stark_field, steps: int, secret_b: int = 2,
 
 
 def fibonacci_device_trace(stark_field, steps: int, secret_b: int = 2,
-                           on_device: bool = False, device="cpu") -> DeviceTrace:
+                           on_device: bool = False, device="cuda") -> DeviceTrace:
     """The Fibonacci trace for DeviceEngine: columns built on ``device``
     with the matrix-power ladder (``on_device``), or on the host."""
     base = stark_field.base

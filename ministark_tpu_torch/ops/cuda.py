@@ -1,10 +1,11 @@
 """Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
 
 All kernels go into one shared library with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` (Hopper) into ``ministark_tpu_torch/_build/``. The
-library's file name carries a hash of the sources and flags, so an edit
-rebuilds it; a file lock makes concurrent first uses build it once. Nothing
-here is imported or built until a CUDA tensor reaches a kernel wrapper.
+``nvcc`` for ``sm_90a`` (Hopper) into ``ministark_tpu_torch/_build/``: one
+``nvcc -c`` per source, all started together, then one link. The library's
+file name carries a hash of the sources and flags, so an edit rebuilds it;
+a file lock makes concurrent first uses build it once. Nothing here is
+imported or built until a CUDA tensor reaches a kernel wrapper.
 
 Every entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launches;
@@ -27,8 +28,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu")
 HEADERS = ("gl.cuh", "sha256.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +39,10 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     # x, y, batch, log_n, twiddles, pre_pows, post_pows, scale, stream
     "ms_ntt_gl": [_P, _P, _I, _I, _P, _P, _P, _U64, _P],
-    # children, parents, n_parents, stream
-    "ms_sha256_inner_level": [_P, _P, _I, _P],
+    # children, parents, n_parents, fan, stream
+    "ms_sha256_inner_level": [_P, _P, _I, _I, _P],
+    # comps, digests, n_rows, C, stream
+    "ms_sha256_rows": [_P, _P, _I, _I, _P],
     # comps, digests, n_groups, leafs_per_node, fmt, stream
     "ms_leaf_hash_gl": [_P, _P, _I, _I, _I, _P],
 }
@@ -64,6 +68,13 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; [(cmd, stdout and stderr, returncode)]."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    return [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(cmds, procs)]
+
+
 def build() -> str:
     """Compile the library if it is not built yet; returns its path. The
     compiler's output (ptxas register and spill counts) goes to
@@ -73,15 +84,23 @@ def build() -> str:
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(so):
+            nvcc = _nvcc()
             tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            with open(os.path.join(BUILD_DIR, "build.log"), "w") as log:
-                log.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+            objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj]
+                    for src, obj in zip(SOURCES, objs)]
+            results = _run_all(cmds)
+            if all(rc == 0 for _, _, rc in results):
+                results += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+            with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+                f.write("".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results))
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+            for cmd, out, rc in results:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                       f"{out[-4000:]}")
             os.replace(tmp, so)
     return so
 

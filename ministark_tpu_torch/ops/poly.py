@@ -85,6 +85,18 @@ def fold_even_odd(k: FieldOps, coeffs, alpha):
     return k.add(even, k.mul(odd, alpha.expand_as(odd)))
 
 
+def fold_factor(k: FieldOps, coeffs, alpha, F: int):
+    """sum_j alpha^j * coeffs[F*i + j]: the F-way coefficient fold of the
+    fast mode's FRI (``poly_device.fold_factor`` :203); (n, *elem) ->
+    (n / F, *elem)."""
+    n = coeffs.shape[0]
+    if n % F:
+        raise ValueError(f"fold_factor: {n} coefficients do not fold by {F}")
+    groups = coeffs.reshape((n // F, F) + tuple(coeffs.shape[1:]))
+    pw = powers(k, alpha, F)                                   # (F, *elem)
+    return field_sum(k, k.mul(groups, pw.unsqueeze(0).expand_as(groups)), axis=1)
+
+
 def mix_columns(k: FieldOps, cols, weights):
     """sum_i weights[i] * cols[i]; cols: (w, n, *elem), weights: (w, *elem)."""
     return field_sum(k, k.mul(cols, weights.unsqueeze(1).expand_as(cols)), axis=0)

@@ -1,14 +1,16 @@
-"""Batched SHA-256 and the fan-2 Merkle inner level.
+"""Batched SHA-256: Merkle inner levels and binary row leaves.
 
 Port of ``ministark_tpu/ops/sha256.py`` (``sha256_blocks``, ``_inner_level``
-:113, ``_inner_levels_fused`` :134, ``digests_to_bytes`` :212). A digest is
-a row of 8 big-endian u32 words held in an ``int32`` tensor (n, 8); the
-CUDA kernels read it as ``uint32_t``.
+:113, ``_inner_levels_fused`` :134, ``binary_row_digests`` :194,
+``digests_to_bytes`` :212, ``bytes_to_digests`` :224). A digest is a row of
+8 big-endian u32 words held in an ``int32`` tensor (n, 8); the CUDA kernels
+read it as ``uint32_t``. Row components are int64 u64 bit patterns.
 
-``inner_level`` dispatches by device: a CPU tensor takes
-``inner_level_plain`` (the compression written in int64 torch ops on u32
-values), a CUDA tensor launches csrc/sha256.cu or raises. The tree builder
-calls it once per level down to the root, at every level width.
+``inner_level`` (fan 2 for the parity trees, the arity for the fast mode's
+index trees) and ``binary_row_digests`` dispatch by device: a CPU tensor
+takes the plain version (the compression written in int64 torch ops on u32
+values), a CUDA tensor launches csrc/sha256.cu or raises. The Merkle trees
+call them once per level down to the root, at every level width.
 """
 
 from __future__ import annotations
@@ -18,8 +20,11 @@ import torch
 
 from . import cuda
 
-# Incremented once per call that launches the CUDA inner-level kernel.
+# Incremented once per call that launches the CUDA inner-level kernel
+# (``fan_launches`` splits the same count by fan), and the row-leaf kernel.
 launches = 0
+fan_launches: dict = {}
+row_launches = 0
 
 M32 = 0xFFFFFFFF
 
@@ -101,46 +106,132 @@ def sha256_blocks_plain(words: torch.Tensor, active=None) -> torch.Tensor:
     return torch.stack(state, 1)
 
 
-def inner_level_plain(digests: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: (2n, 8) int32 child digests -> (n, 8) parents,
-    SHA-256 of each pair's 64 concatenated bytes (src/merkle.rs:171-177)."""
-    d = to_u32(digests).reshape(-1, 16)
+def inner_level_plain(digests: torch.Tensor, fan: int = 2) -> torch.Tensor:
+    """Plain PyTorch version: (fan * n, 8) int32 child digests -> (n, 8)
+    parents, SHA-256 of each group's fan * 32 concatenated bytes: fan/2
+    data blocks, then the padding block (``_inner_level``, src/merkle.rs:
+    171-177)."""
+    _check_level(digests, fan, "sha256_inner_level")
+    d = to_u32(digests).reshape(-1, fan // 2, 16)
     state = [torch.full((d.shape[0],), h, dtype=torch.int64, device=d.device)
              for h in _H0]
-    state = _compress(state, [d[:, j] for j in range(16)])
-    state = _compress(state, pad_block(64))
+    for b in range(fan // 2):
+        state = _compress(state, [d[:, b, j] for j in range(16)])
+    state = _compress(state, pad_block(fan * 32))
     return from_u32(torch.stack(state, 1))
 
 
-# ------------------------------------------------------------ CUDA kernel
-def inner_level_cuda(digests: torch.Tensor) -> torch.Tensor:
+def _bswap32(x):
+    """Byte swap of int64 tensors holding u32 values."""
+    return (((x & 0xFF) << 24) | ((x & 0xFF00) << 8)
+            | ((x >> 8) & 0xFF00) | ((x >> 24) & 0xFF))
+
+
+def _row_tail(C: int):
+    """The constant words after a row's 2C data words: 0x80000000, zeros,
+    the 64-bit bit length; (8C + 9 + 63) // 64 blocks in all."""
+    m = 8 * C
+    n_blocks = (m + 9 + 63) // 64
+    tail = [0] * (n_blocks * 16 - 2 * C)
+    tail[0] = 0x80000000
+    tail[-2] = (m * 8) >> 32
+    tail[-1] = (m * 8) & M32
+    return n_blocks, tail
+
+
+def binary_row_digests_plain(comps: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: (n, C) int64 u64 components -> (n, 8) int32
+    digests of each row's C little-endian u64s (``binary_row_digests``
+    :194; hashlib.sha256(row_le_bytes))."""
+    _check_rows(comps)
+    n, C = comps.shape
+    words = torch.stack([_bswap32(comps & M32), _bswap32((comps >> 32) & M32)],
+                        -1).reshape(n, 2 * C)
+    n_blocks, tail = _row_tail(C)
+    tail_t = torch.tensor(tail, dtype=torch.int64, device=comps.device)
+    msgs = torch.cat([words, tail_t.expand(n, -1)], 1).reshape(n, n_blocks, 16)
+    return from_u32(sha256_blocks_plain(msgs))
+
+
+def _check_level(digests, fan: int, name: str):
+    if fan < 2 or fan & (fan - 1):
+        raise ValueError(f"{name}: fan must be a power of two >= 2, got {fan}")
+    if digests.dim() != 2 or digests.shape[1] != 8 or digests.shape[0] % fan:
+        raise ValueError(f"{name}: need ({fan}n, 8) digests, got "
+                         f"{tuple(digests.shape)}")
+
+
+def _check_rows(comps):
+    if comps.dim() != 2 or comps.shape[1] < 1:
+        raise ValueError(f"sha256_rows: need (n, C) components, got "
+                         f"{tuple(comps.shape)}")
+
+
+# ------------------------------------------------------------ CUDA kernels
+CUDA_FANS = (2, 4, 8)
+
+
+def inner_level_cuda(digests: torch.Tensor, fan: int = 2) -> torch.Tensor:
     """CUDA kernel (csrc/sha256.cu), same contract as ``inner_level_plain``.
 
     Replaces the Pallas kernel ``ministark_tpu/ops/sha256_pallas.py::
-    _make_kernel`` as reached through ``inner_level_tr`` (fan 2): one thread
-    per parent compresses the 16 child words and then the constant padding
-    block, whose schedule is immediates. Bound on this card: integer ALU
-    throughput (two 64-round compressions per 96 bytes moved)."""
+    _make_kernel`` as reached through ``inner_level_tr``: one thread per
+    parent compresses its fan/2 blocks of child words and then the constant
+    padding block, whose schedule is immediates. Bound on this card:
+    integer ALU throughput (fan/2 + 1 64-round compressions per fan * 32
+    bytes read)."""
     global launches
     cuda.require(digests, "sha256_inner_level", torch.int32, 2)
-    if digests.shape[1] != 8 or digests.shape[0] % 2:
-        raise ValueError(f"sha256_inner_level: need (2n, 8) digests, got "
-                         f"{tuple(digests.shape)}")
-    n = digests.shape[0] // 2
+    _check_level(digests, fan, "sha256_inner_level")
+    if fan not in CUDA_FANS:
+        raise ValueError(f"sha256_inner_level: the kernel takes fan {CUDA_FANS}, "
+                         f"got {fan}")
+    n = digests.shape[0] // fan
     out = torch.empty((n, 8), dtype=torch.int32, device=digests.device)
     if n:
         err = cuda.library().ms_sha256_inner_level(
-            digests.data_ptr(), out.data_ptr(), n, cuda.stream_ptr(digests))
+            digests.data_ptr(), out.data_ptr(), n, fan, cuda.stream_ptr(digests))
         cuda.check("sha256_inner_level", err)
         launches += 1
+        fan_launches[fan] = fan_launches.get(fan, 0) + 1
     return out
 
 
-def inner_level(digests: torch.Tensor) -> torch.Tensor:
+def binary_row_digests_cuda(comps: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel (csrc/sha256.cu), same contract as
+    ``binary_row_digests_plain``.
+
+    Replaces the Pallas kernel ``ministark_tpu/ops/sha256_pallas.py::
+    _make_kernel`` as reached through ``row_digests_tr``: one thread per row
+    reads its C components, byte-swaps each u32 half into a big-endian word
+    and compresses block by block, then the constant tail. Bound on this
+    card: integer ALU throughput ((8C + 9 + 63) // 64 compressions per
+    8C bytes read)."""
+    global row_launches
+    cuda.require(comps, "sha256_rows", torch.int64, 2)
+    _check_rows(comps)
+    n, C = comps.shape
+    out = torch.empty((n, 8), dtype=torch.int32, device=comps.device)
+    if n:
+        err = cuda.library().ms_sha256_rows(
+            comps.data_ptr(), out.data_ptr(), n, C, cuda.stream_ptr(comps))
+        cuda.check("sha256_rows", err)
+        row_launches += 1
+    return out
+
+
+def inner_level(digests: torch.Tensor, fan: int = 2) -> torch.Tensor:
     """Dispatch by device: CPU -> plain version, CUDA -> kernel (or raise)."""
     if digests.device.type == "cpu":
-        return inner_level_plain(digests)
-    return inner_level_cuda(digests)
+        return inner_level_plain(digests, fan)
+    return inner_level_cuda(digests, fan)
+
+
+def binary_row_digests(comps: torch.Tensor) -> torch.Tensor:
+    """Dispatch by device: CPU -> plain version, CUDA -> kernel (or raise)."""
+    if comps.device.type == "cpu":
+        return binary_row_digests_plain(comps)
+    return binary_row_digests_cuda(comps)
 
 
 def merkle_inner_levels(leaf_digests: torch.Tensor) -> torch.Tensor:
@@ -162,3 +253,10 @@ def digests_to_bytes(digests) -> np.ndarray:
         digests = digests.detach().cpu().numpy()
     d = np.ascontiguousarray(digests).view(np.uint32)
     return d.astype(">u4").view(np.uint8).reshape(d.shape[0], 32)
+
+
+def bytes_to_digests(b) -> torch.Tensor:
+    """(n, 32) uint8 -> (n, 8) int32 big-endian words (``bytes_to_digests``
+    :224)."""
+    words = np.ascontiguousarray(b, dtype=np.uint8).reshape(-1, 32).view(">u4")
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))

@@ -13,8 +13,10 @@ on the engine's device:
 
 Only protocol-inherent sequential state (the Fiat-Shamir sponge, challenge
 scalars, proof assembly) touches host scalars. The device is explicit:
-``DeviceEngine(config, device="cuda")``; a tensor handed in on another
-device is moved there once.
+``DeviceEngine(config, device="cuda")`` by default, and the constructor
+raises on a host without a card (the CPU is used only when asked for with
+``device="cpu"``); a tensor handed in on another device is moved there
+once.
 
 Two value-preserving deviations from the reference's algorithm, as in the
 JAX engine: query-phase y values are read from the committed codeword
@@ -83,7 +85,7 @@ class DeviceTrace:
 
 
 class DeviceEngine:
-    def __init__(self, config: StarkConfig, device="cpu"):
+    def __init__(self, config: StarkConfig, device="cuda"):
         self.config = config
         self.device = torch.device(device)
         # fails here, not mid-prove, when the device does not exist

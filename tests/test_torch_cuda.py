@@ -1,7 +1,9 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card,
-at small shapes, and the engine's proof on the card against the host
-oracle. Marked ``cuda``: they skip on a host without a CUDA device (run them
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small shapes, the engine's proof on the card against the host oracle, and
+the fast mode's proof on the card against its golden fixture. Marked ``cuda``: they skip on a host without a CUDA device (run them
 on one with ``python -m pytest tests/test_torch_cuda.py -m cuda``)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -52,6 +54,34 @@ def test_inner_level_kernel_matches_plain(dev):
     d = torch.from_numpy(np.random.default_rng(1).integers(
         -2**31, 2**31, size=(8192, 8)).astype(np.int32)).to(dev)
     assert torch.equal(sh.inner_level_cuda(d), sh.inner_level_plain(d))
+
+
+@pytest.mark.parametrize("fan", [2, 4, 8])
+@pytest.mark.parametrize("parents", [1, 2, 3, 4, 1000])
+def test_inner_level_kernel_matches_plain_at_every_fan(dev, fan, parents):
+    d = torch.from_numpy(np.random.default_rng(fan * parents).integers(
+        -2**31, 2**31, size=(fan * parents, 8)).astype(np.int32)).to(dev)
+    assert torch.equal(sh.inner_level_cuda(d, fan), sh.inner_level_plain(d, fan))
+
+
+@pytest.mark.parametrize("C", [1, 6, 7, 8, 9, 40, 48, 192])
+def test_row_kernel_matches_plain(dev, C):
+    c = _rand((3001, C), C).to(dev)
+    assert torch.equal(sh.binary_row_digests_cuda(c), sh.binary_row_digests_plain(c))
+
+
+def test_fast_stark_on_card_matches_golden(dev):
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes
+
+    trace = fibonacci_device_trace(Goldilocks, 100, on_device=True, device=dev)
+    stark = FastStark(FastStarkConfig(Goldilocks, 100, queries=4, final_len=8),
+                      device=dev)
+    proof = stark.prove(trace)
+    golden = open(os.path.join(os.path.dirname(__file__), "golden",
+                               "fast_fri_fib100.bin"), "rb").read()
+    assert fast_proof_to_bytes(Goldilocks, proof) == golden
+    assert stark.verify(stark._constraint_polys(trace), proof)
 
 
 def test_engine_on_card_matches_host(dev, monkeypatch):

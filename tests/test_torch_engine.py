@@ -48,9 +48,10 @@ def _jax_device_proof(steps):
 
 
 def _port(steps, on_device=True):
-    trace = fibonacci_device_trace(Goldilocks, steps, on_device=on_device)
+    trace = fibonacci_device_trace(Goldilocks, steps, on_device=on_device,
+                                   device="cpu")
     cfg = StarkConfig(Goldilocks, 20, 2, steps, trace.constrain_number())
-    engine = t_eng.DeviceEngine(cfg)
+    engine = t_eng.DeviceEngine(cfg, device="cpu")
     return engine, trace, engine.prove(trace)
 
 
@@ -128,7 +129,7 @@ def test_verify_and_tampering(monkeypatch):
 
 def test_witness_ladder_matches_jax():
     for steps in (9, 61, 100):
-        got = fibonacci_trace_cols_on_device(Goldilocks, steps)
+        got = fibonacci_trace_cols_on_device(Goldilocks, steps, device="cpu")
         want = j_trace(J_GL, steps).cols
         assert np.array_equal(got.numpy().view(np.uint64), want)
 
@@ -140,7 +141,7 @@ def test_from_jax_trace_proves_identically(monkeypatch):
     trace = from_jax_trace(jt, _fib_transitions(get_ops(Goldilocks.base), omega))
     assert trace.stark_field is Goldilocks
     cfg = StarkConfig(Goldilocks, 20, 2, 61, trace.constrain_number())
-    a = t_eng.DeviceEngine(cfg).prove(trace)
+    a = t_eng.DeviceEngine(cfg, device="cpu").prove(trace)
     _, _, b = _port(61)
     _assert_equal_proofs(a, b)
 

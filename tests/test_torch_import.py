@@ -12,9 +12,11 @@ import torch
 
 import ministark_tpu_torch
 from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
 from ministark_tpu_torch.ops import leaf_hash, ntt, sha256
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine
+from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
 
 PKG = pathlib.Path(ministark_tpu_torch.__file__).parent
 ROOT = PKG.parent
@@ -29,10 +31,15 @@ from ministark_tpu_torch.fields import Goldilocks
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine
-trace = fibonacci_device_trace(Goldilocks, 9, on_device=True)
-engine = DeviceEngine(StarkConfig(Goldilocks, 20, 2, 9, trace.constrain_number()))
+from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+trace = fibonacci_device_trace(Goldilocks, 9, on_device=True, device="cpu")
+engine = DeviceEngine(StarkConfig(Goldilocks, 20, 2, 9, trace.constrain_number()),
+                      device="cpu")
 proof = engine.prove(trace)
 assert engine.verify(engine.constrain_coeffs(trace), proof)
+ftrace = fibonacci_device_trace(Goldilocks, 63, on_device=True, device="cpu")
+fast = FastStark(FastStarkConfig(Goldilocks, 63, queries=4, final_len=8), device="cpu")
+assert fast.verify(fast._constraint_polys(ftrace), fast.prove(ftrace))
 assert not any(n == "ministark_tpu" or n.startswith("ministark_tpu.") for n in sys.modules)
 print("proved", len(proof.arthur))
 """
@@ -64,6 +71,20 @@ def test_cuda_engine_raises_without_a_card():
         DeviceEngine(cfg, device="cuda")
 
 
+@pytest.mark.parametrize("make", [
+    lambda: DeviceEngine(StarkConfig(Goldilocks, 20, 2, 9, 6)),
+    lambda: FastStark(FastStarkConfig(Goldilocks, 63)),
+    lambda: fibonacci_device_trace(Goldilocks, 9, on_device=True),
+], ids=["DeviceEngine", "FastStark", "fibonacci_device_trace"])
+def test_entry_points_default_to_the_card(make):
+    """With no device argument the entry points use the card, so on a host
+    without one they raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        make()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never run the plain version: a CPU tensor is an
     error there (the dispatchers send CPU tensors to the plain version)."""
@@ -74,3 +95,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sha256.inner_level_cuda(torch.zeros((4, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
         leaf_hash.leaf_hash_cuda(torch.zeros((12, 1), dtype=torch.int64), 6, 0)
+    with pytest.raises(ValueError):
+        sha256.inner_level_cuda(torch.zeros((8, 8), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        sha256.binary_row_digests_cuda(torch.zeros((4, 8), dtype=torch.int64))
