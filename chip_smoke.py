@@ -9,7 +9,8 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes: exact equality, times in ms beside
-               the least time the card could take (bound)
+               the least time the card could take (bound); the four-step and
+               pipelined NTTs also whole, against the plain radix-2 NTT
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
                Stark.prove, steps 9 equal to tests/golden/goldilocks_fib9.json
@@ -17,15 +18,23 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                20, blowup 2, witness built on the card: the pinned sizes
                against digests of the JAX package's proofs, then 2^20 - 1
                steps proved cold and warm, verified, and its two commitments
-               recomputed with the plain versions on the card
+               recomputed with the plain versions on the card; then the
+               2^14 - 1 pin and 2^20 - 1 cold and warm with each other NTT
+               backend (ntt_backend="four_step", "pipe"), equal to the
+               radix-2 proof and verified
   6. fast      the fast-mode prover (FastStark: batched FRI, 4-ary index
                trees) in bench.py's configuration: tests/golden/
                fast_fri_fib100.bin, the pinned sizes against the JAX
                package's proof bytes, 2^20 - 1 steps proved cold and warm,
                verified, both group roots recomputed with the plain versions
-               on the card, then prove_many of 4 traces at 2^20 - 1, verified
+               on the card, then prove_many of 4 traces at 2^20 - 1, verified;
+               then with each other NTT backend the 2^14 - 1 pins, 2^20 - 1
+               cold and warm and prove_many of 4, equal to the radix-2 bytes
+               and verified
   7. launches  every kernel was launched by the 2^20 - 1 proves of the paths
-               it is on (counts set to 0 just before each cold prove)
+               it is on (counts set to 0 just before each cold prove): the
+               field multiply on every path, each NTT backend's kernels on
+               the parity and fast paths of that backend
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -68,6 +77,8 @@ PINS = {
 }
 MAIN_STEPS = (1 << 20) - 1
 SEED = 20261016
+# the NTT backends proved after the default radix-2 one (ops/ntt.py)
+NTT_BACKENDS = ("four_step", "pipe")
 
 # sha256 of fast_proof_to_bytes of ministark_tpu's FastStark (JAX on the
 # CPU, witness on the device) in bench.py::fast_prove's configuration
@@ -209,6 +220,19 @@ def _ntt_work(batch, n, coset_mul: bool, scale_mul: bool):
     return 16 * batch * n + 8 * (n // 2), ops
 
 
+def _pass_work(batch, n, stages, muls):
+    """One pass over (batch, n): ``stages`` radix-2 stages and ``muls``
+    elementwise products per value (coset, twiddle, scale); each value read
+    and written once."""
+    ops = batch * ((n // 2) * stages * OPS_BUTTERFLY + n * OPS_GL_MUL * muls)
+    return 16 * batch * n, ops
+
+
+def _mul_work(a, b):
+    out = a.numel() if a.numel() >= b.numel() else b.numel()
+    return 8 * (a.numel() + b.numel() + out), out * OPS_GL_MUL
+
+
 def _leaf_hash_work(comps, k, fmt):
     """Bytes and ops of the leaf hash on these inputs: the preimage lengths
     (and so the block counts) depend on the values' decimal digits."""
@@ -236,8 +260,11 @@ def phase_kernels(results):
     import torch
 
     from ministark_tpu_torch.fields import GOLDILOCKS_FP as F
+    from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
     from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import ntt_four_step as fs
+    from ministark_tpu_torch.ops import ntt_pipe as pp
     from ministark_tpu_torch.ops import sha256 as sh
 
     rng = np.random.default_rng(SEED)
@@ -255,6 +282,8 @@ def phase_kernels(results):
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
                        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
                        f"({by})")
+        if name not in results:              # a whole transform, not a kernel
+            return
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms,
@@ -275,6 +304,56 @@ def phase_kernels(results):
         work = _ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")))
         compare("ntt", label, lambda: ntt.transform_cuda(x, **kw),
                 lambda: ntt.transform_plain(x, **kw), work)
+
+    # K5: the field multiply, flat and broadcast over a batch of rows (the
+    # coset powers times the LDE rows)
+    a, b = _rand_u64(rng, (6, 1 << 21), F.p), _rand_u64(rng, (1 << 21,), F.p)
+    for label, x, y in [("(2^21,) x (2^21,)", a[0], b),
+                        ("(6, 2^21) x (2^21,) broadcast", a, b)]:
+        compare("gl_mul", label, lambda: gl.mul_cuda(x, y),
+                lambda: gl.mul_plain(x, y), _mul_work(x, y), reps=10)
+
+    # K4 / K6: the four-step passes and the pipelined levels at the main
+    # paths' transforms, each against its plain version on the same input,
+    # then each whole transform against the plain radix-2 NTT
+    for label, batch, n, kw in [
+        ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
+        ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
+        ("fft (12, 2^21)", 12, 1 << 21, {}),
+    ]:
+        x = _rand_u64(rng, (batch, n), F.p)
+        inverse, pre = bool(kw.get("inverse")), kw.get("pre")
+        scale = F.inv(F.from_int(n)) if inverse else None
+        n1, n2 = fs._split_sizes(n)
+        tw1, tw2, wpow = fs._tables(n, inverse, x.device)
+        c = fs.pass1_cuda(x, tw2, wpow, pre)
+        compare("ntt_four_step_pass1", label,
+                lambda: fs.pass1_cuda(x, tw2, wpow, pre),
+                lambda: fs.pass1_plain(x, tw2, wpow, pre),
+                _pass_work(batch, n, n2.bit_length() - 1, 1 + (pre is not None)),
+                plain_reps=1)
+        compare("ntt_four_step_pass2", label,
+                lambda: fs.pass2_cuda(c, tw1, scale),
+                lambda: fs.pass2_plain(c, tw1, scale),
+                _pass_work(batch, n, n1.bit_length() - 1, int(inverse)),
+                plain_reps=1)
+        levels = pp._tables(n, inverse, x.device)
+        y = x
+        for i, (Fi, tw, W, k_prod) in enumerate(levels):
+            last = i == len(levels) - 1
+            args = (y.reshape(batch, Fi, n // Fi), tw, pre if i == 0 else None,
+                    W, k_prod, scale if last else None)
+            muls = int(i == 0 and pre is not None) + int(W is not None) + int(
+                last and inverse)
+            compare("ntt_pipe_level", f"{label} level {i} (F {Fi})",
+                    lambda: pp.level_cuda(*args), lambda: pp.level_plain(*args),
+                    _pass_work(batch, n, Fi.bit_length() - 1, muls),
+                    plain_reps=1)
+            y = pp.level_cuda(*args)
+        work = _ntt_work(batch, n, pre is not None, inverse)
+        for name, mod in (("four_step", fs), ("pipe", pp)):
+            compare(f"{name} transform", label, lambda: mod.transform(x, **kw),
+                    lambda: ntt.transform_plain(x, **kw), work, plain_reps=1)
 
     # K3: leaf hashes of the trace / constraint trees (fmt 0, 6 per group)
     # and of the first FRI round tree (fmt 1, 2 per group)
@@ -351,7 +430,7 @@ def _assert_equal_proofs(host, dev):
             assert d2.leaf_neighbours == h2.leaf_neighbours, "leaf neighbours"
 
 
-def _engine(steps, on_device=True):
+def _engine(steps, on_device=True, ntt_backend="radix2"):
     from ministark_tpu_torch.fields import Goldilocks
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
     from ministark_tpu_torch.stark import StarkConfig
@@ -360,7 +439,7 @@ def _engine(steps, on_device=True):
     trace = fibonacci_device_trace(Goldilocks, steps, on_device=on_device,
                                    device="cuda")
     cfg = StarkConfig(Goldilocks, 20, 2, steps, trace.constrain_number())
-    return DeviceEngine(cfg, device="cuda"), trace
+    return DeviceEngine(cfg, device="cuda", ntt_backend=ntt_backend), trace
 
 
 def phase_parity():
@@ -437,22 +516,32 @@ def _reference_commits(engine, trace):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
+    from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
     from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import ntt_four_step as fs
+    from ministark_tpu_torch.ops import ntt_pipe as pp
     from ministark_tpu_torch.ops import sha256 as sh
 
     ntt.launches = lh.launches = sh.launches = sh.row_launches = 0
+    gl.launches = fs.pass1_launches = fs.pass2_launches = pp.launches = 0
     sh.fan_launches = {}
 
 
 def read_counts():
     """({kernel: launches}, {fan: inner-level launches}) since reset_counts."""
+    from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
     from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import ntt_four_step as fs
+    from ministark_tpu_torch.ops import ntt_pipe as pp
     from ministark_tpu_torch.ops import sha256 as sh
 
     return ({"ntt": ntt.launches, "sha256_inner_level": sh.launches,
-             "leaf_hash": lh.launches, "sha256_rows": sh.row_launches},
+             "leaf_hash": lh.launches, "sha256_rows": sh.row_launches,
+             "gl_mul": gl.launches, "ntt_four_step_pass1": fs.pass1_launches,
+             "ntt_four_step_pass2": fs.pass2_launches,
+             "ntt_pipe_level": pp.launches},
             dict(sh.fan_launches))
 
 
@@ -460,6 +549,7 @@ def phase_main(results):
     import torch
 
     from ministark_tpu_torch.fields import Goldilocks
+    from ministark_tpu_torch.stark.engine import DeviceEngine
     from ministark_tpu_torch.stark.proof_io import proof_digests
 
     for steps, pins in PINS.items():
@@ -522,8 +612,38 @@ def phase_main(results):
     for name, count in launches.items():
         results[name]["paths"]["parity"] = count
 
+    for backend in NTT_BACKENDS:
+        small, strace = _engine(16383, ntt_backend=backend)
+        if proof_digests(Goldilocks, small.prove(strace)) != PINS[16383]:
+            fail(f"{backend}: steps 16383 differ from the JAX pins")
+        bengine = DeviceEngine(engine.config, device="cuda", ntt_backend=backend)
+        reset_counts()
+        t0 = time.time()
+        proof = bengine.prove(trace)
+        cold = time.time() - t0
+        launches, _ = read_counts()
+        cold_phases = bengine.phase_seconds
+        t0 = time.time()
+        proof2 = bengine.prove(trace)
+        warm = time.time() - t0
+        if (proof_digests(Goldilocks, proof) != d1
+                or proof_digests(Goldilocks, proof2) != d1):
+            fail(f"{backend}: the 2^20 - 1 proof differs from the radix-2 proof")
+        if not bengine.verify(bengine.constrain_coeffs(trace), proof):
+            fail(f"{backend}: verify returned False")
+        say("main", f"ntt_backend={backend}: steps 16383 equal to the JAX pins; "
+                    f"steps {MAIN_STEPS} equal to the radix-2 proof, verified; "
+                    f"cold prove {cold:.3f} s, phase_seconds "
+                    + json.dumps({k: round(v, 4) for k, v in cold_phases.items()}))
+        say("main", f"ntt_backend={backend}: warm prove {warm:.3f} s; "
+                    "phase_seconds "
+                    + json.dumps({k: round(v, 4)
+                                  for k, v in bengine.phase_seconds.items()}))
+        for name, count in launches.items():
+            results[name]["paths"][f"parity_{backend}"] = count
 
-def _fast(steps, batch=1, **cfg):
+
+def _fast(steps, batch=1, ntt_backend="radix2", **cfg):
     from ministark_tpu_torch.fields import Goldilocks
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
     from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
@@ -531,7 +651,7 @@ def _fast(steps, batch=1, **cfg):
     traces = [fibonacci_device_trace(Goldilocks, steps, on_device=True,
                                      device="cuda") for _ in range(batch)]
     stark = FastStark(FastStarkConfig(Goldilocks, steps, **(cfg or FAST_CFG)),
-                      device="cuda")
+                      device="cuda", ntt_backend=ntt_backend)
     return stark, traces
 
 
@@ -685,6 +805,55 @@ def phase_fast(results):
                 f"GiB, {len(proof_bytes(proof))} proof bytes, verify True in "
                 f"{vsecs:.3f} s; phase_seconds "
                 + json.dumps({k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+    many_blob = proof_bytes(proof)
+    del proof
+
+    for backend in NTT_BACKENDS:
+        for (steps, batch), pin in FAST_PINS.items():
+            if steps != 16383:
+                continue
+            bstark, btraces = _fast(steps, batch, ntt_backend=backend)
+            got = hashlib.sha256(proof_bytes(bstark.prove_many(btraces))).hexdigest()
+            if got != pin:
+                fail(f"fast {backend}: steps {steps} x {batch} differ from the "
+                     "JAX pin")
+        bstark, _ = _fast(MAIN_STEPS, 0, ntt_backend=backend)
+        reset_counts()
+        t0 = time.time()
+        proof = bstark.prove(traces[0])
+        cold = time.time() - t0
+        launches, _ = read_counts()
+        cold_phases = bstark.phase_seconds
+        t0 = time.time()
+        proof2 = bstark.prove(traces[0])
+        warm = time.time() - t0
+        if proof_bytes(proof) != blob or proof_bytes(proof2) != blob:
+            fail(f"fast {backend}: the 2^20 - 1 proof differs from the radix-2 "
+                 "proof")
+        if not bstark.verify(bstark._constraint_polys(traces[0]), proof):
+            fail(f"fast {backend}: verify returned False")
+        say("fast", f"ntt_backend={backend}: steps 16383 x 1 and x 4 equal to "
+                    f"the JAX pins; steps {MAIN_STEPS} equal to the radix-2 "
+                    f"proof, verified; cold prove {cold:.3f} s, phase_seconds "
+                    + json.dumps({k: round(v, 4) for k, v in cold_phases.items()}))
+        say("fast", f"ntt_backend={backend}: warm prove {warm:.3f} s; "
+                    "phase_seconds "
+                    + json.dumps({k: round(v, 4)
+                                  for k, v in bstark.phase_seconds.items()}))
+        for name, count in launches.items():
+            results[name]["paths"][f"fast_{backend}"] = count
+        del proof, proof2
+        t0 = time.time()
+        proof = bstark.prove_many(traces)
+        secs = time.time() - t0
+        if proof_bytes(proof) != many_blob:
+            fail(f"fast {backend}: prove_many differs from the radix-2 proof")
+        if not bstark.verify_many(cons, proof):
+            fail(f"fast {backend}: prove_many verify returned False")
+        say("fast", f"ntt_backend={backend}: steps {MAIN_STEPS} x {FAST_BATCH} "
+                    f"traces (prove_many) equal to the radix-2 proof, verified; "
+                    f"prove {secs:.3f} s ({secs / FAST_BATCH:.3f} s per trace)")
+        del proof
 
 
 # the paths whose 2^20 - 1 prove must launch each kernel
@@ -698,6 +867,19 @@ KERNELS = {
                   "ministark_tpu/ops/sha256_pallas.py:163", ("parity",)),
     "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
                     "ministark_tpu/ops/sha256_pallas.py:113", ("fast",)),
+    "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
+               "ministark_tpu/ops/pallas_kernels.py:36",
+               ("parity", "fast") + tuple(f"{p}_{b}" for p in ("parity", "fast")
+                                          for b in NTT_BACKENDS)),
+    "ntt_four_step_pass1": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
+                            "ministark_tpu/ops/ntt_pallas.py:190",
+                            ("parity_four_step", "fast_four_step")),
+    "ntt_four_step_pass2": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
+                            "ministark_tpu/ops/ntt_pallas.py:204",
+                            ("parity_four_step", "fast_four_step")),
+    "ntt_pipe_level": ("ministark_tpu_torch/csrc/ntt_pipe.cu",
+                       "ministark_tpu/ops/ntt_mxu.py:486",
+                       ("parity_pipe", "fast_pipe")),
 }
 
 
@@ -731,7 +913,8 @@ def main():
                         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
                         "bound_ms": main_shape["bound_ms"],
                         "bound_by": main_shape["bound_by"],
-                        # torch has no Goldilocks NTT and no SHA-256
+                        # torch has no Goldilocks NTT, no SHA-256 and no
+                        # modular u64 multiply
                         "library_ms": None,
                         "shape": main_shape["shape"]})
     print(smi, flush=True)

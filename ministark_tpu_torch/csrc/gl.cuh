@@ -40,4 +40,19 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
+// s^e as the product over the set bits b of e of sq[b] = s^(2^b): a coset
+// offset's power from a table of its squares
+__device__ __forceinline__ uint64_t pow_bits(const uint64_t* sq, uint32_t e) {
+  uint64_t r = 1;
+  for (int b = 0; e; ++b, e >>= 1) {
+    if (e & 1) r = mul(r, sq[b]);
+  }
+  return r;
+}
+
+// the low `bits` bits of v in reverse order
+__device__ __forceinline__ uint32_t bit_reverse(uint32_t v, int bits) {
+  return bits ? (__brev(v) >> (32 - bits)) : 0u;
+}
+
 }  // namespace gl

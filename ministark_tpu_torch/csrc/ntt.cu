@@ -25,20 +25,11 @@ constexpr int TILE_LOG = 12;  // 4096 elements = 32 KB of shared memory
 constexpr int LOCAL_THREADS = 1024;
 constexpr int STAGE_THREADS = 256;
 
-// prod over the set bits b of e of sq[b] = s^(2^b), i.e. s^e
-__device__ __forceinline__ uint64_t pow_bits(const uint64_t* sq, uint32_t e) {
-  uint64_t r = 1;
-  for (int b = 0; e; ++b, e >>= 1) {
-    if (e & 1) r = gl::mul(r, sq[b]);
-  }
-  return r;
-}
-
 __device__ __forceinline__ uint64_t finish(uint64_t v, uint32_t idx,
                                            const uint64_t* post,
                                            uint64_t scale) {
   if (scale != 1) v = gl::mul(v, scale);
-  if (post) v = gl::mul(v, pow_bits(post, idx));
+  if (post) v = gl::mul(v, gl::pow_bits(post, idx));
   return v;
 }
 
@@ -57,9 +48,9 @@ __global__ void ntt_local(const uint64_t* __restrict__ x,
 
   for (uint32_t t = threadIdx.x; t < T; t += blockDim.x) {
     const uint32_t dst = base + t;
-    const uint32_t src = log_n ? (__brev(dst) >> (32 - log_n)) : 0u;
+    const uint32_t src = gl::bit_reverse(dst, log_n);
     uint64_t v = xr[src];
-    if (pre) v = gl::mul(v, pow_bits(pre, src));
+    if (pre) v = gl::mul(v, gl::pow_bits(pre, src));
     s[t] = v;
   }
   __syncthreads();

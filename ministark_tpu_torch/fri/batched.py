@@ -30,7 +30,7 @@ import torch
 
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
-from ..ops.ntt import get_ntt_fns
+from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import fold_factor, mix_columns
 
 
@@ -179,8 +179,11 @@ def _row_values(field, row: bytes, count: int) -> List:
 
 
 class BatchedFri:
-    def __init__(self, config: BatchedFriConfig):
+    def __init__(self, config: BatchedFriConfig, ntt_backend: str = "radix2"):
+        """``ntt_backend``: the NTT kernels of the LDE (ops/ntt.py); not part
+        of the config or the transcript, and it changes no proof byte."""
         self.cfg = config
+        self.ntt_backend = check_backend(ntt_backend)
         self.ext = config.field
         self.ke = get_ops(self.ext)
         # the ext elements' components are prime-field values, so the
@@ -197,7 +200,7 @@ class BatchedFri:
         flat = torch.zeros((rows.shape[0], domain_size), dtype=torch.int64,
                            device=coeffs.device)
         flat[:, :m] = rows
-        fft = get_ntt_fns(self._ntt_base, domain_size)[0]
+        fft = get_ntt_fns(self._ntt_base, domain_size, self.ntt_backend)[0]
         ev = fft(flat).reshape(comp.shape[:-1] + (domain_size,))
         return ev.movedim(lead, -1)                       # (..., N, 2)
 

@@ -26,7 +26,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu")
+SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
+           "ntt_four_step.cu", "ntt_pipe.cu")
 HEADERS = ("gl.cuh", "sha256.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -35,6 +36,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_int64
+_I64P = ctypes.POINTER(ctypes.c_int64)   # a host int64 array
 # name -> argtypes; every function returns int (a cudaError_t)
 _SIGNATURES = {
     # x, y, batch, log_n, twiddles, pre_pows, post_pows, scale, stream
@@ -45,6 +48,15 @@ _SIGNATURES = {
     "ms_sha256_rows": [_P, _P, _I, _I, _P],
     # comps, digests, n_groups, leafs_per_node, fmt, stream
     "ms_leaf_hash_gl": [_P, _P, _I, _I, _I, _P],
+    # a, b, out, ndim, shape, a_strides, b_strides (int64[ndim] each), numel,
+    # stream
+    "ms_gl_mul": [_P, _P, _P, _I, _I64P, _I64P, _I64P, _I64, _P],
+    # x, c, batch, log_n1, log_n2, tw2, wpow, pre, stream
+    "ms_ntt_four_step_pass1": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # c, y, batch, log_n1, log_n2, tw1, post, scale, stream
+    "ms_ntt_four_step_pass2": [_P, _P, _I, _I, _I, _P, _P, _U64, _P],
+    # x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale, stream
+    "ms_ntt_pipe_level": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P],
 }
 
 _lib = None

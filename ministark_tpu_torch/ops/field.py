@@ -6,21 +6,29 @@ canonical u64 bit pattern (values >= 2^63 read as negative), and an Fp2
 element adds a trailing axis of 2 (c0, c1), with u^2 = 7. CUDA kernels
 reinterpret the same storage as ``uint64_t``.
 
-These are plain torch ops and run on the CPU and on CUDA alike. torch has
-no unsigned 64-bit arithmetic and a 64x64 -> 128 product fits no dtype, so
-every op splits its operands into 32-bit halves (and the multiply into
-16-bit limbs) so that no intermediate leaves [-2^63, 2^63): the results do
-not depend on wrapping behaviour. The 128-bit product is reduced with
-2^64 == 2^32 - 1 and 2^96 == -1 (mod p), as ``ops/gl.py::_reduce128``.
+Add and subtract are plain torch ops and run on the CPU and on CUDA alike
+(the JAX package has no Pallas kernel for them). ``mul`` dispatches by the
+tensors' device: on the CPU it takes ``mul_plain``, on a CUDA tensor it
+launches the ``gl_mul`` kernel (csrc/gl_mul.cu) or raises, so every caller
+(``ext_mul``, ``pow``, ops/poly.py, the engines, the FRI code) gets the
+kernel on the card. torch has no unsigned 64-bit arithmetic and a
+64x64 -> 128 product fits no dtype, so the plain ops split their operands
+into 32-bit halves (and the multiply into 16-bit limbs) so that no
+intermediate leaves [-2^63, 2^63): the results do not depend on wrapping
+behaviour. The 128-bit product is reduced with 2^64 == 2^32 - 1 and
+2^96 == -1 (mod p), as ``ops/gl.py::_reduce128``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from . import cuda
 
 P = 18446744069414584321
 M32 = 0xFFFFFFFF
@@ -127,9 +135,92 @@ def neg(a):
     return sub(torch.zeros_like(a), a)
 
 
-def mul(a, b):
-    """(a * b) mod p."""
+def mul_plain(a, b):
+    """(a * b) mod p in torch ops: the plain version of ``mul_cuda``."""
     return _join(*_mul_h(*_split(a), *_split(b)))
+
+
+# Incremented once per call that launches the gl_mul kernel.
+launches = 0
+
+MUL_MAX_DIMS = 4   # csrc/gl_mul.cu addresses operands with up to 4 strides
+
+
+def _collapse(shape, *strides):
+    """Drop size-1 axes and merge neighbouring axes that every operand walks
+    contiguously: (sizes, [strides per operand]) with the fewest axes, in
+    element units, addressing the same elements of a row-major output."""
+    sizes, out = [], [[] for _ in strides]
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        if sizes and all(st[-1] == s[d] * size for st, s in zip(out, strides)):
+            sizes[-1] *= size
+            for st, s in zip(out, strides):
+                st[-1] = s[d]
+            continue
+        sizes.append(size)
+        for st, s in zip(out, strides):
+            st.append(s[d])
+    return sizes, out
+
+
+def _on_device(t: torch.Tensor, name: str, device) -> torch.Tensor:
+    """t on ``device``: a 0-d CPU scalar is moved there (as torch's own
+    binary ops do); any other tensor elsewhere is refused."""
+    if t.device != device:
+        if t.device.type == "cpu" and t.dim() == 0:
+            return t.to(device)
+        raise ValueError(f"gl_mul: {name} is on {t.device}, expected {device}")
+    return t
+
+
+def mul_cuda(a, b):
+    """CUDA kernel (csrc/gl_mul.cu), same contract as ``mul_plain``: the
+    operands broadcast, may be strided views (an Fp2 component ``a[..., 0]``
+    has stride 2) and are read in place through their element strides (0 on
+    a broadcast axis), so no copy costs a launch; the output is contiguous.
+
+    Replaces the Pallas kernel ``ministark_tpu/ops/pallas_kernels.py::
+    _gl_mul_kernel`` (one (8, 128) tile of u32 limb pairs per grid step).
+    Bound on this card: device-memory bandwidth (16 bytes read and 8
+    written per product against ~30 integer operations)."""
+    global launches
+    device = a.device if a.device.type == "cuda" else b.device
+    if device.type != "cuda":
+        raise ValueError(f"gl_mul: expected a CUDA tensor, got {a.device}")
+    a, b = _on_device(a, "a", device), _on_device(b, "b", device)
+    for t, name in ((a, "a"), (b, "b")):
+        if t.dtype != torch.int64:
+            raise ValueError(f"gl_mul: {name} must be int64, got {t.dtype}")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    if out.numel() == 0:
+        return out
+    sizes, (sa, sb) = _collapse(shape, a.expand(shape).stride(),
+                                b.expand(shape).stride())
+    if len(sizes) > MUL_MAX_DIMS:
+        raise ValueError(f"gl_mul: operands of shape {tuple(shape)} need "
+                         f"{len(sizes)} strided axes, the kernel takes "
+                         f"{MUL_MAX_DIMS}")
+    if not sizes:                                  # one element
+        sizes, sa, sb = [1], [0], [0]
+    arr = ctypes.c_int64 * MUL_MAX_DIMS
+    err = cuda.library().ms_gl_mul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), len(sizes), arr(*sizes),
+        arr(*sa), arr(*sb), out.numel(), cuda.stream_ptr(out))
+    cuda.check("gl_mul", err)
+    launches += 1
+    return out
+
+
+def mul(a, b):
+    """(a * b) mod p. Dispatch by device: CPU tensors -> ``mul_plain``; a
+    CUDA tensor (with a CUDA tensor or a 0-d scalar) -> ``mul_cuda``, the
+    kernel, or raise."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mul_plain(a, b)
+    return mul_cuda(a, b)
 
 
 def square(a):

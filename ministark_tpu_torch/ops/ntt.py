@@ -7,11 +7,22 @@ tensors in natural order, with the root ``field.get_root_of_unity(n)``
 its two components: the 2-adic roots lie in the base field. The coset
 offset is a host scalar (a Fiat-Shamir challenge).
 
-``transform`` dispatches by the tensor's device: a CPU tensor takes
-``transform_plain`` (bit reversal plus radix-2 DIT stages in torch ops), a
-CUDA tensor launches the CUDA kernel (csrc/ntt.cu) at every size or raises.
+``get_ntt_fns(field, n, backend)`` picks one of three implementations, each
+with its CUDA kernels and their plain versions:
+
+  "radix2"     this module: bit reversal plus radix-2 DIT stages
+               (csrc/ntt.cu), every size;
+  "four_step"  ops/ntt_four_step.py, two shared-memory passes
+               (csrc/ntt_four_step.cu), 2^14 <= n <= 2^22;
+  "pipe"       ops/ntt_pipe.py, the factor walk with one pipelined level
+               kernel per factor (csrc/ntt_pipe.cu), ``fused_supports(n)``.
+
 Any correct NTT with the same root gives the same canonical outputs, so
-neither copies the TPU kernel's int8 digit matmul.
+proofs are identical whichever backend runs, and none copies the TPU
+kernels' int8 digit matmul. ``transform`` dispatches by the tensor's device:
+a CPU tensor takes ``transform_plain``, a CUDA tensor launches the kernel at
+every size or raises. The plain versions multiply with
+``field.mul_plain``, so they launch no kernel on a CUDA tensor either.
 """
 
 from __future__ import annotations
@@ -45,6 +56,86 @@ def _roots(n: int, inverse: bool):
     return F.inv(root) if inverse else root
 
 
+BACKENDS = ("radix2", "four_step", "pipe")
+
+
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown NTT backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    return backend
+
+
+def powers_plain(s: int, n: int, device) -> torch.Tensor:
+    """[s^0 .. s^(n - 1)] by doubling with ``mul_plain``."""
+    pw = gl.pack_u64([1], device)
+    step = gl.pack_u64(s, device)
+    while pw.shape[0] < n:
+        pw = torch.cat([pw, gl.mul_plain(pw, step)])
+        step = gl.mul_plain(step, step)
+    return pw[:n]
+
+
+@lru_cache(maxsize=None)
+def _stage_table_host(root: int, m: int):
+    """(log2(m), m // 2) twiddle table as nested lists: row r holds
+    root^(j << (L - 1 - r)) for j < 2^r (the stage with butterfly
+    half-width 2^r), zero-padded (``ntt_pallas.py::_stage_table_host``)."""
+    L = m.bit_length() - 1
+    rows = []
+    for r in range(L):
+        step = pow(root, 1 << (L - 1 - r), F.p)
+        row, v = [0] * (m // 2), 1
+        for j in range(1 << r):
+            row[j] = v
+            v = v * step % F.p
+        rows.append(row)
+    return rows
+
+
+_STAGE_TABLES = {}
+
+
+def stage_table(root: int, m: int, device) -> torch.Tensor:
+    """``_stage_table_host`` as a contiguous (log2 m, m // 2) tensor on
+    ``device``, cached."""
+    key = (root, m, str(device))
+    if key not in _STAGE_TABLES:
+        _STAGE_TABLES[key] = gl.pack_u64(_stage_table_host(root, m), device
+                                         ).reshape(m.bit_length() - 1, m // 2)
+    return _STAGE_TABLES[key]
+
+
+def bitrev(m: int, device) -> torch.Tensor:
+    return _bitrev_cpu(m).to(device)
+
+
+def dit_last(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Decimation-in-time stages along the last axis of (..., m) in
+    bit-reversed order (natural order out), with ``stage_table``'s rows."""
+    lead, m = x.shape[:-1], x.shape[-1]
+    for s in range(1, m.bit_length()):
+        half = 1 << (s - 1)
+        xr = x.reshape(lead + (m >> s, 2, half))
+        e, o = xr[..., 0, :], xr[..., 1, :]
+        wv = gl.mul_plain(o, table[s - 1, :half])
+        x = torch.stack([gl.add(e, wv), gl.sub(e, wv)], -2).reshape(lead + (m,))
+    return x
+
+
+def dif_last(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Decimation-in-frequency stages along the last axis of (..., m) in
+    natural order (bit-reversed order out), with ``stage_table``'s rows."""
+    lead, m = x.shape[:-1], x.shape[-1]
+    for s in range(m.bit_length() - 1, 0, -1):
+        half = 1 << (s - 1)
+        xr = x.reshape(lead + (m >> s, 2, half))
+        u, v = xr[..., 0, :], xr[..., 1, :]
+        bot = gl.mul_plain(gl.sub(u, v), table[s - 1, :half])
+        x = torch.stack([gl.add(u, v), bot], -2).reshape(lead + (m,))
+    return x
+
+
 _TWIDDLES = {}
 
 
@@ -67,7 +158,7 @@ def _bitrev_cpu(n: int) -> torch.Tensor:
     return rev
 
 
-def _offset_square_table(offset: int, log_n: int, device) -> torch.Tensor:
+def offset_square_table(offset: int, log_n: int, device) -> torch.Tensor:
     """[s^(2^0), s^(2^1), .., s^(2^(log_n - 1))]: the kernel forms s^i from
     the bits of i."""
     out, s = [], F.from_int(offset)
@@ -86,21 +177,20 @@ def transform_plain(x: torch.Tensor, inverse: bool = False, pre=None,
     inverse root and scales by 1/n."""
     batch, n = x.shape
     log_n = _log2(n)
-    ops = gl.get_ops(F)
     if pre is not None:
-        x = gl.mul(x, powers(ops, gl.pack_u64(pre, x.device), n).unsqueeze(0))
+        x = gl.mul_plain(x, powers_plain(pre, n, x.device))
     tw = twiddles(_roots(n, inverse), n, x.device)
-    x = x[:, _bitrev_cpu(n).to(x.device)]
+    x = x[:, bitrev(n, x.device)]
     for s in range(1, log_n + 1):
         half = 1 << (s - 1)
         xr = x.reshape(batch, n >> s, 2, half)
         e, o = xr[:, :, 0], xr[:, :, 1]
-        wv = gl.mul(o, tw[:: n >> s][:half])
+        wv = gl.mul_plain(o, tw[:: n >> s][:half])
         x = torch.stack([gl.add(e, wv), gl.sub(e, wv)], 2).reshape(batch, n)
     if inverse:
-        x = gl.mul(x, gl.pack_u64(F.inv(F.from_int(n)), x.device))
+        x = gl.mul_plain(x, gl.pack_u64(F.inv(F.from_int(n)), x.device))
     if post is not None:
-        x = gl.mul(x, powers(ops, gl.pack_u64(post, x.device), n).unsqueeze(0))
+        x = gl.mul_plain(x, powers_plain(post, n, x.device))
     return x
 
 
@@ -123,8 +213,8 @@ def transform_cuda(x: torch.Tensor, inverse: bool = False, pre=None,
     lib = cuda.library()
     y = torch.empty_like(x)
     tw = twiddles(_roots(n, inverse), n, x.device)
-    pre_t = None if pre is None else _offset_square_table(pre, log_n, x.device)
-    post_t = None if post is None else _offset_square_table(post, log_n, x.device)
+    pre_t = None if pre is None else offset_square_table(pre, log_n, x.device)
+    post_t = None if post is None else offset_square_table(post, log_n, x.device)
     scale = 1
     if inverse:
         scale = F.inv(F.from_int(n))
@@ -147,13 +237,25 @@ def transform(x: torch.Tensor, inverse: bool = False, pre=None, post=None):
     return transform_cuda(x, inverse, pre, post)
 
 
-def get_ntt_fns(field, n: int):
-    """(fft, ifft, coset_fft, coset_ifft) for size n over (batch, n) GL
-    tensors. ``coset_fft(x, offset)`` evaluates over the coset offset * H;
-    ``coset_ifft(x, offset_inv)`` interpolates from it (as in ntt_device)."""
-    if field.p != gl.P:
-        raise ValueError(f"NTT is ported for Goldilocks only, got {field!r}")
-    _log2(n)
+def backend_transform(backend: str, n: int):
+    """The transform that runs size n for ``backend``. A backend takes the
+    sizes of its range and radix-2 the rest, by size, as
+    ``ntt_device.make_ntt_fns`` chooses (:349-366): "four_step" runs
+    2^14 <= n <= 2^22 (``ntt_four_step.supports``), "pipe" runs the sizes
+    of ``ntt_pipe.fused_supports`` (n >= 2^14); "radix2" runs every size."""
+    from . import ntt_four_step, ntt_pipe   # both import this module
+
+
+    check_backend(backend)
+    if backend == "four_step" and ntt_four_step.supports(n):
+        return ntt_four_step.transform
+    if backend == "pipe" and ntt_pipe.fused_supports(n):
+        return ntt_pipe.transform
+    return transform
+
+
+def transform_fns(transform):
+    """(fft, ifft, coset_fft, coset_ifft) over one ``transform``."""
 
     def fft(x):
         return transform(x)
@@ -169,3 +271,15 @@ def get_ntt_fns(field, n: int):
 
     return fft, ifft, coset_fft, coset_ifft
 
+
+def get_ntt_fns(field, n: int, backend: str = "radix2"):
+    """(fft, ifft, coset_fft, coset_ifft) for size n over (batch, n) GL
+    tensors. ``coset_fft(x, offset)`` evaluates over the coset offset * H;
+    ``coset_ifft(x, offset_inv)`` interpolates from it (as in ntt_device).
+    ``backend`` is "radix2", "four_step" or "pipe" (``backend_transform``
+    says which sizes each takes; outside its range a backend runs radix-2);
+    any other name raises."""
+    if field.p != gl.P:
+        raise ValueError(f"NTT is ported for Goldilocks only, got {field!r}")
+    _log2(n)
+    return transform_fns(backend_transform(backend, n))

@@ -6,7 +6,9 @@ values; tests/test_torch_engine.py holds it to the host prover and to the
 JAX engine byte for byte), keeping every polynomial and codeword a tensor
 on the engine's device:
 
-  trace column iFFT / coset LDE          -> ops/ntt.py (CUDA kernel)
+  trace column iFFT / coset LDE          -> ops/ntt.py (CUDA kernels; the
+                                            ``ntt_backend`` argument picks
+                                            radix-2, four-step or pipe)
   codeword Merkle commitments            -> commit/packed_tree.py
                                             (leaf-hash and SHA-256 kernels)
   mixing / folding / division / DEEP     -> ops/poly.py (torch ops)
@@ -16,7 +18,8 @@ scalars, proof assembly) touches host scalars. The device is explicit:
 ``DeviceEngine(config, device="cuda")`` by default, and the constructor
 raises on a host without a card (the CPU is used only when asked for with
 ``device="cpu"``); a tensor handed in on another device is moved there
-once.
+once. ``ntt_backend`` ("radix2", "four_step" or "pipe", ops/ntt.py) chooses
+the NTT kernels; it is not part of the config and changes no proof byte.
 
 Two value-preserving deviations from the reference's algorithm, as in the
 JAX engine: query-phase y values are read from the committed codeword
@@ -37,7 +40,7 @@ from ..commit.merkle import MerkleTree
 from ..commit.packed_tree import PackedMerkleTree, to_leaf_comps
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import get_ntt_fns
+from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import (
     effective_len,
     eval_even_odd,
@@ -85,9 +88,11 @@ class DeviceTrace:
 
 
 class DeviceEngine:
-    def __init__(self, config: StarkConfig, device="cuda"):
+    def __init__(self, config: StarkConfig, device="cuda",
+                 ntt_backend: str = "radix2"):
         self.config = config
         self.device = torch.device(device)
+        self.ntt_backend = check_backend(ntt_backend)
         # fails here, not mid-prove, when the device does not exist
         torch.empty(0, device=self.device)
         sf = config.stark_field
@@ -120,7 +125,8 @@ class DeviceEngine:
 
     def _trace_polys(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) evaluations -> (width, N) coefficients."""
-        _, ifft, _, _ = get_ntt_fns(self.config.stark_field.base, trace.domain_size)
+        _, ifft, _, _ = get_ntt_fns(self.config.stark_field.base,
+                                    trace.domain_size, self.ntt_backend)
         return ifft(self._cols(trace))
 
     def constrain_coeffs(self, trace: DeviceTrace) -> torch.Tensor:
@@ -155,7 +161,7 @@ class DeviceEngine:
         # 1.2 LDE of all constraint polynomials
         lde_n = cfg.blowup_factor * n
         random_shift = merlin.challenge_scalar(base)
-        _, ifft, _, _ = get_ntt_fns(base, n)
+        _, ifft, _, _ = get_ntt_fns(base, n, self.ntt_backend)
         trace_poly = ifft(cols)                                      # (w, n)
         del cols
         all_coeffs = torch.cat(
@@ -163,7 +169,7 @@ class DeviceEngine:
         total = all_coeffs.shape[0]
         padded = torch.zeros((total, lde_n), dtype=torch.int64, device=dev)
         padded[:, :n] = all_coeffs
-        _, _, coset_fft, _ = get_ntt_fns(base, lde_n)
+        _, _, coset_fft, _ = get_ntt_fns(base, lde_n, self.ntt_backend)
         lde_evals = coset_fft(padded, random_shift)                  # (w+t, 2n)
         del padded
 
@@ -219,7 +225,8 @@ class DeviceEngine:
         NTT batched over the two components."""
         comp = torch.zeros((2, domain_size), dtype=torch.int64, device=coeffs.device)
         comp[:, :coeffs.shape[0]] = coeffs.T
-        fft, _, _, _ = get_ntt_fns(self.config.stark_field.base, domain_size)
+        fft, _, _, _ = get_ntt_fns(self.config.stark_field.base, domain_size,
+                                   self.ntt_backend)
         return fft(comp).T.contiguous()
 
     def _fri_prove(self, merlin: Merlin, poly_coeffs) -> "DeviceFriProof":

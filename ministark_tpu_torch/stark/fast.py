@@ -25,7 +25,9 @@ Verifier checks:
 
 The device is explicit: ``FastStark(config, device="cuda")`` by default;
 without a card the constructor raises. Traces on another device are moved
-to the prover's once.
+to the prover's once. ``ntt_backend`` ("radix2", "four_step" or "pipe",
+ops/ntt.py) chooses the NTT kernels; it is not part of ``FastStarkConfig``
+or the transcript and changes no proof byte.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 
 from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_bytes
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import get_ntt_fns
+from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import eval_many, field_sum
 from .engine import DeviceTrace
 
@@ -79,7 +81,8 @@ class FastStarkProof:
 
 
 class FastStark:
-    def __init__(self, config: FastStarkConfig, device="cuda"):
+    def __init__(self, config: FastStarkConfig, device="cuda",
+                 ntt_backend: str = "radix2"):
         if config.lde_backend in ("stir", "whir"):
             raise NotImplementedError(
                 f"the {config.lde_backend!r} LDE backend is not ported yet "
@@ -88,6 +91,7 @@ class FastStark:
             raise ValueError(f"unknown LDE backend {config.lde_backend!r}")
         self.config = config
         self.device = torch.device(device)
+        self.ntt_backend = check_backend(ntt_backend)
         # fails here, not mid-prove, when the device does not exist
         torch.empty(0, device=self.device)
         sf = config.stark_field
@@ -98,7 +102,7 @@ class FastStark:
             self.ext, blowup=config.blowup, queries=config.queries,
             arity=config.arity, fold_factor=config.fold_factor,
             final_len=config.final_len, grinding_bits=config.grinding_bits,
-        ))
+        ), ntt_backend=ntt_backend)
         # wall seconds per phase of the latest prove; each boundary
         # synchronizes a CUDA device, so a phase owns its kernels' time
         self.phase_seconds: dict = {}
@@ -135,7 +139,7 @@ class FastStark:
             x = trace.cols_dev.to(self.device)
         else:
             x = pack_u64(trace.cols, self.device)
-        tp = get_ntt_fns(self.base, n)[1](x)
+        tp = get_ntt_fns(self.base, n, self.ntt_backend)[1](x)
         return torch.cat([tp] + [f(tp)[None] for f in trace.transitions], 0)
 
     def _point_evals(self, ext_coeffs: torch.Tensor, z) -> list:

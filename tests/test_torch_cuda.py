@@ -1,7 +1,9 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, at
-small shapes, the engine's proof on the card against the host oracle, and
-the fast mode's proof on the card against its golden fixture. Marked ``cuda``: they skip on a host without a CUDA device (run them
-on one with ``python -m pytest tests/test_torch_cuda.py -m cuda``)."""
+"""The CUDA kernels against their plain PyTorch versions on the card (the
+NTT passes and levels up to the main path's 2^21), the engine's proof on
+the card against the host oracle, and the fast mode's proof on the card
+against its golden fixture. Marked ``cuda``: they skip on a host without a
+CUDA device (run them on one with ``python -m pytest --noconftest
+tests/test_torch_cuda.py -m cuda``)."""
 
 import os
 
@@ -13,8 +15,11 @@ import ministark_tpu_torch.stark.engine as t_eng
 from ministark_tpu_torch.fields import Goldilocks
 from ministark_tpu_torch.models import fibonacci_air
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+from ministark_tpu_torch.ops import field as gl
 from ministark_tpu_torch.ops import leaf_hash as lh
 from ministark_tpu_torch.ops import ntt
+from ministark_tpu_torch.ops import ntt_four_step as fs
+from ministark_tpu_torch.ops import ntt_pipe as pp
 from ministark_tpu_torch.ops import sha256 as sh
 from ministark_tpu_torch.stark import Stark, StarkConfig
 
@@ -41,6 +46,60 @@ def test_ntt_kernel_matches_plain(dev, log_n):
     x = _rand((3, 1 << log_n), log_n).to(dev)
     for kw in ({}, {"inverse": True}, {"pre": 7}, {"inverse": True, "post": 11}):
         assert torch.equal(ntt.transform_cuda(x, **kw), ntt.transform_plain(x, **kw))
+
+
+@pytest.mark.parametrize("case", ["flat", "broadcast", "fp2-component",
+                                  "scalar", "scalars", "empty", "cpu-scalar"])
+def test_gl_mul_kernel_matches_plain(dev, case):
+    x = _rand((6, 1000, 2), 5).to(dev)
+    a, b = {
+        "flat": lambda: (x.reshape(-1), x.flip(0).reshape(-1)),
+        "broadcast": lambda: (x[..., 0], x[0, :, 1]),
+        "fp2-component": lambda: (x[..., 0], x[..., 1]),
+        "scalar": lambda: (x, x[2, 3, 1]),
+        "scalars": lambda: (x[0, 0, 0], x[1, 1, 1]),
+        "empty": lambda: (x[:0], x[0, :, :]),
+        "cpu-scalar": lambda: (x[..., 1], gl.pack_u64(12345)),
+    }[case]()
+    got = gl.mul_cuda(a, b)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), gl.mul_plain(a.cpu(), b.cpu()))
+    assert torch.equal(gl.mul(a, b), got)
+
+
+@pytest.mark.parametrize("log_n", [14, 17, 20, 21])
+def test_four_step_passes_match_plain(dev, log_n):
+    n = 1 << log_n
+    x = _rand((2, n), log_n).to(dev)
+    for inverse, pre, post in ((False, None, None), (True, None, None),
+                               (False, 7, None), (True, None, 11)):
+        tw1, tw2, wpow = fs._tables(n, inverse, dev)
+        c = fs.pass1_cuda(x, tw2, wpow, pre)
+        assert torch.equal(c, fs.pass1_plain(x, tw2, wpow, pre))
+        scale = ntt.F.inv(ntt.F.from_int(n)) if inverse else None
+        assert torch.equal(fs.pass2_cuda(c, tw1, scale, post),
+                           fs.pass2_plain(c, tw1, scale, post))
+        assert torch.equal(fs.transform(x, inverse, pre, post),
+                           ntt.transform_plain(x, inverse, pre, post))
+
+
+@pytest.mark.parametrize("log_n", [14, 17, 20, 21])
+def test_pipe_levels_match_plain(dev, log_n):
+    n = 1 << log_n
+    x = _rand((2, n), log_n).to(dev)
+    for inverse, pre, post in ((False, None, None), (True, None, None),
+                               (False, 7, None), (True, None, 11)):
+        levels = pp._tables(n, inverse, dev)
+        y = x
+        for i, (Fi, tw, W, k_prod) in enumerate(levels):
+            scale = (ntt.F.inv(ntt.F.from_int(n))
+                     if inverse and i == len(levels) - 1 else None)
+            args = (y.reshape(2, Fi, n // Fi), tw, pre if i == 0 else None, W,
+                    k_prod, scale)
+            y = pp.level_cuda(*args)
+            assert torch.equal(y, pp.level_plain(*args)), (log_n, i)
+        assert torch.equal(pp.transform(x, inverse, pre, post),
+                           ntt.transform_plain(x, inverse, pre, post))
 
 
 @pytest.mark.parametrize("fmt,k", [(0, 6), (1, 2)])
@@ -82,6 +141,23 @@ def test_fast_stark_on_card_matches_golden(dev):
                                "fast_fri_fib100.bin"), "rb").read()
     assert fast_proof_to_bytes(Goldilocks, proof) == golden
     assert stark.verify(stark._constraint_polys(trace), proof)
+
+
+@pytest.mark.parametrize("backend", ["four_step", "pipe"])
+def test_backends_on_card_match_radix2(dev, backend):
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes, proof_digests
+
+    steps = (1 << 14) - 1
+    trace = fibonacci_device_trace(Goldilocks, steps, on_device=True, device=dev)
+    cfg = StarkConfig(Goldilocks, 20, 2, steps, trace.constrain_number())
+    digests = [proof_digests(Goldilocks, t_eng.DeviceEngine(
+        cfg, device=dev, ntt_backend=b).prove(trace)) for b in ("radix2", backend)]
+    assert digests[0] == digests[1]
+    fcfg = FastStarkConfig(Goldilocks, steps)
+    blobs = [fast_proof_to_bytes(Goldilocks, FastStark(
+        fcfg, device=dev, ntt_backend=b).prove(trace)) for b in ("radix2", backend)]
+    assert blobs[0] == blobs[1]
 
 
 def test_engine_on_card_matches_host(dev, monkeypatch):

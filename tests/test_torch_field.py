@@ -1,7 +1,9 @@
 """The port's Goldilocks and Fp2 tensor ops (ministark_tpu_torch/ops/field.py)
-against the JAX package's limb kernels (ministark_tpu/ops/gl.py) and the
-host field oracle. Field arithmetic is exact: every comparison is integer
-equality (tolerance 0)."""
+against the JAX package's limb kernels (ministark_tpu/ops/gl.py), its
+Pallas multiply (ops/pallas_kernels.py, interpret mode) and the host field
+oracle, and the gl_mul kernel's operand addressing replayed on the CPU.
+Field arithmetic is exact: every comparison is integer equality
+(tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -9,7 +11,10 @@ import torch
 
 from ministark_tpu.fields import GOLDILOCKS_FP as J_FP
 from ministark_tpu.fields import GOLDILOCKS_FP2 as J_FP2
+import jax.numpy as jnp
+
 from ministark_tpu.ops import gl as jgl
+from ministark_tpu.ops.pallas_kernels import _TILE, gl_mul_pallas
 from ministark_tpu.ops.registry import get_kernels
 from ministark_tpu.ops.registry import lift_base_array as j_lift
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
@@ -119,3 +124,68 @@ def test_convert_roundtrip_keeps_bit_patterns():
     # values >= 2^63 are negative int64 patterns, not clipped or rounded
     hi = from_jax_packed(jgl.pack(np.array([P - 1], dtype=np.uint64)), GOLDILOCKS_FP)
     assert int(hi[0]) == P - 1 - (1 << 64)
+
+
+def test_mul_plain_matches_pallas_gl_mul():
+    """Row 6: ops/pallas_kernels.py::gl_mul_pallas in interpret mode at
+    n = 2 x 1024, as tests/test_pallas_kernels.py runs it."""
+    n = 2 * _TILE
+    a, b = _values(41, n), np.random.default_rng(43).permutation(_values(45, n))
+    want = np.asarray(gl_mul_pallas(jnp.asarray(jgl.pack(a)), jnp.asarray(jgl.pack(b))))
+    got = tgl.mul_plain(tgl.pack_u64(a), tgl.pack_u64(b))
+    assert np.array_equal(to_jax_packed(got, GOLDILOCKS_FP), want)
+    assert torch.equal(tgl.mul(tgl.pack_u64(a), tgl.pack_u64(b)), got)
+
+
+def _kernel_offsets(sizes, strides, numel):
+    """Element offsets of one operand as csrc/gl_mul.cu computes them for
+    output index i: the row-major coordinates over ``sizes`` dotted with
+    ``strides``."""
+    idx = np.arange(numel, dtype=np.int64)
+    off = np.zeros(numel, dtype=np.int64)
+    for size, stride in zip(reversed(sizes), reversed(strides)):
+        off += (idx % size) * stride
+        idx //= size
+    return off
+
+
+def _storage(t):
+    """Every element of t's storage, as a flat int64 tensor."""
+    return torch.empty(0, dtype=torch.int64).set_(t.untyped_storage())
+
+
+_x = tgl.pack_u64(_values(47, 2 * 3 * 5 * 7)).reshape(2, 3, 5, 7)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: (_x, _x),                                        # merges to one axis
+    lambda: (_x[..., 0], _x[..., 1]),                        # strided views
+    lambda: (_x, _x[0, 0, 0]),                               # 0-d operand
+    lambda: (_x[:, :, :, 2:], _x[1, :, :1, :5]),             # broadcast, offsets
+    lambda: (_x.transpose(1, 3), _x[0, 0, 0, :5].reshape(5, 1)),
+    lambda: (_x[0, 0, 0, 0], _x[1, 1, 1, 1]),                # both 0-d
+    lambda: (_x[:, None, :, 1], _x[0, 0, :3, :]),           # inserted axis
+], ids=["contiguous", "fp2-components", "scalar", "broadcast", "transposed",
+        "scalars", "unsqueezed"])
+def test_gl_mul_addressing_replays_broadcast(make):
+    """What mul_cuda hands the kernel (merged sizes and element strides from
+    ``_collapse``) addresses exactly the broadcast operands: replaying the
+    kernel's index arithmetic on the CPU storage gives mul_plain's result."""
+    a, b = make()
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    sizes, (sa, sb) = tgl._collapse(shape, a.expand(shape).stride(),
+                                    b.expand(shape).stride())
+    assert len(sizes) <= tgl.MUL_MAX_DIMS
+    if not sizes:
+        sizes, sa, sb = [1], [0], [0]
+    numel = int(np.prod(shape))
+    ga = _storage(a)[a.storage_offset() + _kernel_offsets(sizes, sa, numel)]
+    gb = _storage(b)[b.storage_offset() + _kernel_offsets(sizes, sb, numel)]
+    assert torch.equal(tgl.mul_plain(ga, gb).reshape(shape), tgl.mul_plain(a, b))
+
+
+def test_collapse_merges_and_drops_axes():
+    assert tgl._collapse((2, 3, 4), (12, 4, 1), (0, 0, 0)) == ([24], [[1], [0]])
+    assert tgl._collapse((2, 1, 4), (8, 9, 2), (4, 9, 1)) == ([8], [[2], [1]])
+    assert tgl._collapse((2, 4), (8, 1), (1, 2)) == ([2, 4], [[8, 1], [1, 2]])
+    assert tgl._collapse((), ) == ([], [])

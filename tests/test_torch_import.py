@@ -13,7 +13,7 @@ import torch
 import ministark_tpu_torch
 from ministark_tpu_torch.fields import Goldilocks
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
-from ministark_tpu_torch.ops import leaf_hash, ntt, sha256
+from ministark_tpu_torch.ops import field, leaf_hash, ntt, ntt_four_step, ntt_pipe, sha256
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine
 from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
@@ -99,3 +99,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sha256.inner_level_cuda(torch.zeros((8, 8), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
         sha256.binary_row_digests_cuda(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        field.mul_cuda(x, x)
+    y = torch.zeros((2, 1 << 14), dtype=torch.int64)
+    tw1, tw2, wpow = ntt_four_step._tables(1 << 14, False, "cpu")
+    with pytest.raises(ValueError):
+        ntt_four_step.pass1_cuda(y, tw2, wpow)
+    with pytest.raises(ValueError):
+        ntt_four_step.pass2_cuda(y.reshape(2, 128, 128), tw1)
+    (_, tw, W, _), _ = ntt_pipe._tables(1 << 14, False, "cpu")
+    with pytest.raises(ValueError):
+        ntt_pipe.level_cuda(y.reshape(2, 128, 128), tw, W=W)
