@@ -1,7 +1,8 @@
 """ministark_tpu_torch: the ministark provers on PyTorch and CUDA.
 
 A port of ``ministark_tpu`` (JAX + Pallas) to PyTorch, with hand-written
-CUDA C++ kernels for NVIDIA Hopper (``sm_90a``). The JAX package stays the
+CUDA C++ kernels for NVIDIA Hopper (``sm_90a``), over Goldilocks + Fp2 and
+BabyBear + Fp4. The JAX package stays the
 reference: the same inputs give byte-identical proofs in both.
 
 Layer map (module paths mirror ``ministark_tpu``):
@@ -15,7 +16,8 @@ Layer map (module paths mirror ``ministark_tpu``):
   stark/      host oracle ``Stark`` (copy), tensor ``DeviceEngine`` (parity)
               and ``FastStark`` (fast mode, batched-FRI backend)
   models/     Fibonacci AIR: host claim (copy) + tensor witness ladder
-  ops/        field ops, NTT, SHA-256 and leaf hashing over torch tensors;
+  ops/        field ops (GL, BabyBear), NTT, SHA-256 and leaf hashing over
+              torch tensors;
               each kernel has a plain PyTorch version beside it
   csrc/       the CUDA C++ kernels, built with nvcc at first use
 

@@ -9,8 +9,12 @@ device the values were given. A tree over a CUDA tensor hashes on the card
 with the kernels; a tree over a CPU tensor takes their plain versions.
 
 Component layout per field (fields/host.py Display semantics):
-  base field       -> (n, 1) canonical u64   (fmt 0)
-  quadratic ext    -> (n, 2) [c0, c1]        (fmt 1)
+  base field       -> (n, 1) canonical u64          (fmt 0)
+  quadratic ext    -> (n, 2) [c0, c1]               (fmt 1)
+  BabyBear Fp4     -> (n, 4) [c00, c01, c10, c11]   (fmt 2)
+
+The leaf hash's digit bound comes from the field (``digits_for``: 10 for
+BabyBear, 20 for Goldilocks), never from the values.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.field import pack_u64, unpack_u64
-from ..ops.leaf_hash import leaf_hash
+from ..ops.leaf_hash import digits_for, leaf_hash
 from ..ops.sha256 import digests_to_bytes, merkle_inner_levels
 from ..utils import LeafNotFound, logarithm_of_two_k
 from .merkle import MerklePath, MerkleTreeConfig
@@ -37,14 +41,14 @@ def field_fmt(field) -> int:
         return 0
     if d == 2:
         return 1
+    if d == 4:
+        return 2
     raise ValueError(f"unsupported extension degree {d}")
 
 
 def to_leaf_comps(field, vals: torch.Tensor) -> torch.Tensor:
     """Field tensor -> (n_elems, comps) component layout of the leaf hash:
-    base (n,) -> (n, 1); Fp2 (n, 2) stays."""
-    if field.extension_degree == 1:
-        return vals.reshape(-1, 1)
+    base (n,) -> (n, 1); Fp2 (n, 2) and Fp4 (n, 4) stay."""
     return vals.reshape(-1, field.extension_degree)
 
 
@@ -91,7 +95,7 @@ class PackedMerkleTree:
         assert c ** (self.levels - 1) == group_num
 
         self._comps = comps
-        leaf_dig = leaf_hash(comps, k, self.fmt)
+        leaf_dig = leaf_hash(comps, k, self.fmt, digits_for(field))
         if group_num > 1:
             self._digests = torch.cat([leaf_dig, merkle_inner_levels(leaf_dig)], 0)
         else:

@@ -1,9 +1,11 @@
-// One level of the factor-walk Goldilocks NTT: a length-F DFT over axis 1 of
-// (B, F, R), written as (B, R, F), with the optional coset pre-multiply,
-// inter-level twiddle and trailing scalar, as a software pipeline.
+// One level of the factor-walk NTT: a length-F DFT over axis 1 of (B, F, R),
+// written as (B, R, F), with the optional coset pre-multiply, inter-level
+// twiddle and trailing scalar, as a software pipeline. A template on the
+// field: ms_ntt_pipe_level_gl and ms_ntt_pipe_level_bb.
 //
 // Replaces the Pallas kernel ministark_tpu/ops/ntt_mxu.py::_make_pipe_kernel
-// (via _fused_level_pipe): the TPU kernel skews a grid over tiles of
+// (via _fused_level_pipe; its BabyBear branch recombines one digit plane with
+// _recombine_bb): the TPU kernel skews a grid over tiles of
 // positions so that the MXU dot of tile t - 1 overlaps the VPU digitize of
 // tile t and the recombine of tile t - 2. Hopper multiplies 64-bit integers
 // natively, so the DFT is radix-2 butterflies in shared memory with the
@@ -26,11 +28,12 @@
 //
 // Rows of the tile are padded by one element so the store's column reads fall
 // in different banks. Bound on the H100: integer throughput (log2(F)
-// butterflies of ~40 operations per element against 16 bytes moved).
+// butterflies of ~40 operations per element in Goldilocks, ~20 in BabyBear,
+// against 16 bytes moved).
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
-#include "gl.cuh"
+#include "ntt_common.cuh"
 
 namespace {
 
@@ -55,12 +58,13 @@ __device__ __forceinline__ void load_tile(const uint64_t* __restrict__ x,
   const uint64_t* src = x + ((size_t)b << (L.log_f + L.log_r)) + r0;
   for (uint32_t e = threadIdx.x; e < F * TP; e += blockDim.x) {
     const uint32_t m = e >> L.log_tp, rl = e & (TP - 1);
-    __pipeline_memcpy_async(&buf[gl::bit_reverse(m, L.log_f) * (TP + 1) + rl],
+    __pipeline_memcpy_async(&buf[bit_reverse(m, L.log_f) * (TP + 1) + rl],
                             &src[((size_t)m << L.log_r) + rl], sizeof(uint64_t));
   }
   __pipeline_commit();
 }
 
+template <class Field>
 __global__ void pipe_level(const uint64_t* __restrict__ x,
                            uint64_t* __restrict__ y, Level L) {
   extern __shared__ uint64_t smem[];
@@ -89,9 +93,9 @@ __global__ void pipe_level(const uint64_t* __restrict__ x,
     if (L.pre) {
       for (uint32_t e = threadIdx.x; e < F * TP; e += blockDim.x) {
         const uint32_t q = e >> L.log_tp, rl = e & (TP - 1);
-        const uint32_t m = gl::bit_reverse(q, L.log_f);
-        cur[q * stride + rl] = gl::mul(
-            cur[q * stride + rl], gl::pow_bits(L.pre, (m << L.log_r) + r0 + rl));
+        const uint32_t m = bit_reverse(q, L.log_f);
+        cur[q * stride + rl] = Field::mul(
+            cur[q * stride + rl], Field::pow_bits(L.pre, (m << L.log_r) + r0 + rl));
       }
       __syncthreads();
     }
@@ -106,9 +110,9 @@ __global__ void pipe_level(const uint64_t* __restrict__ x,
         const uint32_t i0 = ((bf >> (st - 1)) << st) + j;
         const uint32_t a0 = i0 * stride + col, a1 = (i0 + half) * stride + col;
         const uint64_t u = cur[a0];
-        const uint64_t v = gl::mul(cur[a1], tws[j]);
-        cur[a0] = gl::add(u, v);
-        cur[a1] = gl::sub(u, v);
+        const uint64_t v = Field::mul(cur[a1], tws[j]);
+        cur[a0] = Field::add(u, v);
+        cur[a1] = Field::sub(u, v);
       }
       __syncthreads();
     }
@@ -117,8 +121,8 @@ __global__ void pipe_level(const uint64_t* __restrict__ x,
     for (uint32_t e = threadIdx.x; e < F * TP; e += blockDim.x) {
       const uint32_t k = e & (F - 1), rl = e >> L.log_f;
       uint64_t v = cur[k * stride + rl];
-      if (L.W) v = gl::mul(v, L.W[((size_t)((r0 + rl) >> L.log_kprod) << L.log_f) + k]);
-      if (L.scale != 1) v = gl::mul(v, L.scale);
+      if (L.W) v = Field::mul(v, L.W[((size_t)((r0 + rl) >> L.log_kprod) << L.log_f) + k]);
+      if (L.scale != 1) v = Field::mul(v, L.scale);
       dst[e] = v;
     }
     __syncthreads();  // the next iteration's load overwrites this buffer
@@ -126,16 +130,10 @@ __global__ void pipe_level(const uint64_t* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x: (batch, F, R) -> y: (batch, R, F), F = 2^log_f in [2^5, 2^9], R = 2^log_r;
-// tw: the (log_f, F / 2) stage table of the level's root; pre: s^(2^b) for
-// b < log_f + log_r, or null; W: (R / 2^log_kprod, F) twiddles, or null;
-// scale: the trailing scalar, 1 for none.
-extern "C" int ms_ntt_pipe_level(const uint64_t* x, uint64_t* y, int batch,
-                                 int log_f, int log_r, const uint64_t* tw,
-                                 const uint64_t* pre, const uint64_t* W,
-                                 int log_kprod, uint64_t scale, void* stream) {
+template <class Field>
+int run_level(const uint64_t* x, uint64_t* y, int batch, int log_f, int log_r,
+              const uint64_t* tw, const uint64_t* pre, const uint64_t* W,
+              int log_kprod, uint64_t scale, void* stream) {
   if (batch < 1 || log_f < 5 || log_f > 9 || log_r < 0 ||
       log_f + log_r > 30 || log_kprod < 0 || log_kprod > log_r) {
     return (int)cudaErrorInvalidValue;
@@ -153,7 +151,7 @@ extern "C" int ms_ntt_pipe_level(const uint64_t* x, uint64_t* y, int batch,
   const size_t bytes =
       2 * ((size_t)1 << log_f) * (((size_t)1 << L.log_tp) + 1) * sizeof(uint64_t);
   cudaError_t err = cudaFuncSetAttribute(
-      pipe_level, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      pipe_level<Field>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -161,7 +159,7 @@ extern "C" int ms_ntt_pipe_level(const uint64_t* x, uint64_t* y, int batch,
       cudaSuccess) {
     return (int)err;
   }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pipe_level,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pipe_level<Field>,
                                                            THREADS, bytes)) !=
       cudaSuccess) {
     return (int)err;
@@ -170,6 +168,28 @@ extern "C" int ms_ntt_pipe_level(const uint64_t* x, uint64_t* y, int batch,
   if (total > 0xFFFFFFFFull) return (int)cudaErrorInvalidValue;
   uint64_t blocks = (uint64_t)sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > total) blocks = total;
-  pipe_level<<<(unsigned)blocks, THREADS, bytes, (cudaStream_t)stream>>>(x, y, L);
+  pipe_level<Field><<<(unsigned)blocks, THREADS, bytes, (cudaStream_t)stream>>>(x, y, L);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (batch, F, R) -> y: (batch, R, F), F = 2^log_f in [2^5, 2^9], R = 2^log_r;
+// tw: the (log_f, F / 2) stage table of the level's root; pre: s^(2^b) for
+// b < log_f + log_r, or null; W: (R / 2^log_kprod, F) twiddles, or null;
+// scale: the trailing scalar, 1 for none.
+extern "C" int ms_ntt_pipe_level_gl(const uint64_t* x, uint64_t* y, int batch,
+                                    int log_f, int log_r, const uint64_t* tw,
+                                    const uint64_t* pre, const uint64_t* W,
+                                    int log_kprod, uint64_t scale, void* stream) {
+  return run_level<gl>(x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale,
+                       stream);
+}
+
+extern "C" int ms_ntt_pipe_level_bb(const uint64_t* x, uint64_t* y, int batch,
+                                    int log_f, int log_r, const uint64_t* tw,
+                                    const uint64_t* pre, const uint64_t* W,
+                                    int log_kprod, uint64_t scale, void* stream) {
+  return run_level<bb>(x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale,
+                       stream);
 }

@@ -14,7 +14,8 @@ proof bytes (tests/test_torch_fast.py holds them to the JAX package's).
   4. Queries are by index; the verifier recovers the folded values by a
      size-F inverse DFT on host scalars.
 
-Polynomials are (B, n, 2) Fp2 tensors on any device; the NTTs and tree
+Polynomials are (B, n, d) extension tensors (d = 2 for Goldilocks Fp2, 4
+for BabyBear Fp4) on any device; the NTTs and tree
 builds run where they live. The verifier is pure host (hashlib and host
 field ops). Challenges come from a ratcheted SHA-256 transcript
 (``FastTranscript``), not the parity sponge.
@@ -187,25 +188,27 @@ class BatchedFri:
         self.ext = config.field
         self.ke = get_ops(self.ext)
         # the ext elements' components are prime-field values, so the
-        # component NTT runs over the prime field
+        # component NTT runs over the prime field (``.base`` walks the tower
+        # down: BabyBear Fp4's ``base_field`` is Fp2, its ``base`` BabyBear)
         self._ntt_base = self.ext.base
 
     # -- batched component NTT: ext NTT = base NTT per base component
     def _fft_batched(self, coeffs: torch.Tensor, domain_size: int) -> torch.Tensor:
-        """coeffs: (..., m, 2) Fp2, m <= domain_size -> (..., N, 2) evals."""
+        """coeffs: (..., m, d) extension values, m <= domain_size ->
+        (..., N, d) evals."""
         lead = coeffs.dim() - 2
         m = coeffs.shape[lead]
-        comp = coeffs.movedim(-1, lead)                   # (..., 2, m)
+        comp = coeffs.movedim(-1, lead)                   # (..., d, m)
         rows = comp.reshape(-1, m)
         flat = torch.zeros((rows.shape[0], domain_size), dtype=torch.int64,
                            device=coeffs.device)
         flat[:, :m] = rows
         fft = get_ntt_fns(self._ntt_base, domain_size, self.ntt_backend)[0]
         ev = fft(flat).reshape(comp.shape[:-1] + (domain_size,))
-        return ev.movedim(lead, -1)                       # (..., N, 2)
+        return ev.movedim(lead, -1)                       # (..., N, d)
 
     def _tree(self, rows: torch.Tensor) -> IndexMerkleTree:
-        """(N/F, ..., 2) coset rows -> tree over their u64 components."""
+        """(N/F, ..., d) coset rows -> tree over their u64 components."""
         return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity)
 
     def _transcript(self, b: int, n: int) -> FastTranscript:
@@ -231,13 +234,14 @@ class BatchedFri:
     def _coset_rows(evals: torch.Tensor, F: int) -> torch.Tensor:
         """codeword(s) -> contiguous coset-grouped tree rows.
 
-        (N, 2) -> (N/F, F, 2); (B, N, 2) -> (N/F, B, F, 2). Row i holds the
+        (N, d) -> (N/F, F, d); (B, N, d) -> (N/F, B, F, d). Row i holds the
         values at domain indices {i + t*N/F}."""
+        d = evals.shape[-1]
         if evals.dim() == 2:
             N = evals.shape[0]
-            return evals.reshape(F, N // F, 2).movedim(1, 0).contiguous()
+            return evals.reshape(F, N // F, d).movedim(1, 0).contiguous()
         B, N = evals.shape[0], evals.shape[1]
-        a = evals.reshape(B, F, N // F, 2)
+        a = evals.reshape(B, F, N // F, d)
         return a.permute(2, 0, 1, 3).contiguous()
 
     # ------------------------------------------------------------- prove
@@ -246,7 +250,7 @@ class BatchedFri:
         batched component NTT) + one wide-arity coset-row tree. The caller
         absorbs the root into its transcript where the group is bound."""
         N = self.cfg.blowup * int(polys.shape[1])
-        evals0 = self._fft_batched(polys, N)        # (B, N, 2)
+        evals0 = self._fft_batched(polys, N)        # (B, N, d)
         return self._tree(self._coset_rows(evals0, self.cfg.fold_factor))
 
     def binding_lde(self, ext_coeffs: torch.Tensor):
@@ -292,7 +296,7 @@ class BatchedFri:
         rho = tr.challenge_scalar(ext)
         weights = ke.pack([ext.pow(rho, j) for j in range(b)], dev)
         allp = groups[0] if len(groups) == 1 else torch.cat(groups, 0)
-        cur = mix_columns(ke, allp, weights)              # g coeffs (n, 2)
+        cur = mix_columns(ke, allp, weights)              # g coeffs (n, d)
 
         layer_trees: List[IndexMerkleTree] = []
         for r in range(R):

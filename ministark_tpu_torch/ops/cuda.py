@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu")
-HEADERS = ("gl.cuh", "sha256.cuh")
+HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "sha256.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -38,25 +38,31 @@ _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)   # a host int64 array
-# name -> argtypes; every function returns int (a cudaError_t)
+_NTT = [_P, _P, _I, _I, _P, _P, _P, _U64, _P]
+_PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
+_PASS2 = [_P, _P, _I, _I, _I, _P, _P, _U64, _P]
+_LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P]
+# name -> argtypes; every function returns int (a cudaError_t). The NTT
+# kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
+# (BabyBear), with the same arguments.
 _SIGNATURES = {
     # x, y, batch, log_n, twiddles, pre_pows, post_pows, scale, stream
-    "ms_ntt_gl": [_P, _P, _I, _I, _P, _P, _P, _U64, _P],
+    "ms_ntt_gl": _NTT, "ms_ntt_bb": _NTT,
     # children, parents, n_parents, fan, stream
     "ms_sha256_inner_level": [_P, _P, _I, _I, _P],
     # comps, digests, n_rows, C, stream
     "ms_sha256_rows": [_P, _P, _I, _I, _P],
-    # comps, digests, n_groups, leafs_per_node, fmt, stream
-    "ms_leaf_hash_gl": [_P, _P, _I, _I, _I, _P],
+    # comps, digests, n_groups, leafs_per_node, fmt, max_digits, stream
+    "ms_leaf_hash": [_P, _P, _I, _I, _I, _I, _P],
     # a, b, out, ndim, shape, a_strides, b_strides (int64[ndim] each), numel,
     # stream
     "ms_gl_mul": [_P, _P, _P, _I, _I64P, _I64P, _I64P, _I64, _P],
     # x, c, batch, log_n1, log_n2, tw2, wpow, pre, stream
-    "ms_ntt_four_step_pass1": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "ms_ntt_four_step_pass1_gl": _PASS1, "ms_ntt_four_step_pass1_bb": _PASS1,
     # c, y, batch, log_n1, log_n2, tw1, post, scale, stream
-    "ms_ntt_four_step_pass2": [_P, _P, _I, _I, _I, _P, _P, _U64, _P],
+    "ms_ntt_four_step_pass2_gl": _PASS2, "ms_ntt_four_step_pass2_bb": _PASS2,
     # x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale, stream
-    "ms_ntt_pipe_level": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P],
+    "ms_ntt_pipe_level_gl": _LEVEL, "ms_ntt_pipe_level_bb": _LEVEL,
 }
 
 _lib = None

@@ -1,4 +1,6 @@
-"""Goldilocks (p = 2^64 - 2^32 + 1) and its quadratic extension on tensors.
+"""Goldilocks (p = 2^64 - 2^32 + 1) and its quadratic extension on tensors,
+and the field registry ``get_ops`` (Goldilocks, Fp2, BabyBear and its Fp4,
+the last two from ops/bb.py).
 
 Port of ``ministark_tpu/ops/{u32,gl,registry}.py``. The TPU's u32 limb-pair
 layout stays behind: a base element is an ``int64`` tensor holding the
@@ -28,7 +30,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from . import cuda
+from . import bb, cuda
 
 P = 18446744069414584321
 M32 = 0xFFFFFFFF
@@ -313,7 +315,7 @@ class FieldOps:
 
     field: object                  # host field (oracle + constants)
     base_field: object             # host base prime field
-    elem_axes: Tuple[int, ...]     # trailing element shape: () or (2,)
+    elem_axes: Tuple[int, ...]     # trailing element shape: (), (2,) or (4,)
     add: Callable
     sub: Callable
     mul: Callable
@@ -322,21 +324,27 @@ class FieldOps:
     scale_base: Callable           # elementwise multiply by base scalars
     pack: Callable                 # host scalars -> tensor
     unpack: Callable               # tensor -> list of host scalars
-    pack_scalar: Callable          # one host scalar -> 0-d / (2,) tensor
+    pack_scalar: Callable          # one host scalar -> 0-d / (2,) / (4,) tensor
+
+
+def _pack_base(vals, device=None):
+    return pack_u64([int(v) for v in vals], device)
+
+
+def _unpack_base(t):
+    return [int(v) for v in unpack_u64(t).reshape(-1)]
+
+
+def _pack_scalar_base(v, device=None):
+    return pack_u64(int(v), device)
 
 
 def _gl_base(field):
-    def pack(vals, device=None):
-        return pack_u64([int(v) for v in vals], device)
-
-    def unpack(t):
-        return [int(v) for v in unpack_u64(t).reshape(-1)]
-
     return FieldOps(
         field=field, base_field=field, elem_axes=(),
         add=add, sub=sub, mul=mul, neg=neg, pow=pow,
-        scale_base=mul, pack=pack, unpack=unpack,
-        pack_scalar=lambda v, device=None: pack_u64(int(v), device),
+        scale_base=mul, pack=_pack_base, unpack=_unpack_base,
+        pack_scalar=_pack_scalar_base,
     )
 
 
@@ -358,13 +366,45 @@ def _gl_ext(field, base):
     )
 
 
+def _bb_base(field):
+    return FieldOps(
+        field=field, base_field=field, elem_axes=(),
+        add=bb.add, sub=bb.sub, mul=bb.mul, neg=bb.neg, pow=bb.pow,
+        scale_base=bb.mul, pack=_pack_base, unpack=_unpack_base,
+        pack_scalar=_pack_scalar_base,
+    )
+
+
+def _bb_fp4(field, base):
+    """BabyBear Fp4 (``ops/registry.py::_bb_fp4``): host scalars are nested
+    ((c00, c01), (c10, c11)) tuples, tensors (..., 4) in that order."""
+    def flat(v):
+        return [int(v[0][0]), int(v[0][1]), int(v[1][0]), int(v[1][1])]
+
+    def pack(vals, device=None):
+        return pack_u64([flat(v) for v in vals], device).reshape(-1, 4)
+
+    def unpack(t):
+        u = unpack_u64(t).reshape(-1, 4)
+        return [((int(r[0]), int(r[1])), (int(r[2]), int(r[3]))) for r in u]
+
+    return FieldOps(
+        field=field, base_field=base, elem_axes=(4,),
+        add=bb.fp4_add, sub=bb.fp4_sub, mul=bb.fp4_mul, neg=bb.fp4_neg,
+        pow=bb.fp4_pow, scale_base=bb.fp4_scale_base,
+        pack=pack, unpack=unpack,
+        pack_scalar=lambda v, device=None: pack_u64(flat(v), device),
+    )
+
+
 _OPS = {}
 
 
 def get_ops(field) -> FieldOps:
-    """Tensor ops for a host field from fields/host.py: Goldilocks or its
-    quadratic extension."""
-    from ..fields import GOLDILOCKS_FP, GOLDILOCKS_FP2
+    """Tensor ops for a host field from fields/host.py: Goldilocks, its
+    quadratic extension, BabyBear or its quartic extension
+    (``ops/registry.py::get_kernels`` :128-150)."""
+    from ..fields import BABYBEAR_FP, BABYBEAR_FP4, GOLDILOCKS_FP, GOLDILOCKS_FP2
 
     key = id(field)
     if key not in _OPS:
@@ -372,13 +412,19 @@ def get_ops(field) -> FieldOps:
             _OPS[key] = _gl_base(field)
         elif field is GOLDILOCKS_FP2:
             _OPS[key] = _gl_ext(field, GOLDILOCKS_FP)
+        elif field is BABYBEAR_FP:
+            _OPS[key] = _bb_base(field)
+        elif field is BABYBEAR_FP4:
+            _OPS[key] = _bb_fp4(field, BABYBEAR_FP)
         else:
             raise ValueError(f"no tensor ops for {field!r}")
     return _OPS[key]
 
 
 def lift_base_array(ext_ops: FieldOps, base_arr):
-    """Embed a base-field tensor (...) into Fp2 (..., 2) with c1 = 0."""
+    """Embed a base-field tensor (...) into the extension's layout: Fp2
+    (..., 2) or Fp4 (..., 4), the higher components 0."""
     if ext_ops.elem_axes == ():
         return base_arr
-    return torch.stack([base_arr, torch.zeros_like(base_arr)], -1)
+    z = torch.zeros_like(base_arr)
+    return torch.stack([base_arr] + [z] * (ext_ops.elem_axes[0] - 1), -1)

@@ -191,7 +191,7 @@ class DeviceEngine:
         self._t("deep_ali")
         # 2. DEEP-ALI queries
         queries = merlin.challenge_scalars(ext, cfg.constrain_queries)
-        ext_coeff_arr = lift_base_array(ke, all_coeffs)              # (w+t, n, 2)
+        ext_coeff_arr = lift_base_array(ke, all_coeffs)              # (w+t, n, d)
         ext_mixed = lift_base_array(ke, mixed)
         constrain_queries, validity_queries = [], []
         for q in queries:
@@ -221,9 +221,10 @@ class DeviceEngine:
 
     # ------------------------------------------------------------------- FRI
     def _ext_fft(self, coeffs: torch.Tensor, domain_size: int) -> torch.Tensor:
-        """Fp2 codeword (N, 2) of (m, 2) coefficients, m <= N, as the base
-        NTT batched over the two components."""
-        comp = torch.zeros((2, domain_size), dtype=torch.int64, device=coeffs.device)
+        """Extension codeword (N, d) of (m, d) coefficients, m <= N, as the
+        base NTT batched over the d components (2 for Fp2, 4 for Fp4)."""
+        comp = torch.zeros((coeffs.shape[1], domain_size), dtype=torch.int64,
+                           device=coeffs.device)
         comp[:, :coeffs.shape[0]] = coeffs.T
         fft, _, _, _ = get_ntt_fns(self.config.stark_field.base, domain_size,
                                    self.ntt_backend)
@@ -356,7 +357,8 @@ class DeviceEngine:
             folded = fold_even_odd(ke, rnd.coeffs, pack(alpha))
             folded[0] = ke.sub(folded[0], pack(deep_value))
             q = synth_div_suffix(ke, folded, pack(z), pack(ext.inv(z)))
-            rp = torch.zeros((n // 2, 2), dtype=torch.int64, device=self.device)
+            rp = torch.zeros((n // 2,) + ke.elem_axes, dtype=torch.int64,
+                             device=self.device)
             rp[: q.shape[0]] = q
             # hand off to the host representation when the next round is small
             if rnd.size // 2 < DEVICE_MIN_SIZE:
@@ -376,18 +378,18 @@ class DeviceEngine:
         """All of one round's query quotients (f - line) / ((x - x1)(x - x2))
         as one batch, with the lines a*x + b derived on the device from the
         codeword reads (y1 = reads[:Q], y2 = reads[Q:2Q]):
-        (Q, n0 - 1, 2) quotients zero-padded past their effective lengths,
+        (Q, n0 - 1, d) quotients zero-padded past their effective lengths,
         and those lengths (Q,)."""
         ext = self.config.stark_field.extension
         ke = self.ke
         pc = prev.coeffs
         if pc.shape[0] < 2:
-            pc = torch.cat([pc, torch.zeros((2 - pc.shape[0], 2), dtype=pc.dtype,
-                                            device=pc.device)], 0)
+            pc = torch.cat([pc, torch.zeros((2 - pc.shape[0],) + ke.elem_axes,
+                                            dtype=pc.dtype, device=pc.device)], 0)
         Q = len(xs)
 
         def stack(vals):
-            return ke.pack(vals, self.device)                        # (Q, 2)
+            return ke.pack(vals, self.device)                        # (Q, d)
 
         x1_s = stack([x1 for (x1, _, _) in xs])
         x2_s = stack([x2 for (_, x2, _) in xs])
@@ -398,12 +400,12 @@ class DeviceEngine:
         a_s = ke.mul(ke.sub(y2_s, y1_s), dxinv_s)
         b_s = ke.sub(y1_s, ke.mul(a_s, x1_s))
 
-        num = pc.unsqueeze(0).repeat(Q, 1, 1)                        # (Q, n0, 2)
+        num = pc.unsqueeze(0).repeat(Q, 1, 1)                        # (Q, n0, d)
         num[:, 0] = ke.sub(num[:, 0], b_s)
         num[:, 1] = ke.sub(num[:, 1], a_s)
-        q1 = synth_div_suffix(ke, num, x1_s, s1_s)                   # (Q, n0-1, 2)
+        q1 = synth_div_suffix(ke, num, x1_s, s1_s)                   # (Q, n0-1, d)
         q1 = torch.cat([q1, torch.zeros_like(q1[:, :1])], 1)
-        q2 = synth_div_suffix(ke, q1, x2_s, s2_s)                    # (Q, n0-1, 2)
+        q2 = synth_div_suffix(ke, q1, x2_s, s2_s)                    # (Q, n0-1, d)
         nz = (q2 != 0).any(-1)
         idx = torch.arange(1, q2.shape[1] + 1, device=q2.device)
         effs = torch.where(nz, idx, torch.zeros_like(idx)).amax(1)
@@ -516,8 +518,8 @@ class DeviceEngine:
 class _FriRoundRepr:
     device: bool
     ke: object
-    coeffs: object        # device: (m, 2) tensor; host: scalar list
-    codeword: object      # device: (size, 2) tensor; host: scalar list
+    coeffs: object        # device: (m, d) tensor; host: scalar list
+    codeword: object      # device: (size, d) tensor; host: scalar list
     tree: object          # device: PackedMerkleTree; host: MerkleTree
     size: int
 
@@ -531,7 +533,7 @@ class _FriRoundRepr:
 
 @dataclass
 class DeviceFriProof:
-    """FRI proof with quotient coefficient vectors kept as (len, 2) CPU
+    """FRI proof with quotient coefficient vectors kept as (len, d) CPU
     tensors (host-tail rounds carry DensePolynomial quotients)."""
 
     ke: object

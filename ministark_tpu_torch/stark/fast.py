@@ -143,7 +143,7 @@ class FastStark:
         return torch.cat([tp] + [f(tp)[None] for f in trace.transitions], 0)
 
     def _point_evals(self, ext_coeffs: torch.Tensor, z) -> list:
-        """All polynomials of (B, n, 2) at one host point, pulled once."""
+        """All polynomials of (B, n, d) at one host point, pulled once."""
         return self.ke.unpack(eval_many(self.ke, ext_coeffs,
                                         self.ke.pack_scalar(z, ext_coeffs.device)))
 
@@ -168,7 +168,7 @@ class FastStark:
         # 1. COMMIT the constraint polynomials, absorb, THEN draw challenges
         #    (nothing may be squeezed before the witness commitment binds).
         self._t("commit_witness")
-        ext_flat = lift_base_array(ke, all_b.reshape(B * total, n))  # (B(w+t), n, 2)
+        ext_flat = lift_base_array(ke, all_b.reshape(B * total, n))  # (B(w+t), n, d)
         del all_b
         tree_w = self.fri.commit(ext_flat)
         tr.absorb(tree_w.root())
@@ -176,8 +176,8 @@ class FastStark:
         self._t("point_evals")
         r = tr.challenge_scalar(ext)
         weights = ke.pack([ext.pow(r, i) for i in range(total)], self.device)
-        ext_3d = ext_flat.reshape(B, total, n, 2)
-        validities = field_sum(                               # (B, n, 2)
+        ext_3d = ext_flat.reshape((B, total, n) + ke.elem_axes)
+        validities = field_sum(                               # (B, n, d)
             ke, ke.mul(ext_3d, weights[:, None].expand_as(ext_3d)), axis=1)
 
         point_evals = []
@@ -252,7 +252,7 @@ class FastStark:
         # (a) bind committed rows to the real polynomials: recompute the LDE
         # over the backend's layer-0 domain (one batched component NTT) and
         # compare at every opened point, with one gather
-        N, F, lde = self.fri.binding_lde(ext_coeffs)   # (B(w+t), N, 2)
+        N, F, lde = self.fri.binding_lde(ext_coeffs)   # (B(w+t), N, d)
         flat_idx = []
         for idx, _ in res.rows:
             flat_idx.extend(idx + t * (N // F) for t in range(F))

@@ -4,10 +4,12 @@ PyTorch/CUDA port (ministark_tpu_torch) with torch.profiler.
 
     python3 scripts/torch_launch_count.py [--root DIR] [--steps N]
                                           [--ntt-backend B]
+                                          [--field goldilocks|babybear]
 
-Proves Fibonacci over Goldilocks + Fp2 (security 20, blowup 2, witness on
-the card) once to warm up, then once under torch.profiler, and prints one
-JSON line: the card's name and power limit (nvidia-smi), the runtime's
+Proves Fibonacci over Goldilocks + Fp2, or with ``--field babybear`` over
+BabyBear + Fp4 (security 20, blowup 2, witness on the card) once to warm
+up, then once under torch.profiler, and prints one JSON line: the card's
+name and power limit (nvidia-smi), the runtime's
 kernel-launch calls by name, the kernels that ran on the device and their
 summed time, the prove's wall seconds and the device's busy share (kernel
 time over wall time). ``--root`` names the checkout whose
@@ -31,6 +33,8 @@ def main():
         os.path.abspath(__file__))))
     ap.add_argument("--steps", type=int, default=(1 << 20) - 1)
     ap.add_argument("--ntt-backend", default=None)
+    ap.add_argument("--field", choices=("goldilocks", "babybear"),
+                    default="goldilocks")
     args = ap.parse_args()
 
     import torch
@@ -40,14 +44,14 @@ def main():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.abspath(args.root))
-    from ministark_tpu_torch.fields import Goldilocks
+    from ministark_tpu_torch.fields import BabyBear, Goldilocks
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
     from ministark_tpu_torch.stark import StarkConfig
     from ministark_tpu_torch.stark.engine import DeviceEngine
 
-    trace = fibonacci_device_trace(Goldilocks, args.steps, on_device=True,
-                                   device="cuda")
-    cfg = StarkConfig(Goldilocks, 20, 2, args.steps, trace.constrain_number())
+    sf = {"goldilocks": Goldilocks, "babybear": BabyBear}[args.field]
+    trace = fibonacci_device_trace(sf, args.steps, on_device=True, device="cuda")
+    cfg = StarkConfig(sf, 20, 2, args.steps, trace.constrain_number())
     kw = {} if args.ntt_backend is None else {"ntt_backend": args.ntt_backend}
     engine = DeviceEngine(cfg, device="cuda", **kw)
     engine.prove(trace)                                    # build and warm up
@@ -70,7 +74,8 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(json.dumps({
-        "root": os.path.abspath(args.root), "steps": args.steps,
+        "root": os.path.abspath(args.root), "field": args.field,
+        "steps": args.steps,
         "ntt_backend": args.ntt_backend, "gpu": smi,
         "launch_calls": launch_calls, "device_kernels": kernels,
         "device_ms": device_us / 1e3, "prove_wall_s": wall,

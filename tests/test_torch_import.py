@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import ministark_tpu_torch
-from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.fields import BABYBEAR_FP, Goldilocks
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
 from ministark_tpu_torch.ops import field, leaf_hash, ntt, ntt_four_step, ntt_pipe, sha256
 from ministark_tpu_torch.stark import StarkConfig
@@ -27,7 +27,7 @@ sys.modules["jax"] = None            # any "import jax" now raises ImportError
 import ministark_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-from ministark_tpu_torch.fields import Goldilocks
+from ministark_tpu_torch.fields import BabyBear, Goldilocks
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine
@@ -40,8 +40,16 @@ assert engine.verify(engine.constrain_coeffs(trace), proof)
 ftrace = fibonacci_device_trace(Goldilocks, 63, on_device=True, device="cpu")
 fast = FastStark(FastStarkConfig(Goldilocks, 63, queries=4, final_len=8), device="cpu")
 assert fast.verify(fast._constraint_polys(ftrace), fast.prove(ftrace))
+btrace = fibonacci_device_trace(BabyBear, 7, on_device=True, device="cpu")
+bengine = DeviceEngine(StarkConfig(BabyBear, 20, 2, 7, btrace.constrain_number()),
+                       device="cpu")
+bproof = bengine.prove(btrace)
+assert bengine.verify(bengine.constrain_coeffs(btrace), bproof)
+btrace = fibonacci_device_trace(BabyBear, 77, on_device=True, device="cpu")
+bfast = FastStark(FastStarkConfig(BabyBear, 77, queries=4, final_len=8), device="cpu")
+assert bfast.verify(bfast._constraint_polys(btrace), bfast.prove(btrace))
 assert not any(n == "ministark_tpu" or n.startswith("ministark_tpu.") for n in sys.modules)
-print("proved", len(proof.arthur))
+print("proved", len(proof.arthur), len(bproof.arthur))
 """
 
 
@@ -51,7 +59,8 @@ def test_imports_and_proves_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert res.stdout.strip() == "proved 320"
+    # transcripts of 320 B (Goldilocks, 5 rounds) and 256 B (BabyBear, 4)
+    assert res.stdout.strip() == "proved 320 256"
 
 
 def test_no_module_imports_jax():
@@ -110,3 +119,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (_, tw, W, _), _ = ntt_pipe._tables(1 << 14, False, "cpu")
     with pytest.raises(ValueError):
         ntt_pipe.level_cuda(y.reshape(2, 128, 128), tw, W=W)
+    # the BabyBear instantiations refuse them too
+    bb = BABYBEAR_FP
+    with pytest.raises(ValueError):
+        ntt.transform_cuda(x, field=bb)
+    with pytest.raises(ValueError):
+        leaf_hash.leaf_hash_cuda(torch.zeros((4, 4), dtype=torch.int64), 2, 2, 10)
+    tw1, tw2, wpow = ntt_four_step._tables(1 << 14, False, "cpu", bb)
+    with pytest.raises(ValueError):
+        ntt_four_step.pass1_cuda(y, tw2, wpow, field=bb)
+    with pytest.raises(ValueError):
+        ntt_four_step.pass2_cuda(y.reshape(2, 128, 128), tw1, field=bb)
+    (_, tw, W, _), _ = ntt_pipe._tables(1 << 14, False, "cpu", bb)
+    with pytest.raises(ValueError):
+        ntt_pipe.level_cuda(y.reshape(2, 128, 128), tw, W=W, field=bb)
