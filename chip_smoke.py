@@ -22,7 +22,7 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                against digests of the JAX package's proofs, then 2^20 - 1
                steps proved cold and warm, verified, and its two commitments
                recomputed with the plain versions on the card; then the
-               2^14 - 1 pin and 2^20 - 1 cold and warm with each other NTT
+               2^14 - 1 pin and one 2^20 - 1 prove with each other NTT
                backend (ntt_backend="four_step", "pipe"), equal to the
                radix-2 proof and verified
   6. fast      the fast-mode prover (FastStark: batched FRI, 4-ary index
@@ -43,12 +43,26 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                and warm, verified, both group roots recomputed with the plain
                versions, prove_many of 4; each other NTT backend at one
                2^20 - 1 prove equal to the radix-2 bytes, verified
-  9. launches  every kernel was launched by the 2^20 - 1 proves of the paths
-               it is on (counts set to 0 just before each cold prove): the
-               Goldilocks multiply on every Goldilocks path, each NTT
-               backend's kernels of each field on the parity and fast paths
-               of that backend and field, the 10-digit leaf hash on the
-               BabyBear parity paths
+  9. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
+               on the card: small proofs byte-identical to the host oracle
+               over both fields, the 2^14 - 1 pins of the JAX package
+               (parity for all three, fast for MiMC and LFSR), MiMC at
+               2^20 - 1 cold and warm, verified
+ 10. probes    the three probe scripts in-process (scripts/torch_stream_probe,
+               torch_f32_pad_probe, torch_digit_stage_probe at the three
+               levels of ifft 2^20)
+ 11. bench     bench_kernels_torch.kernel_rooflines() at full size (every
+               entry present, bound_frac <= 1) and bench_torch's device_prove,
+               fast_prove and host_prove in-process
+ 12. launches  every kernel was launched by the paths it is on (counts set to
+               0 just before each path runs, read just after): the 2^20 - 1
+               proves of each prover, backend and field, the MiMC prove, the
+               probes, the kernel bench and the bench's proves
+
+Phase 3 also holds the stream kernel and the digit level's four kernels
+(digitize, int8 dot, recombine, fused level) against their plain versions at
+the probes' shapes, the fused level against the butterfly level, and times
+torch.add and torch._int_mm beside them (library_ms).
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -123,36 +137,45 @@ BB_PINS = {
         "fri_payload_sha256": "a230a29a10e2454240440a2e02611d5ced3446a1f8a7431e209182df45795c81",
     },
 }
+# The same pins for the other AIRs over Goldilocks at 2^14 - 1 steps, made the
+# same way: proof_digests() of the JAX DeviceEngine's proof of
+# counter_device_trace (witness on the device), lfsr_device_trace and
+# mimc_device_trace, and the sha256 of the JAX FastStark's proof bytes in
+# FAST_CFG.
+MODEL_PIN_STEPS = 16383
+MODEL_PINS = {
+    "counter": {
+        "trace_commit": "d384264bea90d15faeab111c46c9d99193d8c21ec6d0f15bbd181697e47d6ab8",
+        "constrain_trace_commit": "935d799b8046bfc13e21a40f2f0900309e7dabb04f3c4762a06a4bf284a360ab",
+        "arthur_sha256": "d7db9438c49fe669c1f80b3f073a8f0459379fb5fb919b7f80eeb48022811f88",
+        "fri_payload_sha256": "aad1f74bd5e49608c7419eaeee7c74b90ee88c844be13af3f4174d29c406ee01",
+    },
+    "lfsr": {
+        "trace_commit": "29b85dee23d672c32807418dc08fec8402403d91f530bee7d23c877461545ec3",
+        "constrain_trace_commit": "022a4a0bca0ed78a3b3edf8206f4c059d27770973cf4677e0d384f9291827930",
+        "arthur_sha256": "5bbc2547c02d63d577c5f9c060776c14d018db224cfcc32614afbd58dae01e60",
+        "fri_payload_sha256": "6a59cbf7b864a39e784ff3a6493ea35a7a1d21739a73f0afe4ba03567bd788c2",
+    },
+    "mimc": {
+        "trace_commit": "1a73f69dc2e8a77b49d545d07fd0dee9e053262509b6601fe3cd20a4c3db7c4e",
+        "constrain_trace_commit": "5c8e661cb3019d957aca19cfeb2ee70fc8c7111b89bfa986946887f62f353aee",
+        "arthur_sha256": "439e5681ac194bf7383c177dabb8b31569047de20a6a67e02e0cc75c17aa7893",
+        "fri_payload_sha256": "abb2d4e4ab46a08c094f246ecc9a6c35e928d1a44a751b6e6020138acadd3c9f",
+    },
+}
+MODEL_FAST_PINS = {
+    "mimc": "f6a1e6061d338a089b4a54953e23e09c1867ab35ccc3c12bae108cbbbbe98a5e",
+    "lfsr": "b5cb1fe927f46ed757ecacf963361dd63e80431a498497d219cb0e111ae67b43",
+}
+
 BB_FAST_PINS = {
     (16383, 1): "6dd4dc47941ca20f4250b21b6f194a051157f80e7f0180c8d0ac07600c8b4dcc",
     (16383, 4): "d5052f1b32446e049d392ad13c64d3b0f42e2397ccaabf36d93af9a821c73570",
 }
 
-# The least time the card could take for a call (bound_ms): the larger of
-# its bytes (each input read once, each output written once) over the
-# H100 SXM's 3.35 TB/s, and its 32-bit integer operations over the INT32
-# peak, 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.73e12 per second.
-# The operation counts are lower bounds taken from the kernels' arithmetic:
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# one SHA-256 block: 64 rounds of 14 (3-input LOP3 and IADD3 fused) plus 48
-# schedule steps of 10, plus the 8 feed-forward adds; a block of constant
-# words needs no schedule (its words fold to immediates)
-OPS_SHA_BLOCK = 64 * 14 + 48 * 10 + 8
-OPS_SHA_CONST_BLOCK = 64 * 14 + 8
-# Goldilocks: a product is four 32x32->64 multiplies (two instructions
-# each) with 4 adds, and the reduction of gl.cuh about 17; an add 8, a sub 5
-OPS_GL_MUL = 8 + 4 + 17
-OPS_BUTTERFLY = OPS_GL_MUL + 8 + 5
-# BabyBear (bb.cuh): a product is one 32x32->64 multiply (2), the Barrett
-# step's 64-bit multiply-high (four 32x32->64 multiplies and 4 adds, 12),
-# one 32-bit multiply-subtract (2) and the conditional subtraction (2); an
-# add or a sub is 3 (add, compare, select)
-OPS_BB_MUL = 2 + 12 + 2 + 2
-OPS_BB_BUTTERFLY = OPS_BB_MUL + 3 + 3
-# (product, butterfly) operations per field, by the kernels' field suffix
-FIELD_OPS = {"gl": (OPS_GL_MUL, OPS_BUTTERFLY), "bb": (OPS_BB_MUL, OPS_BB_BUTTERFLY)}
-OPS_DIGIT = 4                      # one decimal digit: multiply-high, shift, multiply, sub
+# the bound model and the timing helper (ministark_tpu_torch/utils/roofline.py),
+# bound in main() once the package is on the path
+rf = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -167,19 +190,8 @@ def say(phase: str, msg: str):
 
 
 def timed(fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls, after one warm-up call, with
-    CUDA events around the whole run."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per call over ``reps`` calls after a warm-up (CUDA events)."""
+    return rf.time_ms(fn, reps, "cuda")
 
 
 def max_abs_err(got, want) -> int:
@@ -246,88 +258,35 @@ def _rand_u64(rng, shape, p):
     return torch.from_numpy(v.view(np.int64)).cuda()
 
 
-def bound(nbytes: float, ops: float):
-    """(bound_ms, bound_by): the larger of the byte time and the op time."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _sha_blocks(msg_bytes):
-    """SHA-256 blocks of messages of these byte lengths (int or tensor)."""
-    return (msg_bytes + 9 + 63) // 64
-
-
-def _ntt_work(batch, n, coset_mul: bool, scale_mul: bool, tag="gl"):
-    mul, butterfly = FIELD_OPS[tag]
-    log_n = n.bit_length() - 1
-    ops = batch * ((n // 2) * log_n * butterfly
-                   + n * mul * (int(coset_mul) + int(scale_mul)))
-    return 16 * batch * n + 8 * (n // 2), ops
-
-
-def _pass_work(batch, n, stages, muls, tag="gl"):
-    """One pass over (batch, n): ``stages`` radix-2 stages and ``muls``
-    elementwise products per value (coset, twiddle, scale); each value read
-    and written once."""
-    mul, butterfly = FIELD_OPS[tag]
-    ops = batch * ((n // 2) * stages * butterfly + n * mul * muls)
-    return 16 * batch * n, ops
-
-
-def _mul_work(a, b):
-    out = a.numel() if a.numel() >= b.numel() else b.numel()
-    return 8 * (a.numel() + b.numel() + out), out * OPS_GL_MUL
-
-
-def _leaf_hash_work(comps, k, fmt, max_digits=20):
-    """Bytes and ops of the leaf hash on these inputs: the preimage lengths
-    (and so the block counts) depend on the values' decimal digits."""
-    from ministark_tpu_torch.ops.leaf_hash import u64_digits
-
-    _, length = u64_digits(comps, max_digits)       # (n, comps)
-    const = {0: 0, 1: 21, 2: 63}[fmt]               # "QuadExtField(" ... " * u)"
-    per_elem = length.sum(1) + const
-    msg = per_elem.reshape(-1, k).sum(1)
-    blocks = int(_sha_blocks(msg).sum())
-    ops = blocks * OPS_SHA_BLOCK + int(length.sum()) * OPS_DIGIT
-    return comps.numel() * 8 + msg.numel() * 32, ops
-
-
-def _level_work(n_parents, fan):
-    ops = n_parents * ((fan // 2) * OPS_SHA_BLOCK + OPS_SHA_CONST_BLOCK)
-    return n_parents * (fan + 1) * 32, ops
-
-
-def _rows_work(n, C):
-    return n * (8 * C + 32), n * _sha_blocks(8 * C) * OPS_SHA_BLOCK
-
-
 def make_compare(results):
-    """compare(name, label, kern, plain, work): the kernel's output against
-    its plain version's on the same inputs (exact), then both timed, into
-    ``results[name]`` unless ``name`` is a whole transform."""
+    """compare(name, label, kern, plain, work, library=None): the kernel's
+    output against its plain version's on the same inputs (exact), then both
+    timed (and ``library``, one PyTorch call computing the same function,
+    where there is one), into ``results[name]`` unless ``name`` is a whole
+    transform."""
     import torch
 
-    def compare(name, label, kern, plain, work, reps=5, plain_reps=2):
+    def compare(name, label, kern, plain, work, reps=5, plain_reps=2, library=None):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         if err != 0:
             fail(f"{name} {label}: kernel differs from its plain version "
                  f"(max_abs_err {err})")
+        del got, want
         ms = timed(kern, reps)
         pms = timed(plain, plain_reps)
-        bms, by = bound(*work)
+        lms = None if library is None else timed(library, reps)
+        bms, by = rf.bound(*work)
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
                        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
-                       f"({by})")
+                       f"({by})" + ("" if lms is None else f", library {lms:.3f} ms"))
         if name not in results:              # a whole transform, not a kernel
             return
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms,
-                            "bound_ms": bms, "bound_by": by})
+                            "bound_ms": bms, "bound_by": by, "library_ms": lms})
 
     return compare
 
@@ -345,7 +304,7 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
     sfx = "" if tag == "gl" else "_" + tag
     for label, batch, n, kw in radix2_shapes:
         x = _rand_u64(rng, (batch, n), F.p)
-        work = _ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")), tag)
+        work = rf.ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")), tag)
         compare("ntt" + sfx, label, lambda: ntt.transform_cuda(x, **kw, field=F),
                 lambda: ntt.transform_plain(x, **kw, field=F), work)
 
@@ -359,12 +318,12 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
         compare("ntt_four_step_pass1" + sfx, label,
                 lambda: fs.pass1_cuda(x, tw2, wpow, pre, F),
                 lambda: fs.pass1_plain(x, tw2, wpow, pre, F),
-                _pass_work(batch, n, n2.bit_length() - 1, 1 + (pre is not None),
+                rf.pass_work(batch, n, n2.bit_length() - 1, 1 + (pre is not None),
                            tag), plain_reps=1)
         compare("ntt_four_step_pass2" + sfx, label,
                 lambda: fs.pass2_cuda(c, tw1, scale, None, F),
                 lambda: fs.pass2_plain(c, tw1, scale, None, F),
-                _pass_work(batch, n, n1.bit_length() - 1, int(inverse), tag),
+                rf.pass_work(batch, n, n1.bit_length() - 1, int(inverse), tag),
                 plain_reps=1)
         levels = pp._tables(n, inverse, x.device, F)
         y = x
@@ -376,10 +335,10 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
                 last and inverse)
             compare("ntt_pipe_level" + sfx, f"{label} level {i} (F {Fi})",
                     lambda: pp.level_cuda(*args), lambda: pp.level_plain(*args),
-                    _pass_work(batch, n, Fi.bit_length() - 1, muls, tag),
+                    rf.pass_work(batch, n, Fi.bit_length() - 1, muls, tag),
                     plain_reps=1)
             y = pp.level_cuda(*args)
-        work = _ntt_work(batch, n, pre is not None, inverse, tag)
+        work = rf.ntt_work(batch, n, pre is not None, inverse, tag)
         for name, mod in (("four_step", fs), ("pipe", pp)):
             compare(f"{name} transform{sfx}", label,
                     lambda: mod.transform(x, **kw, field=F),
@@ -398,7 +357,7 @@ def _compare_leaf_hash(compare, rng, F, name, shapes):
         comps[: groups // 4] %= 1000
         compare(name, label, lambda: lh.leaf_hash_cuda(comps, k, fmt, md),
                 lambda: lh.leaf_hash_plain(comps, k, fmt, md),
-                _leaf_hash_work(comps, k, fmt, md), reps=3, plain_reps=1)
+                rf.leaf_hash_work(comps, k, fmt, md), reps=3, plain_reps=1)
 
 
 def phase_kernels(results):
@@ -435,7 +394,7 @@ def phase_kernels(results):
     for label, x, y in [("(2^21,) x (2^21,)", a[0], b),
                         ("(6, 2^21) x (2^21,) broadcast", a, b)]:
         compare("gl_mul", label, lambda: gl.mul_cuda(x, y),
-                lambda: gl.mul_plain(x, y), _mul_work(x, y), reps=10)
+                lambda: gl.mul_plain(x, y), rf.mul_work(x, y), reps=10)
 
     # K3: leaf hashes of the trace / constraint trees (fmt 0, 6 per group)
     # and of the first FRI round tree (fmt 1, 2 per group)
@@ -458,14 +417,14 @@ def phase_kernels(results):
             return torch.cat(out)
         return run
 
-    work = [sum(w) for w in zip(*(_level_work(1 << j, 2) for j in range(21)))]
+    work = [sum(w) for w in zip(*(rf.level_work(1 << j, 2) for j in range(21)))]
     compare("sha256_inner_level", "all 21 levels of a 2^21-leaf tree",
             levels(sh.inner_level_cuda), levels(sh.inner_level_plain), work,
             reps=5, plain_reps=1)
     d4 = leaves[: 1 << 19]
     compare("sha256_inner_level", "fan 4, 2^19 -> 2^17",
             lambda: sh.inner_level_cuda(d4, 4), lambda: sh.inner_level_plain(d4, 4),
-            _level_work(1 << 17, 4))
+            rf.level_work(1 << 17, 4))
 
     # K2b: the fast mode's row leaves over 2^19 coset rows: the witness group
     # (6 polynomials x F 4 x Fp2 = 48 u64 per row), the validity group and
@@ -475,7 +434,7 @@ def phase_kernels(results):
         compare("sha256_rows", f"2^19 rows, C {C}",
                 lambda: sh.binary_row_digests_cuda(comps),
                 lambda: sh.binary_row_digests_plain(comps),
-                _rows_work(1 << 19, C), reps=5, plain_reps=1)
+                rf.rows_work(1 << 19, C), reps=5, plain_reps=1)
 
 
 def phase_kernels_bb(results):
@@ -522,7 +481,100 @@ def phase_kernels_bb(results):
     compare("sha256_rows", "2^19 rows, C 96 (BabyBear witness group)",
             lambda: sh.binary_row_digests_cuda(comps),
             lambda: sh.binary_row_digests_plain(comps),
-            _rows_work(1 << 19, 96), reps=5, plain_reps=1)
+            rf.rows_work(1 << 19, 96), reps=5, plain_reps=1)
+
+
+def phase_kernels_digit(results):
+    """Phase 3 for the stream kernel and the digit level: the probes'
+    shapes ((16384, 4096) words; B 2, F 32, R 4096, PF 128; the three levels
+    of ifft 2^20 with B 2), each kernel against its plain version, the fused
+    level also against the butterfly level (two independent kernels), and
+    torch.add / torch._int_mm timed beside the stream and the dot."""
+    import numpy as np
+    import torch
+
+    from ministark_tpu_torch.fields import GOLDILOCKS_FP as F
+    from ministark_tpu_torch.ops import ntt_digit as nd
+    from ministark_tpu_torch.ops import ntt_pipe as pp
+    from ministark_tpu_torch.ops import stream
+
+    rng = np.random.default_rng(SEED + 2)
+    compare = make_compare(results)
+
+    words = torch.from_numpy(rng.integers(0, 1 << 32, size=(16384, 4096),
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).cuda()
+    words.view(-1)[:2] = torch.tensor([-1, 2**31 - 1], dtype=torch.int32)
+    compare("stream_add1", "(16384, 4096) words",
+            lambda: stream.stream_add1_cuda(words),
+            lambda: stream.stream_add1_plain(words),
+            rf.stream_work(words.numel()), reps=10, plain_reps=1,
+            library=lambda: torch.add(words, 1))
+    del words
+
+    def level_shapes():
+        root32 = F.get_root_of_unity(32)
+        yield ("F 32, R 4096, PF 128", 32, 4096,
+               nd.digit_matrix(root32, 32, "cuda", 128), None, None, 1)
+        n = 1 << 20
+        tables = zip(nd.level_tables(n, True, "cuda"),
+                     pp._tables(n, True, torch.device("cuda")))
+        for i, ((Fi, vd, W, k_prod), (_, tw, _, _)) in enumerate(tables):
+            yield (f"ifft 2^20 level {i} (F {Fi})", Fi, n // Fi, vd, tw, W, k_prod)
+
+    B = 2
+    for label, Fi, R, vd, tw, W, k_prod in level_shapes():
+        x = _rand_u64(rng, (B, Fi, R), F.p)
+        x.view(-1)[:4] = torch.tensor(
+            [nd.GL_CENTER_T - 1, nd.GL_CENTER_T, nd.GL_CENTER_T + 1, 0],
+            dtype=torch.int64)
+        rows = 0 if W is None else W.shape[0]
+        K, N = vd.shape
+        compare("digitize_gl", label, lambda: nd.digitize_cuda(x),
+                lambda: nd.digitize_plain(x), rf.digitize_work(B, Fi, R), reps=10)
+        d = nd.digitize_cuda(x)
+
+        def int_mm():
+            # the digits are K-major: the library reads them through a
+            # transposed view, or a transposed copy if it refuses the view
+            if int_mm_takes_view:
+                return torch.stack([torch._int_mm(d[b].T, vd) for b in range(B)])
+            return torch.stack([torch._int_mm(d[b].T.contiguous(), vd)
+                                for b in range(B)])
+
+        try:
+            torch._int_mm(d[0].T, vd)
+            int_mm_takes_view = True
+        except RuntimeError:
+            int_mm_takes_view = False
+
+        if not torch.equal(int_mm(), nd.digit_dot_cuda(d, vd)):
+            fail(f"digit_dot_s8 {label}: differs from torch._int_mm")
+        compare("digit_dot_s8", label, lambda: nd.digit_dot_cuda(d, vd),
+                lambda: nd.digit_dot_plain(d, vd), rf.digit_dot_work(B, K, R, N),
+                reps=10, library=int_mm)
+        Rm = nd.digit_dot_cuda(d, vd)
+        compare("recombine_gl", label + ", no twiddle",
+                lambda: nd.recombine_cuda(Rm, Fi), lambda: nd.recombine_plain(Rm, Fi),
+                rf.recombine_work(B, R, Fi), reps=10)
+        if W is not None:
+            compare("recombine_gl", label + ", twiddle",
+                    lambda: nd.recombine_cuda(Rm, Fi, W, k_prod),
+                    lambda: nd.recombine_plain(Rm, Fi, W, k_prod),
+                    rf.recombine_work(B, R, Fi, rows), reps=10)
+        compare("digit_level_gl", label, lambda: nd.level_cuda(x, vd, W, k_prod),
+                lambda: nd.level_plain(x, vd, W, k_prod),
+                rf.digit_level_work(B, Fi, R, rows), reps=10)
+        if tw is not None:
+            fused = nd.level_cuda(x, vd, W, k_prod)
+            if not torch.equal(fused, pp.level_cuda(x, tw, None, W, k_prod)):
+                fail(f"digit_level_gl {label}: differs from the butterfly level")
+            if not torch.equal(fused, nd.recombine_cuda(Rm, Fi, W, k_prod)):
+                fail(f"digit_level_gl {label}: differs from the stage chain")
+            bms = timed(lambda: pp.level_cuda(x, tw, None, W, k_prod), 10)
+            say("kernels", f"digit_level_gl {label}: equal to the butterfly level "
+                           f"(ntt_pipe_level, {bms:.3f} ms) and to the stage chain")
+        del x, d, Rm
 
 
 def _host_proof(sf, steps):
@@ -654,13 +706,15 @@ def reset_counts():
     from ministark_tpu_torch.ops import ntt
     from ministark_tpu_torch.ops import ntt_four_step as fs
     from ministark_tpu_torch.ops import ntt_pipe as pp
+    from ministark_tpu_torch.ops import ntt_digit as nd
     from ministark_tpu_torch.ops import sha256 as sh
+    from ministark_tpu_torch.ops import stream
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
-                   fs.pass2_launches, pp.launches):
+                   fs.pass2_launches, pp.launches, nd.launches):
         for key in counts:
             counts[key] = 0
-    sh.launches = sh.row_launches = gl.launches = 0
+    sh.launches = sh.row_launches = gl.launches = stream.launches = 0
     sh.fan_launches = {}
 
 
@@ -672,11 +726,14 @@ def read_counts():
     from ministark_tpu_torch.ops import ntt
     from ministark_tpu_torch.ops import ntt_four_step as fs
     from ministark_tpu_torch.ops import ntt_pipe as pp
+    from ministark_tpu_torch.ops import ntt_digit as nd
     from ministark_tpu_torch.ops import sha256 as sh
+    from ministark_tpu_torch.ops import stream
 
     counts = {"sha256_inner_level": sh.launches, "sha256_rows": sh.row_launches,
               "gl_mul": gl.launches, "leaf_hash": lh.launches[20],
-              "leaf_hash_bb": lh.launches[10]}
+              "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
+              **nd.launches}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
         counts["ntt" + suffix] = ntt.launches[tag]
         counts["ntt_four_step_pass1" + suffix] = fs.pass1_launches[tag]
@@ -686,15 +743,15 @@ def read_counts():
 
 
 def record(results, path, launches):
-    """The kernels a path's 2^20 - 1 prove launched, under that path."""
+    """The kernels a path's run launched, under that path."""
     for name, count in launches.items():
         if count:
             results[name]["paths"][path] = count
 
 
 def phase_main(results, field="gl"):
-    """The parity prover at its pins and at 2^20 - 1, then each other NTT
-    backend: Goldilocks proves each backend cold and warm, BabyBear once."""
+    """The parity prover at its pins and at 2^20 - 1 cold and warm, then
+    each other NTT backend at its 2^14 - 1 pin and one 2^20 - 1 prove."""
     import torch
 
     from ministark_tpu_torch.stark.engine import DeviceEngine
@@ -784,17 +841,6 @@ def phase_main(results, field="gl"):
                    f"steps {MAIN_STEPS} equal to the radix-2 proof, verified; "
                    f"cold prove {cold:.3f} s, phase_seconds "
                    + json.dumps({k: round(v, 4) for k, v in cold_phases.items()}))
-        if field == "gl":
-            t0 = time.time()
-            proof2 = bengine.prove(trace)
-            warm = time.time() - t0
-            if proof_digests(sf, proof2) != d1:
-                fail(f"{backend}: the warm 2^20 - 1 proof differs from the "
-                     "radix-2 proof")
-            say(label, f"ntt_backend={backend}: warm prove {warm:.3f} s; "
-                       "phase_seconds "
-                       + json.dumps({k: round(v, 4)
-                                     for k, v in bengine.phase_seconds.items()}))
         record(results, f"{path}_{backend}", launches)
 
 
@@ -1027,34 +1073,225 @@ def phase_fast(results, field="gl"):
         del proof
 
 
+def _model_case(name, field, steps):
+    """(host claim, witness, device trace) of a model at ``steps``, through
+    bench_torch.py's selection (BENCH_MODEL's)."""
+    import bench_torch
+
+    sf = _stark_field(field)
+    claim, witness = bench_torch._host_claim(sf.base, steps, name)
+    return claim, witness, bench_torch._device_trace(sf, steps, name, "cuda")
+
+
+def phase_models(results):
+    """The counter, LFSR and MiMC AIRs on the card: small proofs against
+    the host oracle over both fields, the 2^14 - 1 pins of the JAX package,
+    then MiMC at 2^20 - 1 cold and warm."""
+    import hashlib
+
+    import torch
+
+    from ministark_tpu_torch.stark import Stark, StarkConfig
+    from ministark_tpu_torch.stark import engine as eng
+    from ministark_tpu_torch.stark.engine import DeviceEngine
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes, proof_digests
+
+    default = eng.DEVICE_MIN_SIZE
+    try:
+        eng.DEVICE_MIN_SIZE = 1            # the tensor path at every size
+        for field in ("gl", "bb"):
+            sf = _stark_field(field)
+            for name, steps in (("counter", 13), ("lfsr", 11), ("mimc", 12)):
+                claim, witness, trace = _model_case(name, field, steps)
+                cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
+                host = Stark(cfg).prove(claim, witness)
+                engine = DeviceEngine(cfg, device="cuda")
+                proof = engine.prove(trace)
+                _assert_equal_proofs(host, proof)
+                assert engine.verify(engine.constrain_coeffs(trace), proof)
+                say("models", f"{name} {sf.name} steps {steps}: byte-identical to "
+                              "Stark.prove, verified")
+    except AssertionError as e:
+        fail(f"models: {e}")
+    finally:
+        eng.DEVICE_MIN_SIZE = default
+
+    sf = _stark_field("gl")
+    for name, want in MODEL_PINS.items():
+        _, _, trace = _model_case(name, "gl", MODEL_PIN_STEPS)
+        engine = DeviceEngine(StarkConfig(sf, 20, 2, MODEL_PIN_STEPS,
+                                          trace.constrain_number()), device="cuda")
+        t0 = time.time()
+        proof = engine.prove(trace)
+        secs = time.time() - t0
+        got = proof_digests(sf, proof)
+        if got != want:
+            fail(f"models: {name} steps {MODEL_PIN_STEPS}: digests differ from "
+                 f"the JAX pins: {got}")
+        if not engine.verify(engine.constrain_coeffs(trace), proof):
+            fail(f"models: {name} steps {MODEL_PIN_STEPS}: verify returned False")
+        say("models", f"{name} steps {MODEL_PIN_STEPS}: equal to the JAX package's "
+                      f"pinned digests, verified; prove {secs:.2f} s")
+    for name, pin in MODEL_FAST_PINS.items():
+        _, _, trace = _model_case(name, "gl", MODEL_PIN_STEPS)
+        stark = FastStark(FastStarkConfig(sf, MODEL_PIN_STEPS, **FAST_CFG),
+                          device="cuda")
+        proof = stark.prove(trace)
+        got = hashlib.sha256(fast_proof_to_bytes(sf, proof)).hexdigest()
+        if got != pin:
+            fail(f"models: fast {name} steps {MODEL_PIN_STEPS}: sha256 {got} "
+                 "differs from the JAX pin")
+        if not stark.verify(stark._constraint_polys(trace), proof):
+            fail(f"models: fast {name}: verify returned False")
+        say("models", f"fast {name} steps {MODEL_PIN_STEPS}: equal to the JAX "
+                      "package's pinned proof bytes, verified")
+
+    t0 = time.time()
+    _, _, trace = _model_case("mimc", "gl", MAIN_STEPS)
+    torch.cuda.synchronize()
+    say("models", f"mimc steps {MAIN_STEPS}: witness (2, {trace.domain_size}) from "
+                  f"the host chain in {time.time() - t0:.3f} s")
+    engine = DeviceEngine(StarkConfig(sf, 20, 2, MAIN_STEPS, trace.constrain_number()),
+                          device="cuda")
+    reset_counts()
+    t0 = time.time()
+    proof = engine.prove(trace)
+    cold = time.time() - t0
+    launches, _ = read_counts()
+    say("models", f"mimc cold prove {cold:.3f} s; phase_seconds "
+                  + json.dumps(_merge_query_phases(engine.phase_seconds)))
+    t0 = time.time()
+    proof2 = engine.prove(trace)
+    warm = time.time() - t0
+    say("models", f"mimc warm prove {warm:.3f} s; phase_seconds "
+                  + json.dumps(_merge_query_phases(engine.phase_seconds)))
+    if proof_digests(sf, proof) != proof_digests(sf, proof2):
+        fail("models: mimc cold and warm proofs differ")
+    t0 = time.time()
+    ok = engine.verify(engine.constrain_coeffs(trace), proof)
+    torch.cuda.synchronize()
+    if not ok:
+        fail("models: mimc verify returned False")
+    say("models", f"mimc verify True in {time.time() - t0:.3f} s; digests "
+                  + json.dumps(proof_digests(sf, proof)))
+    record(results, "mimc", launches)
+
+
+def _merge_query_phases(phases):
+    """phase_seconds rounded, the per-round query labels summed by kind."""
+    from ministark_tpu_torch.stark.engine import merge_query_phases
+
+    return {k: round(v, 4) for k, v in merge_query_phases(phases).items()}
+
+
+def _load_script(name):
+    """A script of scripts/ as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probes(results):
+    """The three probe scripts, in-process, at their own shapes."""
+    reset_counts()
+    out = _load_script("torch_stream_probe").run(reps=10)
+    say("probes", f"stream: kernel best {out['best_gb_per_s']:.1f} GB/s, torch.add "
+                  f"{out['torch_add']['gb_per_s']:.1f} GB/s over {out['gb_moved']:.3f} "
+                  f"GB; the bound uses {rf.HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+    ok, bad, total = _load_script("torch_f32_pad_probe").run()
+    if not ok:
+        fail(f"probes: the padded F = 32 level has {bad}/{total} mismatches")
+    say("probes", "f32 pad: PASS, the padded-column F = 32 level is bit-exact")
+    stage = _load_script("torch_digit_stage_probe")
+    for lvl in range(3):
+        r = stage.run(1 << 20, lvl, inverse=True, reps=10)
+        say("probes", f"digit stages ifft 2^20 level {lvl} (F {r['F']}): "
+                      + json.dumps({k: round(v, 4) for k, v in r["ms"].items()})
+                      + f", stage sum {r['stage_sum_ms']:.3f} ms")
+    launches, _ = read_counts()
+    record(results, "probes", launches)
+
+
+BENCH_BASE_STEPS = (1 << 10) - 1          # the host oracle's size in this run
+
+
+def phase_bench(results):
+    """The kernel bench at full size, then bench_torch's headline functions
+    in-process: one parity and one fast prove at 2^20 - 1, verified, and the
+    host oracle at BENCH_BASE_STEPS."""
+    import bench_kernels_torch
+    import bench_torch
+
+    reset_counts()
+    entries = bench_kernels_torch.kernel_rooflines("cuda")
+    launches, _ = read_counts()
+    record(results, "bench_kernels", launches)
+    got = {r["metric"]: r for r in entries}
+    for metric in bench_kernels_torch.METRICS:
+        if metric not in got:
+            fail(f"bench: kernel_rooflines() has no entry {metric}")
+        r = got[metric]
+        if not 0 < r["bound_frac"] <= 1.0:
+            fail(f"bench: {metric} bound_frac {r['bound_frac']} is outside (0, 1]")
+        say("bench", f"{metric}: {r['value']:.4g} {r['unit']} ({r['ms']:.3f} ms, bound "
+                     f"{r['bound_ms']:.3f} ms by {r['bound_by']}, bound_frac "
+                     f"{r['bound_frac']:.3f})")
+
+    reset_counts()
+    t_prove, t_verify, extras = bench_torch.device_prove(MAIN_STEPS)
+    say("bench", f"device_prove steps {MAIN_STEPS}: {MAIN_STEPS / t_prove:.0f} rows/s "
+                 f"({t_prove:.3f} s), verify {t_verify:.3f} s, " + json.dumps(extras))
+    t_fast, v_fast, e_fast = bench_torch.fast_prove(MAIN_STEPS)
+    say("bench", f"fast_prove steps {MAIN_STEPS}: {MAIN_STEPS / t_fast:.0f} rows/s "
+                 f"({t_fast:.3f} s), verify {v_fast:.3f} s, " + json.dumps(e_fast))
+    launches, _ = read_counts()
+    record(results, "bench_prove", launches)
+    t_host = bench_torch.host_prove(BENCH_BASE_STEPS)
+    say("bench", f"host_prove steps {BENCH_BASE_STEPS}: {t_host:.3f} s (pure Python)")
+    for key in ("device_s", "phases"):
+        if key not in extras or key not in e_fast:
+            fail(f"bench: the prove's report lacks {key}")
+    if "proof_bytes" not in e_fast:
+        fail("bench: fast_prove's report lacks proof_bytes")
+
+
 _BACKEND_PATHS = tuple(f"{p}_{b}" for p in ("parity", "fast") for b in NTT_BACKENDS)
 _BB_PATHS = ("parity_bb", "fast_bb")
+# the bench path's runs: the MiMC 2^20 - 1 prove, the kernel bench, the bench's
+# parity and fast proves (the probes launch only the probe kernels)
+_BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
 # name -> (source, the TPU kernel it replaces, the paths whose 2^20 - 1 prove
 # must launch it). The BabyBear entries are the same sources' bb
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
 KERNELS = {
     "ntt": ("ministark_tpu_torch/csrc/ntt.cu",
-            "ministark_tpu/ops/ntt_mxu.py:370", ("parity", "fast")),
+            "ministark_tpu/ops/ntt_mxu.py:370", ("parity", "fast") + _BENCH_PATHS),
     "sha256_inner_level": ("ministark_tpu_torch/csrc/sha256.cu",
                            "ministark_tpu/ops/sha256_pallas.py:113",
-                           ("parity", "fast") + _BB_PATHS),
+                           ("parity", "fast") + _BB_PATHS + _BENCH_PATHS),
     "leaf_hash": ("ministark_tpu_torch/csrc/leaf_hash.cu",
-                  "ministark_tpu/ops/sha256_pallas.py:163", ("parity",)),
+                  "ministark_tpu/ops/sha256_pallas.py:163",
+                  ("parity", "mimc", "bench_prove")),
     "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
                     "ministark_tpu/ops/sha256_pallas.py:113",
-                    ("fast", "fast_bb")),
+                    ("fast", "fast_bb", "bench_kernels", "bench_prove")),
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
-               ("parity", "fast") + _BACKEND_PATHS),
+               ("parity", "fast") + _BACKEND_PATHS + _BENCH_PATHS),
     "ntt_four_step_pass1": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
                             "ministark_tpu/ops/ntt_pallas.py:190",
-                            ("parity_four_step", "fast_four_step")),
+                            ("parity_four_step", "fast_four_step", "bench_kernels")),
     "ntt_four_step_pass2": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
                             "ministark_tpu/ops/ntt_pallas.py:204",
-                            ("parity_four_step", "fast_four_step")),
+                            ("parity_four_step", "fast_four_step", "bench_kernels")),
     "ntt_pipe_level": ("ministark_tpu_torch/csrc/ntt_pipe.cu",
                        "ministark_tpu/ops/ntt_mxu.py:486",
-                       ("parity_pipe", "fast_pipe")),
+                       ("parity_pipe", "fast_pipe", "bench_kernels", "probes")),
     "ntt_bb": ("ministark_tpu_torch/csrc/ntt.cu",
                "ministark_tpu/ops/ntt_mxu.py:370", _BB_PATHS),
     "leaf_hash_bb": ("ministark_tpu_torch/csrc/leaf_hash.cu",
@@ -1068,6 +1305,17 @@ KERNELS = {
     "ntt_pipe_level_bb": ("ministark_tpu_torch/csrc/ntt_pipe.cu",
                           "ministark_tpu/ops/ntt_mxu.py:486",
                           ("parity_bb_pipe", "fast_bb_pipe")),
+    "stream_add1": ("ministark_tpu_torch/csrc/stream.cu",
+                    "scripts/pallas_stream_probe.py:35", ("probes", "bench_kernels")),
+    "digitize_gl": ("ministark_tpu_torch/csrc/ntt_digit.cu",
+                    "scripts/tpu_fused_stage_probe.py:102", ("probes",)),
+    "digit_dot_s8": ("ministark_tpu_torch/csrc/ntt_digit.cu",
+                     "scripts/tpu_fused_stage_probe.py:124",
+                     ("probes", "bench_kernels")),
+    "recombine_gl": ("ministark_tpu_torch/csrc/ntt_digit.cu",
+                     "scripts/tpu_fused_stage_probe.py:165", ("probes",)),
+    "digit_level_gl": ("ministark_tpu_torch/csrc/ntt_digit.cu",
+                       "scripts/tpu_f32_pad_probe.py:54", ("probes", "bench_kernels")),
 }
 
 
@@ -1076,21 +1324,28 @@ def main():
     smi = phase_gpu()
     import torch
 
+    global rf
+    from ministark_tpu_torch.utils import roofline as rf
+
     phase_build()
     results = {name: {"max_abs_err": 0, "shapes": [], "paths": {}}
                for name in KERNELS}
     phase_kernels(results)
     phase_kernels_bb(results)
+    phase_kernels_digit(results)
     phase_parity()
     phase_main(results)
     phase_fast(results)
     phase_main(results, "bb")
     phase_fast(results, "bb")
+    phase_models(results)
+    phase_probes(results)
+    phase_bench(results)
 
     for name, (_, _, paths) in KERNELS.items():
         for path in paths:
             if results[name]["paths"].get(path, 0) <= 0:
-                fail(f"{name} was not launched by the {path} 2^20 - 1 prove")
+                fail(f"{name} was not launched by the {path} path")
     say("launches", json.dumps({k: r["paths"] for k, r in results.items()}))
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
@@ -1106,9 +1361,10 @@ def main():
                         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
                         "bound_ms": main_shape["bound_ms"],
                         "bound_by": main_shape["bound_by"],
-                        # torch has no Goldilocks or BabyBear NTT, no SHA-256
-                        # and no modular u64 multiply
-                        "library_ms": None,
+                        # torch.add for the stream, torch._int_mm for the
+                        # dot; torch has no Goldilocks or BabyBear NTT, no
+                        # SHA-256, no modular u64 multiply and no digit stage
+                        "library_ms": main_shape["library_ms"],
                         "shape": main_shape["shape"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

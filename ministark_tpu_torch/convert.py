@@ -55,15 +55,42 @@ def to_jax_packed(t: torch.Tensor, field) -> np.ndarray:
     return np.stack([lo, hi], axis=-1)
 
 
+def planes_to_i64(planes, device=None) -> torch.Tensor:
+    """``ntt_mxu``'s Goldilocks plane tuple (lo, hi), two u32 arrays of one
+    shape, -> int64 tensor of that shape."""
+    lo, hi = (np.asarray(t, dtype=np.uint32).astype(np.uint64) for t in planes)
+    u64 = lo | (hi << np.uint64(32))
+    return torch.from_numpy(np.ascontiguousarray(u64).view(np.int64)).to(device)
+
+
+def i64_to_planes(t: torch.Tensor):
+    """int64 tensor -> ``ntt_mxu``'s (lo, hi) tuple of numpy u32 planes."""
+    u64 = t.detach().cpu().contiguous().numpy().view(np.uint64)
+    return ((u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (u64 >> np.uint64(32)).astype(np.uint32))
+
+
+def digits_from_jax(d, device=None) -> torch.Tensor:
+    """``ntt_mxu._digitize``'s stack (NA, B, F, R) int8, digits on a new
+    leading axis, -> ``ops/ntt_digit.digitize``'s (B, NA F, R) int8 layout
+    (digit a of position m at row a F + m)."""
+    a = np.asarray(d, dtype=np.int8)
+    assert a.ndim == 4, a.shape
+    NA, B, F, R = a.shape
+    return torch.from_numpy(
+        np.transpose(a, (1, 0, 2, 3)).reshape(B, NA * F, R).copy()).to(device)
+
+
 def from_jax_trace(jax_trace, transitions, device=None):
-    """A JAX ``DeviceTrace`` -> this package's ``DeviceTrace``.
+    """A JAX ``DeviceTrace`` -> this package's ``DeviceTrace`` (Fibonacci,
+    counter, LFSR or MiMC: ``transitions_inline`` stays behind).
 
     The stark field becomes this package's Goldilocks or BabyBear, by name;
     the columns are carried over (host ``cols`` stay numpy, device
     ``cols_dev`` become a tensor on ``device``). ``transitions`` must be
     this package's closures for the same AIR (e.g.
-    ``models.fibonacci_device._fib_transitions``): the JAX closures act on
-    JAX arrays."""
+    ``models.fibonacci_device._fib_transitions``, or the ``transitions`` of
+    ``models.mimc.mimc_device_trace``): the JAX closures act on JAX arrays."""
     from .fields import BabyBear, Goldilocks
     from .stark.engine import DeviceTrace
 

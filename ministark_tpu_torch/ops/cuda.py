@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
-           "ntt_four_step.cu", "ntt_pipe.cu")
+           "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu")
 HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "sha256.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -63,6 +63,16 @@ _SIGNATURES = {
     "ms_ntt_four_step_pass2_gl": _PASS2, "ms_ntt_four_step_pass2_bb": _PASS2,
     # x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale, stream
     "ms_ntt_pipe_level_gl": _LEVEL, "ms_ntt_pipe_level_bb": _LEVEL,
+    # x, d, batch, F, R, stream
+    "ms_digitize_gl": [_P, _P, _I, _I, _I, _P],
+    # A, V, C, batch, K, R, N, stream
+    "ms_digit_dot_s8": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # Rm, y, batch, R, F, PF, W, log_kprod, scale, kc, stream
+    "ms_recombine_gl": [_P, _P, _I, _I, _I, _I, _P, _I, _U64, _U64, _P],
+    # x, V, y, batch, F, R, PF, W, log_kprod, scale, kc, stream
+    "ms_digit_level_gl": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _U64, _U64, _P],
+    # x, out, n, threads, per_thread, stream
+    "ms_stream_add1": [_P, _P, _I64, _I, _I, _P],
 }
 
 _lib = None
@@ -158,3 +168,11 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_aligned(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """``require``, and the storage starts on a 16-byte boundary (the
+    kernels that move 4- and 16-byte vectors of narrower elements)."""
+    require(t, name, dtype, ndim)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte aligned storage")

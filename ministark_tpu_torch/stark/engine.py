@@ -59,6 +59,20 @@ from .stark import StarkConfig, StarkProof
 DEVICE_MIN_SIZE = 1 << 13
 
 
+def merge_query_phases(phases: dict) -> dict:
+    """``phase_seconds`` with the per-round query labels
+    ``fri_query_round_<i>_<kind>`` summed into ``fri_query_host`` (index and
+    point arithmetic, proof assembly, host-tail rounds), ``fri_query_device``
+    (gathers, quotients, the leaf search) and ``fri_query_copy`` (the pulls
+    to the host); every other label as it is."""
+    out = {}
+    for label, secs in phases.items():
+        if label.startswith("fri_query_round_"):
+            label = "fri_query_" + label.rsplit("_", 1)[1]
+        out[label] = out.get(label, 0.0) + secs
+    return out
+
+
 @dataclass
 class DeviceTrace:
     """Tensor-native TraceTable equivalent.
@@ -261,7 +275,12 @@ class DeviceEngine:
                  for i in range(cfg.queries)]
         points, queries, quotients = [], [], []
         for i in range(len(rounds) - 1):
-            self._t(f"fri_query_round_{i}")
+            # three labels per round: ``_host`` (index and point arithmetic,
+            # proof assembly, host-tail rounds), ``_device`` (gathers,
+            # quotients and the leaf search, up to the synchronize) and
+            # ``_copy`` (the pulls to the host and their unpacking)
+            label = f"fri_query_round_{i}"
+            self._t(label + "_host")
             prev, nxt = rounds[i], rounds[i + 1]
             assert prev.size // 2 == nxt.size
             prev_gen = ext.get_root_of_unity(prev.size)
@@ -274,24 +293,32 @@ class DeviceEngine:
             xs = [(ext.pow(prev_gen, b), ext.pow(prev_gen, nxt.size + b),
                    ext.pow(next_gen, b)) for b in red_betas]
 
+            self._t(label + "_copy")
             next_reads = nxt.read_many(idxs_next)
             if prev.device:
+                self._t(label + "_device")
                 reads = prev.codeword[
                     torch.tensor(idxs_prev, dtype=torch.int64, device=self.device)]
                 qs, effs = self._quotients_from_reads(prev, reads, xs)
                 # proof search by the y1/y2 values, interleaved per query
                 # [y1_0, y2_0, y1_1, ...], in the tree's leaf layout (§8.6)
                 rows = torch.stack([reads[:nq], reads[nq:]], 1).reshape(2 * nq, -1)
-                sidx = [int(v) for v in prev.tree.search_rows_async(
-                    to_leaf_comps(ext, rows)).cpu()]
+                found = prev.tree.search_rows_async(to_leaf_comps(ext, rows))
+                self._t(label + "_copy")
+                sidx = [int(v) for v in found.cpu()]
                 if any(ix >= prev.tree.n_leafs for ix in sidx):
                     # a missed search returns n_leafs: fail loudly instead
                     # of gathering past the end (a device-side fault)
                     raise LeafNotFound()
-                proofs = prev.tree.proofs_finish(prev.tree.proofs_gather_async(sidx))
+                self._t(label + "_device")
+                handle = prev.tree.proofs_gather_async(sidx)
+                self._t(label + "_copy")
+                proofs = prev.tree.proofs_finish(handle)
                 prev_reads = ke.unpack(reads)
                 round_quotients = self._trim_quotients(qs, effs)
+                self._t(label + "_host")
             else:
+                self._t(label + "_host")
                 prev_reads = prev.read_many(idxs_prev)
                 round_quotients = []
                 for qi in range(nq):

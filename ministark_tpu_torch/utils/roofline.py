@@ -1,0 +1,174 @@
+"""The least time the card could take for a call, and how a call is timed.
+
+One model for every script that states a bound (``chip_smoke.py``,
+``bench_kernels_torch.py``): ``bound(nbytes, ops, int8_macs)`` is the
+larger of the bytes the function must move (each input read once, each
+output written once) over the H100 SXM's device-memory rate, its 32-bit
+integer operations over the INT32 peak, and its int8 multiply-adds over the
+dense INT8 tensor-core peak. The rates are NVIDIA's data-sheet values for
+the H100 SXM at its full power limit; the operation counts are lower
+bounds taken from the kernels' arithmetic, so a measured time below a
+bound is a fault of the count.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+# H100 SXM data sheet: 80 GB HBM3 at 3.35 TB/s
+HBM_BYTES_PER_S = 3.35e12
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM data sheet, dense INT8 tensor-core rate: 1,979 TOP/s, a
+# multiply-add counting as two operations
+INT8_OPS_PER_S = 1979e12
+# one SHA-256 block: 64 rounds of 14 (3-input LOP3 and IADD3 fused) plus 48
+# schedule steps of 10, plus the 8 feed-forward adds; a block of constant
+# words needs no schedule (its words fold to immediates)
+OPS_SHA_BLOCK = 64 * 14 + 48 * 10 + 8
+OPS_SHA_CONST_BLOCK = 64 * 14 + 8
+# Goldilocks: a product is four 32x32->64 multiplies (two instructions
+# each) with 4 adds, and the reduction of gl.cuh about 17; an add 8, a sub 5
+OPS_GL_MUL = 8 + 4 + 17
+OPS_BUTTERFLY = OPS_GL_MUL + 8 + 5
+# BabyBear (bb.cuh): a product is one 32x32->64 multiply (2), the Barrett
+# step's 64-bit multiply-high (four 32x32->64 multiplies and 4 adds, 12),
+# one 32-bit multiply-subtract (2) and the conditional subtraction (2); an
+# add or a sub is 3 (add, compare, select)
+OPS_BB_MUL = 2 + 12 + 2 + 2
+OPS_BB_BUTTERFLY = OPS_BB_MUL + 3 + 3
+# (product, butterfly) operations per field, by the kernels' field suffix
+FIELD_OPS = {"gl": (OPS_GL_MUL, OPS_BUTTERFLY), "bb": (OPS_BB_MUL, OPS_BB_BUTTERFLY)}
+OPS_DIGIT = 4                      # one decimal digit: multiply-high, shift, multiply, sub
+# the digit level (ntt_digit.cu): centring a value (compare, subtract: 4) and
+# 8 balanced bytes of shift, mask, add, compare; recombining 8 planes (8
+# offset adds, 6 64-bit shift-adds of 2, the 96-bit fold, reduce128 and the
+# subtraction of the constant)
+OPS_DIGITIZE = 4 + 8 * 4
+OPS_RECOMBINE = 8 + 6 * 2 + 3 + 17 + 5
+
+
+def bound(nbytes: float, ops: float, int8_macs: float = 0.0):
+    """(bound_ms, bound_by): the larger of the byte time and the operation
+    time (INT32 operations or int8 tensor-core multiply-adds)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / INT32_OPS_PER_S, 2.0 * int8_macs / INT8_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int, device="cuda") -> float:
+    """Mean ms per call over ``reps`` calls after one warm-up call: CUDA
+    events around the whole run on the card, the host clock on the CPU (a
+    dry run: no device metric)."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sha_blocks(msg_bytes):
+    """SHA-256 blocks of messages of these byte lengths (int or tensor)."""
+    return (msg_bytes + 9 + 63) // 64
+
+
+def ntt_work(batch, n, coset_mul: bool, scale_mul: bool, tag="gl"):
+    mul, butterfly = FIELD_OPS[tag]
+    log_n = n.bit_length() - 1
+    ops = batch * ((n // 2) * log_n * butterfly
+                   + n * mul * (int(coset_mul) + int(scale_mul)))
+    return 16 * batch * n + 8 * (n // 2), ops
+
+
+def pass_work(batch, n, stages, muls, tag="gl"):
+    """One pass over (batch, n): ``stages`` radix-2 stages and ``muls``
+    elementwise products per value (coset, twiddle, scale); each value read
+    and written once."""
+    mul, butterfly = FIELD_OPS[tag]
+    ops = batch * ((n // 2) * stages * butterfly + n * mul * muls)
+    return 16 * batch * n, ops
+
+
+def mul_work(a, b):
+    out = a.numel() if a.numel() >= b.numel() else b.numel()
+    return 8 * (a.numel() + b.numel() + out), out * OPS_GL_MUL
+
+
+def leaf_hash_work(comps, k, fmt, max_digits=20):
+    """Bytes and ops of the leaf hash on these inputs: the preimage lengths
+    (and so the block counts) depend on the values' decimal digits."""
+    from ..ops.leaf_hash import u64_digits
+
+    _, length = u64_digits(comps, max_digits)       # (n, comps)
+    const = {0: 0, 1: 21, 2: 63}[fmt]               # "QuadExtField(" ... " * u)"
+    per_elem = length.sum(1) + const
+    msg = per_elem.reshape(-1, k).sum(1)
+    blocks = int(sha_blocks(msg).sum())
+    ops = blocks * OPS_SHA_BLOCK + int(length.sum()) * OPS_DIGIT
+    return comps.numel() * 8 + msg.numel() * 32, ops
+
+
+def level_work(n_parents, fan):
+    ops = n_parents * ((fan // 2) * OPS_SHA_BLOCK + OPS_SHA_CONST_BLOCK)
+    return n_parents * (fan + 1) * 32, ops
+
+
+def tree_work(n_leaves, fan):
+    """Every inner level of a fan-ary tree over ``n_leaves`` digests."""
+    nbytes = ops = 0
+    while n_leaves > 1:
+        f = min(fan, n_leaves)
+        n_leaves //= f
+        b, o = level_work(n_leaves, f)
+        nbytes, ops = nbytes + b, ops + o
+    return nbytes, ops
+
+
+def rows_work(n, C):
+    return n * (8 * C + 32), n * sha_blocks(8 * C) * OPS_SHA_BLOCK
+
+
+def stream_work(n_words):
+    """x + 1 over 32-bit words: each read and written once, one add."""
+    return 8 * n_words, n_words
+
+
+def digitize_work(batch, F, R):
+    n = batch * F * R
+    return 16 * n, n * OPS_DIGITIZE
+
+
+def digit_dot_work(batch, K, R, N):
+    """(bytes, ops, int8 multiply-adds) of (batch, K, R) x (K, N)."""
+    return batch * K * R + K * N + 4 * batch * R * N, 0, batch * R * K * N
+
+
+def _tail_ops(twiddle: bool, scale: bool):
+    return OPS_RECOMBINE + OPS_GL_MUL * (int(twiddle) + int(scale))
+
+
+def recombine_work(batch, R, F, twiddle_rows=0, scale=False):
+    """8 int32 planes of width F in (the padding between planes is not
+    needed), one value out, ``twiddle_rows`` rows of F twiddles."""
+    n = batch * R * F
+    return 40 * n + 8 * twiddle_rows * F, n * _tail_ops(twiddle_rows > 0, scale)
+
+
+def digit_level_work(batch, F, R, twiddle_rows=0, scale=False):
+    """(bytes, ops, int8 multiply-adds) of the fused level: values in and
+    out, the (8F, 8F) digit matrix and the twiddles once."""
+    n = batch * F * R
+    nbytes = 16 * n + 64 * F * F + 8 * twiddle_rows * F
+    ops = n * (OPS_DIGITIZE + _tail_ops(twiddle_rows > 0, scale))
+    return nbytes, ops, batch * R * 64 * F * F

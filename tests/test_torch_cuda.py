@@ -20,9 +20,11 @@ from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
 from ministark_tpu_torch.ops import field as gl
 from ministark_tpu_torch.ops import leaf_hash as lh
 from ministark_tpu_torch.ops import ntt
+from ministark_tpu_torch.ops import ntt_digit as nd
 from ministark_tpu_torch.ops import ntt_four_step as fs
 from ministark_tpu_torch.ops import ntt_pipe as pp
 from ministark_tpu_torch.ops import sha256 as sh
+from ministark_tpu_torch.ops import stream
 from ministark_tpu_torch.stark import Stark, StarkConfig
 
 pytestmark = pytest.mark.cuda
@@ -278,3 +280,111 @@ def test_babybear_proofs_on_card_match_cpu(dev, backend):
             ntt_backend=backend).prove(trace)))
     assert digests[0] == digests[1]
     assert blobs[0] == blobs[1]
+
+
+# --------------------------------------------- the digit level and the stream
+def _rand_centre(shape, seed):
+    """Random canonical values with the centring threshold's neighbours."""
+    v = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+    edge = [0, 1, nd.GL_CENTER_T - 1, nd.GL_CENTER_T, nd.GL_CENTER_T + 1,
+            1 << 63, P - 2, P - 1]
+    v.reshape(-1)[:len(edge)] = edge[:v.size]
+    return torch.from_numpy(v.view(np.int64))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 4096), (1, 64, 1), (3, 128, 37),
+                                   (2, 5, 130), (1, 512, 64)])
+def test_digitize_kernel_matches_plain(dev, shape):
+    x = _rand_centre(shape, shape[1]).to(dev)
+    got = nd.digitize_cuda(x)
+    assert got.dtype == torch.int8 and got.shape == (shape[0], 8 * shape[1], shape[2])
+    assert torch.equal(got, nd.digitize_plain(x))
+    assert torch.equal(nd.digitize(x), got)
+
+
+@pytest.mark.parametrize("B,K,R,N", [(2, 256, 4096, 1024), (1, 64, 1, 128),
+                                     (2, 512, 37, 512), (1, 1024, 130, 1024),
+                                     (3, 256, 129, 256)])
+def test_digit_dot_kernel_matches_plain(dev, B, K, R, N):
+    rng = np.random.default_rng(K + R)
+    d = torch.from_numpy(rng.integers(-128, 128, size=(B, K, R), dtype=np.int64)
+                         .astype(np.int8)).to(dev)
+    vd = torch.from_numpy(rng.integers(-128, 128, size=(K, N), dtype=np.int64)
+                          .astype(np.int8)).to(dev)
+    d[0, :, 0] = -128                       # the extreme products
+    vd[:, 0] = -128
+    got = nd.digit_dot_cuda(d, vd)
+    want = (d.cpu().to(torch.int64).transpose(1, 2) @ vd.cpu().to(torch.int64))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu().to(torch.int64), want)
+    assert torch.equal(got, nd.digit_dot_plain(d, vd))
+
+
+@pytest.mark.parametrize("F,PF,R,k_prod", [(32, 128, 4096, 1), (32, 32, 77, 1),
+                                           (64, 64, 1, 1), (128, 128, 256, 64),
+                                           (512, 512, 48, 16)])
+def test_recombine_kernel_matches_plain(dev, F, PF, R, k_prod):
+    rng = np.random.default_rng(F + R)
+    Rm = torch.from_numpy(rng.integers(-(1 << 27) + 1, 1 << 27, size=(2, R, 8 * PF),
+                                       dtype=np.int64).astype(np.int32)).to(dev)
+    Rm[0, 0, :] = (1 << 27) - 1
+    Rm[1, 0, :] = -(1 << 27) + 1
+    assert torch.equal(nd.recombine_cuda(Rm, F), nd.recombine_plain(Rm, F))
+    W = _rand_centre((-(-R // k_prod), F), 3).to(dev) if R % k_prod == 0 else None
+    got = nd.recombine_cuda(Rm, F, W, k_prod if W is not None else 1, 12345)
+    assert torch.equal(got, nd.recombine_plain(Rm, F, W,
+                                               k_prod if W is not None else 1, 12345))
+
+
+@pytest.mark.parametrize("F,R", [(32, 4096), (32, 33), (64, 1), (64, 200),
+                                 (128, 8192), (128, 127), (256, 70), (512, 64),
+                                 (512, 31)])
+def test_digit_level_kernel_matches_plain_and_butterflies(dev, F, R):
+    root = Goldilocks.base.get_root_of_unity(F)
+    vd = nd.digit_matrix(root, F, dev)
+    x = _rand_centre((2, F, R), F + R).to(dev)
+    W = _rand_centre((R, F), 9).to(dev)
+    tw = ntt.stage_table(Goldilocks.base, root, F, dev)
+    for w, scale in ((None, None), (W, None), (W, 987654321)):
+        got = nd.level_cuda(x, vd, w, 1, scale)
+        assert torch.equal(got, nd.level_plain(x, vd, w, 1, scale))
+        if R & (R - 1) == 0:                 # the butterfly level takes 2^k
+            assert torch.equal(got, pp.level_cuda(x, tw, None, w, 1, scale))
+    chain = nd.recombine_cuda(nd.digit_dot_cuda(nd.digitize_cuda(x), vd), F, W)
+    assert torch.equal(chain, nd.level_cuda(x, vd, W))
+
+
+def test_digit_level_unpadded_f32_matches_padded(dev):
+    root = Goldilocks.base.get_root_of_unity(32)
+    x = _rand_centre((2, 32, 512), 1).to(dev)
+    assert torch.equal(nd.level_cuda(x, nd.digit_matrix(root, 32, dev, 32)),
+                       nd.level_cuda(x, nd.digit_matrix(root, 32, dev, 128)))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 1 << 20, (1 << 20) + 5])
+def test_stream_kernel_matches_plain(dev, n):
+    v = np.random.default_rng(n).integers(0, 1 << 32, size=n, dtype=np.uint64)
+    v[:1] = 0xFFFFFFFF
+    v[-1:] = 0x7FFFFFFF
+    x = torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev)
+    want = stream.stream_add1_plain(x)
+    for threads, per in ((256, 4), (128, 1), (1024, 16)):
+        assert torch.equal(stream.stream_add1_cuda(x, threads, per), want)
+    assert torch.equal(torch.add(x, 1), want)
+
+
+def test_digit_and_stream_wrappers_refuse_cpu_tensors(dev):
+    x = _rand_centre((1, 32, 8), 0)
+    vd = nd.digit_matrix(Goldilocks.base.get_root_of_unity(32), 32, "cpu")
+    with pytest.raises(ValueError):
+        nd.digitize_cuda(x)
+    with pytest.raises(ValueError):
+        nd.digit_dot_cuda(nd.digitize_plain(x), vd)
+    with pytest.raises(ValueError):
+        nd.recombine_cuda(torch.zeros((1, 8, 8 * 128), dtype=torch.int32), 32)
+    with pytest.raises(ValueError):
+        nd.level_cuda(x, vd)
+    with pytest.raises(ValueError):
+        stream.stream_add1_cuda(torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        nd.level_cuda(x.to(dev), vd)            # the matrix left on the CPU
