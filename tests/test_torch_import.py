@@ -48,6 +48,13 @@ assert bengine.verify(bengine.constrain_coeffs(btrace), bproof)
 btrace = fibonacci_device_trace(BabyBear, 77, on_device=True, device="cpu")
 bfast = FastStark(FastStarkConfig(BabyBear, 77, queries=4, final_len=8), device="cpu")
 assert bfast.verify(bfast._constraint_polys(btrace), bfast.prove(btrace))
+from ministark_tpu_torch.models.mimc import mimc_device_trace
+mtrace = mimc_device_trace(Goldilocks, 12, device="cpu")
+mengine = DeviceEngine(StarkConfig(Goldilocks, 20, 2, 12, mtrace.constrain_number()),
+                       device="cpu")
+assert mengine.verify(mengine.constrain_coeffs(mtrace), mengine.prove(mtrace))
+import bench_kernels_torch, bench_torch      # the bench entry points, from the root
+assert bench_torch.device_prove(9, device="cpu")[1] is not None
 assert not any(n == "ministark_tpu" or n.startswith("ministark_tpu.") for n in sys.modules)
 print("proved", len(proof.arthur), len(bproof.arthur))
 """
