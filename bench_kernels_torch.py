@@ -21,7 +21,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,15 +52,13 @@ def _rand_s8(rng, shape, device):
     return torch.from_numpy(v).to(device)
 
 
-def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
+def kernel_rooflines(device="cuda", shrink: int = 0):
     """Measure the hot kernels; returns a list of result dicts, each with
     ``metric``, ``value``, ``unit``, ``ms``, ``bound_ms``, ``bound_by``,
     ``bound_frac`` and ``shape``.
 
-    ``deadline``: optional absolute ``time.time()`` cutoff; past it the
-    remaining entries are skipped with a note on stderr. ``shrink``: every
-    size is cut by 2^shrink (a dry run; the metric names keep the full
-    sizes, ``shape`` says what ran)."""
+    ``shrink``: every size is cut by 2^shrink (a dry run; the metric names
+    keep the full sizes, ``shape`` says what ran)."""
     from ministark_tpu_torch.commit.index_tree import _build_digests
     from ministark_tpu_torch.fields import GOLDILOCKS_FP, GOLDILOCKS_FP2, Goldilocks
     from ministark_tpu_torch.fri.batched import BatchedFri, BatchedFriConfig
@@ -81,13 +78,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
 
     def cut(log_size, floor):
         return 1 << max(log_size - shrink, floor)
-
-    def past_deadline(stage):
-        if deadline is not None and time.time() > deadline:
-            print(f"# kernel bench deadline hit; skipping from: {stage}",
-                  file=sys.stderr)
-            return True
-        return False
 
     def entry(metric, fn, reps, work, value, unit, shape, **extra):
         """Time ``fn`` and append one result; ``value(ms)`` forms the
@@ -110,8 +100,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
     entry("gl_mul_throughput", lambda: gl.mul(a, a), 20, rf.mul_work(a, a),
           lambda ms: n / ms / 1e6, "Gop/s", [n])
 
-    if past_deadline("hbm_stream"):
-        return results
     # --- device-memory stream (the stream_add1 kernel: read + write)
     rows = cut(14, 2)
     words = torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, 4096), dtype=np.uint64)
@@ -121,17 +109,13 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
           "GB/s", [rows, 4096])
     del words
 
-    if past_deadline("fp2_mul"):
-        return results
     # --- Fp2 multiply (Karatsuba: 3 base products through gl_mul, torch adds)
     ke = get_ops(GOLDILOCKS_FP2)
     m = cut(21, 10)
-    e = _rand_gl(rng, (m, 2), dev)
-    entry("fp2_mul_throughput", lambda: ke.mul(e, e), 10,
+    e, f = _rand_gl(rng, (m, 2), dev), _rand_gl(rng, (m, 2), dev)
+    entry("fp2_mul_throughput", lambda: ke.mul(e, f), 10,
           (48 * m, 3 * m * rf.OPS_GL_MUL), lambda ms: m / ms / 1e6, "Gext/s", [m, 2])
 
-    if past_deadline("int8 matmul"):
-        return results
     # --- int8 multiply-add rate: the library's product and the hand kernel
     # on the same operands (A is handed to digit_dot K-major, as the level's
     # digits are)
@@ -148,8 +132,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
           tmacs, "TMAC/s", [dm, dm, dm], route="ms_digit_dot_s8")
     del a8, b8, a8_t
 
-    if past_deadline("gl_ntt"):
-        return results
     # --- the NTT, every backend (forward, batch 2)
     batch = 2
     for logn in (20, 21):
@@ -169,8 +151,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
                   lambda ms: ms, "ms", [batch, size])
         del x, want, got
 
-    if past_deadline("gl_ntt_digit"):
-        return results
     # --- the fused digit level at level 0 of the forward 2^20 transform,
     # held against the butterfly level on the same input
     from ministark_tpu_torch.ops import ntt_pipe
@@ -187,8 +167,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
           lambda ms: ms, "ms", [batch, Fi, size // Fi])
     del x
 
-    if past_deadline("fri_fold_div"):
-        return results
     # --- one FRI fold + DEEP subtract + division round of the parity engine
     # (stark/engine.py::_fold_div), and the whole chain down to 2^12
     ext = GOLDILOCKS_FP2
@@ -205,15 +183,13 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
         return engine._fold_div(rnd, z, alpha, dv)
 
     def fold_work(length):
-        # read the coefficients, write half as many; a fold and a division
-        # step are an Fp2 product each per output
+        # read the (length, 2) coefficients, write half as many; a fold and
+        # a division step are an Fp2 product (3 base products) each per output
         return 16 * length + 8 * length, (length // 2) * 2 * 3 * rf.OPS_GL_MUL
 
     entry("fri_fold_div_2^21_fp2", lambda: fold_div(coeffs), 3, fold_work(m),
           lambda ms: ms, "ms", [m, 2])
 
-    if past_deadline("fri_fold_div_chain"):
-        return results
     floor = min(1 << 12, m // 2)
 
     def fold_chain():
@@ -230,8 +206,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
           lambda ms: ms, "ms", [m, 2])
     del coeffs
 
-    if past_deadline("batched_commit"):
-        return results
     # --- batched multi-polynomial commit, 4-ary tree: 4 polynomials of 2^20
     # Fp2 coefficients to 2^21 evaluations and one coset-row tree
     bfri = BatchedFri(BatchedFriConfig(ext, blowup=2, arity=4))
@@ -246,8 +220,6 @@ def kernel_rooflines(device="cuda", deadline=None, shrink: int = 0):
     results[-1]["leaf_rows_per_s"] = 2 * nb / results[-1]["ms"] * 1e3
     del polys
 
-    if past_deadline("sha_tree"):
-        return results
     # --- SHA-256 tree build: 2^21 rows of 4 values, 4-ary
     nt = cut(21, 10)
     comps = _rand_gl(rng, (nt, 4), dev)

@@ -31,8 +31,8 @@ benchmark size, over the measured prove, divided by PY_VS_RUST_FACTOR.
 Environment: BENCH_MODEL (fibonacci, counter, lfsr, mimc), BENCH_FIELD
 (goldilocks, babybear), BENCH_STEPS (2^20 - 1), BENCH_BASE_STEPS (2^13 - 1),
 BENCH_MODE (fast), BENCH_BATCH, BENCH_ARITY, BENCH_SKIP_VERIFY=1,
-BENCH_SKIP_KERNELS=1, BENCH_SKIP_SIDE=1, BENCH_SHRINK (cut the kernel
-sizes and the fixed 2^20 / 2^22 side sizes by 2^BENCH_SHRINK: dry runs).
+BENCH_SKIP_KERNELS=1, BENCH_SHRINK (cut the kernel sizes and the fixed
+2^20 / 2^22 side sizes by 2^BENCH_SHRINK: dry runs).
 """
 
 import argparse
@@ -132,7 +132,8 @@ def device_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
     sf = _field(field)
     dtrace = _device_trace(sf, steps, model, device)
     cfg = StarkConfig(sf, 20, 2, steps, dtrace.constrain_number())
-    engine = DeviceEngine(cfg, device=device, ntt_backend=ntt_backend)
+    engine = DeviceEngine(cfg, device=device, ntt_backend=ntt_backend,
+                          query_split=True)
     _sync(device)
 
     t0 = time.time()
@@ -223,7 +224,9 @@ def _gpu_line():
     ).stdout.strip()
 
 
-def main(argv=None):
+def main(argv=None, side=True):
+    """``side=False`` stops after the kernel entries (the tests of the
+    metric names use it)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ntt-backend", default="radix2")
@@ -320,7 +323,7 @@ def main(argv=None):
             kernels[r["metric"]] = {k: r[k] for k in ("value", "unit", "bound_frac")}
         _emit(snapshot)
 
-    if mode == "parity" and env.get("BENCH_SKIP_SIDE") != "1":
+    if mode == "parity" and side:
         base = dict(field=field, model=model, device=device, ntt_backend=backend,
                     verify=verify)
         s20, s22 = (1 << max(20 - shrink, 4)) - 1, (1 << max(22 - shrink, 6)) - 1

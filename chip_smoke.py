@@ -61,7 +61,8 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
-the probes' shapes, the fused level against the butterfly level, and times
+the probes' shapes and the dot at the kernel bench's 4096^3, the fused level
+against the butterfly level, and times
 torch.add and torch._int_mm beside them (library_ms).
 
 The line before the last is a JSON summary of the kernels; the last line is
@@ -487,7 +488,8 @@ def phase_kernels_bb(results):
 def phase_kernels_digit(results):
     """Phase 3 for the stream kernel and the digit level: the probes'
     shapes ((16384, 4096) words; B 2, F 32, R 4096, PF 128; the three levels
-    of ifft 2^20 with B 2), each kernel against its plain version, the fused
+    of ifft 2^20 with B 2; the kernel bench's 4096^3 product for the dot),
+    each kernel against its plain version, the fused
     level also against the butterfly level (two independent kernels), and
     torch.add / torch._int_mm timed beside the stream and the dot."""
     import numpy as np
@@ -534,25 +536,18 @@ def phase_kernels_digit(results):
                 lambda: nd.digitize_plain(x), rf.digitize_work(B, Fi, R), reps=10)
         d = nd.digitize_cuda(x)
 
-        def int_mm():
-            # the digits are K-major: the library reads them through a
-            # transposed view, or a transposed copy if it refuses the view
-            if int_mm_takes_view:
-                return torch.stack([torch._int_mm(d[b].T, vd) for b in range(B)])
-            return torch.stack([torch._int_mm(d[b].T.contiguous(), vd)
-                                for b in range(B)])
-
-        try:
-            torch._int_mm(d[0].T, vd)
-            int_mm_takes_view = True
-        except RuntimeError:
-            int_mm_takes_view = False
-
-        if not torch.equal(int_mm(), nd.digit_dot_cuda(d, vd)):
+        # the library's product beside the kernel's: torch._int_mm wants
+        # row-major (R, K) digits, so the K-major stack is transposed once,
+        # outside the timed call (library_ms is the B products alone)
+        d_rows = d.transpose(1, 2).contiguous()
+        if not torch.equal(torch.stack([torch._int_mm(d_rows[b], vd) for b in range(B)]),
+                           nd.digit_dot_cuda(d, vd)):
             fail(f"digit_dot_s8 {label}: differs from torch._int_mm")
         compare("digit_dot_s8", label, lambda: nd.digit_dot_cuda(d, vd),
                 lambda: nd.digit_dot_plain(d, vd), rf.digit_dot_work(B, K, R, N),
-                reps=10, library=int_mm)
+                reps=10, library=lambda: [torch._int_mm(d_rows[b], vd)
+                                          for b in range(B)])
+        del d_rows
         Rm = nd.digit_dot_cuda(d, vd)
         compare("recombine_gl", label + ", no twiddle",
                 lambda: nd.recombine_cuda(Rm, Fi), lambda: nd.recombine_plain(Rm, Fi),
@@ -575,6 +570,19 @@ def phase_kernels_digit(results):
             say("kernels", f"digit_level_gl {label}: equal to the butterfly level "
                            f"(ntt_pipe_level, {bms:.3f} ms) and to the stage chain")
         del x, d, Rm
+
+    # the kernel bench's product (digit_dot_4096): one K-major (4096, 4096)
+    # operand against a (4096, 4096) matrix, random int8 over the full range
+    dm = 4096
+    a8 = torch.from_numpy(rng.integers(-128, 128, size=(1, dm, dm), dtype=np.int64)
+                          .astype(np.int8)).cuda()
+    b8 = torch.from_numpy(rng.integers(-128, 128, size=(dm, dm), dtype=np.int64)
+                          .astype(np.int8)).cuda()
+    a8_rows = a8[0].T.contiguous()
+    compare("digit_dot_s8", "(1, 4096, 4096) x (4096, 4096)",
+            lambda: nd.digit_dot_cuda(a8, b8), lambda: nd.digit_dot_plain(a8, b8),
+            rf.digit_dot_work(1, dm, dm, dm), reps=10,
+            library=lambda: torch._int_mm(a8_rows, b8))
 
 
 def _host_proof(sf, steps):
@@ -1153,7 +1161,7 @@ def phase_models(results):
     say("models", f"mimc steps {MAIN_STEPS}: witness (2, {trace.domain_size}) from "
                   f"the host chain in {time.time() - t0:.3f} s")
     engine = DeviceEngine(StarkConfig(sf, 20, 2, MAIN_STEPS, trace.constrain_number()),
-                          device="cuda")
+                          device="cuda", query_split=True)
     reset_counts()
     t0 = time.time()
     proof = engine.prove(trace)

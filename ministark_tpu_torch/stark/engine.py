@@ -60,15 +60,17 @@ DEVICE_MIN_SIZE = 1 << 13
 
 
 def merge_query_phases(phases: dict) -> dict:
-    """``phase_seconds`` with the per-round query labels
-    ``fri_query_round_<i>_<kind>`` summed into ``fri_query_host`` (index and
-    point arithmetic, proof assembly, host-tail rounds), ``fri_query_device``
-    (gathers, quotients, the leaf search) and ``fri_query_copy`` (the pulls
-    to the host); every other label as it is."""
+    """``phase_seconds`` with the per-round query labels summed: those of
+    an engine made with ``query_split`` (``fri_query_round_<i>_<kind>``) into
+    ``fri_query_host`` (index and point arithmetic, proof assembly, host-tail
+    rounds), ``fri_query_device`` (gathers, quotients, the leaf search) and
+    ``fri_query_copy`` (the pulls to the host), the single label per round
+    of any other engine into ``fri_query``; every other label as it is."""
     out = {}
     for label, secs in phases.items():
         if label.startswith("fri_query_round_"):
-            label = "fri_query_" + label.rsplit("_", 1)[1]
+            kind = label.rsplit("_", 1)[1]
+            label = "fri_query" if kind.isdigit() else "fri_query_" + kind
         out[label] = out.get(label, 0.0) + secs
     return out
 
@@ -103,10 +105,14 @@ class DeviceTrace:
 
 class DeviceEngine:
     def __init__(self, config: StarkConfig, device="cuda",
-                 ntt_backend: str = "radix2"):
+                 ntt_backend: str = "radix2", query_split: bool = False):
         self.config = config
         self.device = torch.device(device)
         self.ntt_backend = check_backend(ntt_backend)
+        # report each query round as three phases (host, device, copy)
+        # instead of one: about six more device synchronizes a round, so
+        # only a measuring caller asks for it; the proof is the same bytes
+        self.query_split = query_split
         # fails here, not mid-prove, when the device does not exist
         torch.empty(0, device=self.device)
         sf = config.stark_field
@@ -129,6 +135,12 @@ class DeviceEngine:
                 self.phase_seconds.get(self._last_label, 0.0) + dt)
         self._t0 = now
         self._last_label = label
+
+    def _tq(self, label: str, kind: str):
+        """Within query round ``label``, open its ``kind`` part (``host``,
+        ``device`` or ``copy``) when the engine splits the query report."""
+        if self.query_split:
+            self._t(f"{label}_{kind}")
 
     # ------------------------------------------------------------------ utils
     def _cols(self, trace: DeviceTrace) -> torch.Tensor:
@@ -275,12 +287,12 @@ class DeviceEngine:
                  for i in range(cfg.queries)]
         points, queries, quotients = [], [], []
         for i in range(len(rounds) - 1):
-            # three labels per round: ``_host`` (index and point arithmetic,
-            # proof assembly, host-tail rounds), ``_device`` (gathers,
-            # quotients and the leaf search, up to the synchronize) and
-            # ``_copy`` (the pulls to the host and their unpacking)
+            # one label per round, or with ``query_split`` three: ``_host``
+            # (index and point arithmetic, proof assembly, host-tail rounds),
+            # ``_device`` (gathers, quotients and the leaf search, up to the
+            # synchronize) and ``_copy`` (the pulls and their unpacking)
             label = f"fri_query_round_{i}"
-            self._t(label + "_host")
+            self._t(label + "_host" if self.query_split else label)
             prev, nxt = rounds[i], rounds[i + 1]
             assert prev.size // 2 == nxt.size
             prev_gen = ext.get_root_of_unity(prev.size)
@@ -293,10 +305,10 @@ class DeviceEngine:
             xs = [(ext.pow(prev_gen, b), ext.pow(prev_gen, nxt.size + b),
                    ext.pow(next_gen, b)) for b in red_betas]
 
-            self._t(label + "_copy")
+            self._tq(label, "copy")
             next_reads = nxt.read_many(idxs_next)
             if prev.device:
-                self._t(label + "_device")
+                self._tq(label, "device")
                 reads = prev.codeword[
                     torch.tensor(idxs_prev, dtype=torch.int64, device=self.device)]
                 qs, effs = self._quotients_from_reads(prev, reads, xs)
@@ -304,21 +316,21 @@ class DeviceEngine:
                 # [y1_0, y2_0, y1_1, ...], in the tree's leaf layout (§8.6)
                 rows = torch.stack([reads[:nq], reads[nq:]], 1).reshape(2 * nq, -1)
                 found = prev.tree.search_rows_async(to_leaf_comps(ext, rows))
-                self._t(label + "_copy")
+                self._tq(label, "copy")
                 sidx = [int(v) for v in found.cpu()]
                 if any(ix >= prev.tree.n_leafs for ix in sidx):
                     # a missed search returns n_leafs: fail loudly instead
                     # of gathering past the end (a device-side fault)
                     raise LeafNotFound()
-                self._t(label + "_device")
+                self._tq(label, "device")
                 handle = prev.tree.proofs_gather_async(sidx)
-                self._t(label + "_copy")
+                self._tq(label, "copy")
                 proofs = prev.tree.proofs_finish(handle)
                 prev_reads = ke.unpack(reads)
                 round_quotients = self._trim_quotients(qs, effs)
-                self._t(label + "_host")
+                self._tq(label, "host")
             else:
-                self._t(label + "_host")
+                self._tq(label, "host")
                 prev_reads = prev.read_many(idxs_prev)
                 round_quotients = []
                 for qi in range(nq):

@@ -27,7 +27,8 @@ SIDE = ["fast_e2e_prove", "babybear_e2e_prove_2^20", "fast_e2e_prove_2^22",
         "fast_prove_many_batch4", "mimc_e2e_prove"]
 SCRIPTS = ["chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
            "scripts/torch_stream_probe.py", "scripts/torch_f32_pad_probe.py",
-           "scripts/torch_digit_stage_probe.py", "scripts/torch_launch_count.py"]
+           "scripts/torch_digit_stage_probe.py", "scripts/torch_launch_count.py",
+           "scripts/torch_ab_prove.py"]
 
 # run a script as __main__ with jax and the JAX package unimportable
 _BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "
@@ -131,9 +132,9 @@ def test_metric_names_follow_bench_py(monkeypatch, capfd, model, mode, field, st
     for key, val in (("BENCH_MODEL", model), ("BENCH_MODE", mode),
                      ("BENCH_FIELD", field), ("BENCH_STEPS", str(steps)),
                      ("BENCH_BASE_STEPS", "7"), ("BENCH_SKIP_KERNELS", "1"),
-                     ("BENCH_SKIP_SIDE", "1"), ("BENCH_BATCH", "2")):
+                     ("BENCH_BATCH", "2")):
         monkeypatch.setenv(key, val)
-    assert bench_torch.main(["--device", "cpu", "--ntt-backend", "pipe"]) == 0
+    assert bench_torch.main(["--device", "cpu", "--ntt-backend", "pipe"], side=False) == 0
     out = capfd.readouterr().out.splitlines()
     snap = json.loads(out[-1])
     assert snap["metric"] == metric and snap["ntt_backend"] == "pipe"
@@ -179,11 +180,37 @@ def test_kernel_rooflines_on_the_cpu_at_cut_sizes():
     assert by_name["batched_commit_2^20_b4_arity4"]["leaf_rows_per_s"] > 0
 
 
-def test_kernel_rooflines_stops_at_its_deadline(capfd):
-    results = bench_kernels_torch.kernel_rooflines("cpu", deadline=time.time() - 1,
-                                                   shrink=12)
-    assert [r["metric"] for r in results] == ["gl_mul_throughput"]
-    assert "deadline hit" in capfd.readouterr().err
+@pytest.mark.parametrize("field", ["goldilocks", "babybear"])
+def test_query_split_is_opt_in_and_changes_no_byte(field):
+    """An engine reports one label per query round unless it is asked for
+    the host / device / copy split, and the proof is the same either way."""
+    from ministark_tpu_torch.stark import StarkConfig
+    from ministark_tpu_torch.stark import engine as eng
+    from ministark_tpu_torch.stark.proof_io import proof_digests
+
+    sf = bench_torch._field(field)
+    trace = bench_torch._device_trace(sf, 61, "fibonacci", "cpu")
+    cfg = StarkConfig(sf, 20, 2, 61, trace.constrain_number())
+    default = eng.DEVICE_MIN_SIZE
+    try:
+        eng.DEVICE_MIN_SIZE = 32           # tensor rounds and host-tail rounds
+        plain = eng.DeviceEngine(cfg, device="cpu")
+        split = eng.DeviceEngine(cfg, device="cpu", query_split=True)
+        assert plain.query_split is False
+        p1, p2 = plain.prove(trace), split.prove(trace)
+    finally:
+        eng.DEVICE_MIN_SIZE = default
+    assert proof_digests(sf, p1) == proof_digests(sf, p2)
+    rounds = [k for k in plain.phase_seconds if k.startswith("fri_query_round_")]
+    assert rounds and all(k.rsplit("_", 1)[1].isdigit() for k in rounds)
+    kinds = {k.rsplit("_", 1)[1] for k in split.phase_seconds
+             if k.startswith("fri_query_round_")}
+    assert kinds == {"host", "device", "copy"}
+    merged = eng.merge_query_phases(plain.phase_seconds)
+    assert "fri_query" in merged and not any(k.startswith("fri_query_") for k in merged)
+    merged = eng.merge_query_phases(split.phase_seconds)
+    assert {"fri_query_host", "fri_query_device", "fri_query_copy"} <= set(merged)
+    assert abs(sum(merged.values()) - sum(split.phase_seconds.values())) < 1e-9
 
 
 @pytest.mark.parametrize("script,args,env,want", [
@@ -192,6 +219,8 @@ def test_kernel_rooflines_stops_at_its_deadline(capfd):
     ("scripts/torch_f32_pad_probe.py", ["--device", "cpu", "--rows", "16"], {}, "PASS"),
     ("scripts/torch_digit_stage_probe.py", ["--device", "cpu", "--reps", "1"],
      {"LVL_N": "16384", "LVL_IDX": "1"}, '"probe": "digit_stage"'),
+    ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "2"],
+     {}, '"probe": "query_split_ab"'),
 ])
 def test_probe_scripts_dry_run(script, args, env, want):
     res = _run(script, *args, **env)
