@@ -94,11 +94,21 @@ def kernel_rooflines(device="cuda", shrink: int = 0):
                                  f"{bms:.4f} ms ({by}): the count is wrong")
         results.append(r)
 
-    # --- Goldilocks elementwise multiply (the gl_mul kernel)
+    def split(fn, reps):
+        """On the card the host's ms per call issued without a synchronize,
+        the card's ms alone and torch.profiler's (``utils/roofline.py::
+        split_ms``), so that a product's event-timed ms is not read as
+        device time; a dry run has host times only."""
+        if not on_card:
+            return {"host_ms": rf.time_ms(fn, reps, dev), "device_ms": None,
+                    "profiler_ms": None, "profiler_kernels": None}
+        return rf.split_ms(fn, reps)
+
+    # --- Goldilocks elementwise multiply (the gl_mul kernel's contiguous path)
     n = cut(22, 10)
     a = _rand_gl(rng, (n,), dev)
     entry("gl_mul_throughput", lambda: gl.mul(a, a), 20, rf.mul_work(a, a),
-          lambda ms: n / ms / 1e6, "Gop/s", [n])
+          lambda ms: n / ms / 1e6, "Gop/s", [n], **split(lambda: gl.mul(a, a), 20))
 
     # --- device-memory stream (the stream_add1 kernel: read + write)
     rows = cut(14, 2)
@@ -109,12 +119,13 @@ def kernel_rooflines(device="cuda", shrink: int = 0):
           "GB/s", [rows, 4096])
     del words
 
-    # --- Fp2 multiply (Karatsuba: 3 base products through gl_mul, torch adds)
+    # --- Fp2 multiply: one launch of the Fp2 product kernel (csrc/gl_mul.cu
+    # ms_gl_ext_mul: Karatsuba in registers, 16-byte loads and stores)
     ke = get_ops(GOLDILOCKS_FP2)
     m = cut(21, 10)
     e, f = _rand_gl(rng, (m, 2), dev), _rand_gl(rng, (m, 2), dev)
-    entry("fp2_mul_throughput", lambda: ke.mul(e, f), 10,
-          (48 * m, 3 * m * rf.OPS_GL_MUL), lambda ms: m / ms / 1e6, "Gext/s", [m, 2])
+    entry("fp2_mul_throughput", lambda: ke.mul(e, f), 10, rf.ext_mul_work(e, f),
+          lambda ms: m / ms / 1e6, "Gext/s", [m, 2], **split(lambda: ke.mul(e, f), 10))
 
     # --- int8 multiply-add rate: the library's product and the hand kernel
     # on the same operands (A is handed to digit_dot K-major, as the level's

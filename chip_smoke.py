@@ -6,12 +6,17 @@
 Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
-  2. build     nvcc builds the kernels from ministark_tpu_torch/csrc
+  2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
+               leaf_hash instantiation has a 0-byte stack frame and no spill
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
                equality, times in ms beside the least time the card could
                take (bound); the four-step and pipelined NTTs also whole,
-               against the plain radix-2 NTT
+               against the plain radix-2 NTT; both paths of the base
+               product, the Fp2 product at the provers' shapes, and the
+               leaf hash at every SHA-256 padding boundary; the products'
+               and the leaf hash's lines split the host's time per call
+               from the card's
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 over
                Goldilocks and steps 7 and 13 over BabyBear, with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
@@ -244,6 +249,31 @@ def phase_build():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  ptxas " + ln.strip(), flush=True)
     say("build", f"{os.path.relpath(path, ROOT)} in {secs:.1f} s")
+    frames = _stack_frames(log, "leaf_hash")
+    if not frames or any(any(v) for v in frames.values()):
+        fail(f"build: leaf_hash uses local memory (stack frame, spill stores, "
+             f"spill loads in bytes): {frames}")
+    say("build", f"leaf_hash: {len(frames)} instantiations, 0 bytes stack frame, "
+                 "0 bytes spill stores and loads")
+
+
+def _stack_frames(log, name):
+    """{function: (stack frame, spill stores, spill loads) bytes} from ptxas'
+    -v report, for the kernels whose mangled names contain ``name``."""
+    import re
+
+    frames, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn is not None and name in fn:
+            frames[fn] = tuple(int(v) for v in m.groups())
+        fn = None if m else fn
+    return frames
 
 
 def _rand_u64(rng, shape, p):
@@ -257,6 +287,15 @@ def _rand_u64(rng, shape, p):
                     dtype=np.uint64)
     flat[: min(edge.size, flat.size)] = edge[: flat.size]
     return torch.from_numpy(v.view(np.int64)).cuda()
+
+
+# kernels whose lines also carry the host's time per call issued without a
+# synchronize (host_ms), the card's time alone (device_ms: the calls queued
+# behind a device sleep) and torch.profiler's kernel time and kernel records
+# per call (profiler_ms, profiler_kernels), so that the event-timed ms of a
+# short kernel is not read as device time
+SPLIT_TIMED = ("gl_mul", "gl_ext_mul", "leaf_hash", "leaf_hash_bb")
+SPLIT_KEYS = ("host_ms", "device_ms", "profiler_ms", "profiler_kernels")
 
 
 def make_compare(results):
@@ -279,15 +318,18 @@ def make_compare(results):
         pms = timed(plain, plain_reps)
         lms = None if library is None else timed(library, reps)
         bms, by = rf.bound(*work)
+        split = rf.split_ms(kern, reps) if name in SPLIT_TIMED else {}
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
                        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
-                       f"({by})" + ("" if lms is None else f", library {lms:.3f} ms"))
+                       f"({by})" + ("" if lms is None else f", library {lms:.3f} ms")
+                       + "".join(f", {k} {v:.4f}" for k, v in split.items()))
         if name not in results:              # a whole transform, not a kernel
             return
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms,
-                            "bound_ms": bms, "bound_by": by, "library_ms": lms})
+                            "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                            **split})
 
     return compare
 
@@ -361,6 +403,33 @@ def _compare_leaf_hash(compare, rng, F, name, shapes):
                 rf.leaf_hash_work(comps, k, fmt, md), reps=3, plain_reps=1)
 
 
+def _check_leaf_boundaries(rng):
+    """The leaf hash (both digit paths, all three formats) against its plain
+    version on groups whose preimages end at every SHA-256 padding boundary
+    (ops/leaf_hash.py::BOUNDARY_CASES), each case's groups repeated 1000
+    times in a shuffled order so that every lane position of a warp meets
+    every length."""
+    import numpy as np
+    import torch
+
+    from ministark_tpu_torch.fields import BABYBEAR_FP, GOLDILOCKS_FP
+    from ministark_tpu_torch.ops import leaf_hash as lh
+
+    for fmt, md, k, lengths in lh.BOUNDARY_CASES:
+        p = (GOLDILOCKS_FP if md == 20 else BABYBEAR_FP).p
+        groups = lh.boundary_groups(fmt, k, md, p, lengths).reshape(len(lengths), -1)
+        order = rng.permutation(np.tile(np.arange(len(lengths)), 1000))
+        comps = torch.from_numpy(groups[order].reshape(len(order) * k, -1)
+                                 .view(np.int64)).cuda()
+        got = lh.leaf_hash_cuda(comps, k, fmt, md)
+        err = max_abs_err(got, lh.leaf_hash_plain(comps, k, fmt, md))
+        if err != 0:
+            fail(f"leaf_hash fmt {fmt}, {md} digits, k {k}: differs from its plain "
+                 f"version at the padding boundaries (max_abs_err {err})")
+        say("kernels", f"leaf_hash fmt {fmt}, {md} digits, k {k}: equal (tolerance "
+                       f"0) at preimage lengths {list(lengths)}, {len(order)} groups")
+
+
 def phase_kernels(results):
     import numpy as np
     import torch
@@ -389,13 +458,47 @@ def phase_kernels(results):
         ("fft (12, 2^21)", 12, 1 << 21, {}),
     ])
 
-    # K5: the field multiply, flat and broadcast over a batch of rows (the
-    # coset powers times the LDE rows)
+    # K5: the base product on both of its paths: 16-byte vectors over
+    # contiguous aligned operands, and the strided path (the same operands
+    # one element off the 16-byte boundary, and broadcast over a batch of
+    # rows: the coset powers times the LDE rows), at 2^21 and at the kernel
+    # bench's 2^22
     a, b = _rand_u64(rng, (6, 1 << 21), F.p), _rand_u64(rng, (1 << 21,), F.p)
-    for label, x, y in [("(2^21,) x (2^21,)", a[0], b),
-                        ("(6, 2^21) x (2^21,) broadcast", a, b)]:
+    c = _rand_u64(rng, (2, (1 << 22) + 2), F.p)
+    n22 = 1 << 22
+    for label, x, y, vec in [
+            ("(2^21,) x (2^21,), contiguous", a[0], b, 1),
+            ("(2^21,) x (2^21,), strided (offset 1)", a[0, 1:], a[1, :-1], 0),
+            ("(6, 2^21) x (2^21,) broadcast, strided", a, b, 0),
+            ("(2^22,) x (2^22,), contiguous", c[0, :n22], c[1, :n22], 1),
+            ("(2^22,) x (2^22,), strided (offset 1)", c[0, 1:n22 + 1],
+             c[1, 1:n22 + 1], 0)]:
+        aligned = not (x.data_ptr() | y.data_ptr()) & 15
+        if gl._mul_plan(x.shape, x.stride(), y.shape, y.stride(), aligned)[1][2] != vec:
+            fail(f"gl_mul {label}: the wrapper took the other path")
         compare("gl_mul", label, lambda: gl.mul_cuda(x, y),
                 lambda: gl.mul_plain(x, y), rf.mul_work(x, y), reps=10)
+    del a, b, c
+
+    # K5b: the Fp2 product, one launch: flat, the parity query rounds'
+    # (Q, 2^20, 2) x (Q, 2^20, 2) at the parity configuration's Q, a
+    # ``powers`` doubling step (..., k, 2) x (..., 1, 2), the even / odd
+    # stride-2 slices of a FRI fold and a (2,) scalar
+    from ministark_tpu_torch.fields import Goldilocks
+    from ministark_tpu_torch.stark import StarkConfig
+
+    Q = StarkConfig(Goldilocks, 20, 2, MAIN_STEPS, 6).fri_queries
+    e, f = _rand_u64(rng, (1 << 21, 2), F.p), _rand_u64(rng, (1 << 21, 2), F.p)
+    qa, qb = _rand_u64(rng, (Q, 1 << 20, 2), F.p), _rand_u64(rng, (Q, 1 << 20, 2), F.p)
+    for label, x, y in [
+            ("(2^21, 2) x (2^21, 2)", e, f),
+            (f"query round ({Q}, 2^20, 2) x ({Q}, 2^20, 2)", qa, qb),
+            (f"powers ({Q}, 2^19, 2) x ({Q}, 1, 2)", qa[:, : 1 << 19], qb[:, :1]),
+            ("even / odd stride-2 slices (2^20, 2) x (2^20, 2)", e[0::2], e[1::2]),
+            ("(2^21, 2) x (2,) scalar", e, f[7])]:
+        compare("gl_ext_mul", label, lambda: gl.ext_mul_cuda(x, y),
+                lambda: gl.ext_mul_plain(x, y), rf.ext_mul_work(x, y), reps=10)
+    del e, f, qa, qb
 
     # K3: leaf hashes of the trace / constraint trees (fmt 0, 6 per group)
     # and of the first FRI round tree (fmt 1, 2 per group)
@@ -403,6 +506,8 @@ def phase_kernels(results):
         ("fmt 0, k 6, 2^21 groups", 1 << 21, 6, 0),
         ("fmt 1, k 2, 2^20 groups", 1 << 20, 2, 1),
     ])
+
+    _check_leaf_boundaries(rng)
 
     # K2: every fan-2 level of a 2^21-leaf tree, and the fast mode's fan-4
     # level above a 2^19-leaf index tree
@@ -722,7 +827,8 @@ def reset_counts():
                    fs.pass2_launches, pp.launches, nd.launches):
         for key in counts:
             counts[key] = 0
-    sh.launches = sh.row_launches = gl.launches = stream.launches = 0
+    sh.launches = sh.row_launches = gl.launches = gl.ext_launches = 0
+    stream.launches = 0
     sh.fan_launches = {}
 
 
@@ -739,7 +845,8 @@ def read_counts():
     from ministark_tpu_torch.ops import stream
 
     counts = {"sha256_inner_level": sh.launches, "sha256_rows": sh.row_launches,
-              "gl_mul": gl.launches, "leaf_hash": lh.launches[20],
+              "gl_mul": gl.launches, "gl_ext_mul": gl.ext_launches,
+              "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
               **nd.launches}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
@@ -1248,7 +1355,9 @@ def phase_bench(results):
             fail(f"bench: {metric} bound_frac {r['bound_frac']} is outside (0, 1]")
         say("bench", f"{metric}: {r['value']:.4g} {r['unit']} ({r['ms']:.3f} ms, bound "
                      f"{r['bound_ms']:.3f} ms by {r['bound_by']}, bound_frac "
-                     f"{r['bound_frac']:.3f})")
+                     f"{r['bound_frac']:.3f})"
+                     + "".join(f", {k} {r[k]:.4f}" for k in SPLIT_KEYS
+                               if r.get(k) is not None))
 
     reset_counts()
     t_prove, t_verify, extras = bench_torch.device_prove(MAIN_STEPS)
@@ -1291,6 +1400,8 @@ KERNELS = {
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
                ("parity", "fast") + _BACKEND_PATHS + _BENCH_PATHS),
+    "gl_ext_mul": ("ministark_tpu_torch/csrc/gl_mul.cu", "ministark_tpu/ops/gl.py:215",
+                   ("parity", "fast") + _BACKEND_PATHS + _BENCH_PATHS),
     "ntt_four_step_pass1": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
                             "ministark_tpu/ops/ntt_pallas.py:190",
                             ("parity_four_step", "fast_four_step", "bench_kernels")),
@@ -1373,7 +1484,8 @@ def main():
                         # dot; torch has no Goldilocks or BabyBear NTT, no
                         # SHA-256, no modular u64 multiply and no digit stage
                         "library_ms": main_shape["library_ms"],
-                        "shape": main_shape["shape"]})
+                        "shape": main_shape["shape"],
+                        **{k: main_shape[k] for k in SPLIT_KEYS if k in main_shape}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

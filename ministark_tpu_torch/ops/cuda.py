@@ -54,9 +54,9 @@ _SIGNATURES = {
     "ms_sha256_rows": [_P, _P, _I, _I, _P],
     # comps, digests, n_groups, leafs_per_node, fmt, max_digits, stream
     "ms_leaf_hash": [_P, _P, _I, _I, _I, _I, _P],
-    # a, b, out, ndim, shape, a_strides, b_strides (int64[ndim] each), numel,
-    # stream
-    "ms_gl_mul": [_P, _P, _P, _I, _I64P, _I64P, _I64P, _I64, _P],
+    # a, b, out, plan (int64[ops/field.py::PLAN_LEN]), stream
+    "ms_gl_mul": [_P, _P, _P, _I64P, _P],
+    "ms_gl_ext_mul": [_P, _P, _P, _I64P, _P],
     # x, c, batch, log_n1, log_n2, tw2, wpow, pre, stream
     "ms_ntt_four_step_pass1_gl": _PASS1, "ms_ntt_four_step_pass1_bb": _PASS1,
     # c, y, batch, log_n1, log_n2, tw1, post, scale, stream

@@ -9,11 +9,12 @@ element adds a trailing axis of 2 (c0, c1), with u^2 = 7. CUDA kernels
 reinterpret the same storage as ``uint64_t``.
 
 Add and subtract are plain torch ops and run on the CPU and on CUDA alike
-(the JAX package has no Pallas kernel for them). ``mul`` dispatches by the
-tensors' device: on the CPU it takes ``mul_plain``, on a CUDA tensor it
-launches the ``gl_mul`` kernel (csrc/gl_mul.cu) or raises, so every caller
-(``ext_mul``, ``pow``, ops/poly.py, the engines, the FRI code) gets the
-kernel on the card. torch has no unsigned 64-bit arithmetic and a
+(the JAX package has no Pallas kernel for them). ``mul`` and ``ext_mul``
+dispatch by the tensors' device: on the CPU they take ``mul_plain`` and
+``ext_mul_plain``, on a CUDA tensor they launch csrc/gl_mul.cu's base or
+Fp2 product kernel or raise, so every caller (``pow``, ``ext_pow``,
+ops/poly.py, the engines, the FRI code) gets one kernel launch per product
+on the card. torch has no unsigned 64-bit arithmetic and a
 64x64 -> 128 product fits no dtype, so the plain ops split their operands
 into 32-bit halves (and the multiply into 16-bit limbs) so that no
 intermediate leaves [-2^63, 2^63): the results do not depend on wrapping
@@ -24,6 +25,7 @@ behaviour. The 128-bit product is reduced with 2^64 == 2^32 - 1 and
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
@@ -142,10 +144,17 @@ def mul_plain(a, b):
     return _join(*_mul_h(*_split(a), *_split(b)))
 
 
-# Incremented once per call that launches the gl_mul kernel.
+# Incremented once per call that launches the gl_mul kernel (``launches``)
+# or the Fp2 product kernel (``ext_launches``).
 launches = 0
+ext_launches = 0
 
 MUL_MAX_DIMS = 4   # csrc/gl_mul.cu addresses operands with up to 4 strides
+# csrc/gl_mul.cu's plan: numel, ndim, vec, wide, ca, cb, then size, a's and
+# b's strides, magic and shift, MUL_MAX_DIMS each
+PLAN_LEN = 6 + 5 * MUL_MAX_DIMS
+_PlanArray = ctypes.c_int64 * PLAN_LEN
+_I31 = 1 << 31
 
 
 def _collapse(shape, *strides):
@@ -167,50 +176,134 @@ def _collapse(shape, *strides):
     return sizes, out
 
 
-def _on_device(t: torch.Tensor, name: str, device) -> torch.Tensor:
-    """t on ``device``: a 0-d CPU scalar is moved there (as torch's own
-    binary ops do); any other tensor elsewhere is refused."""
-    if t.device != device:
-        if t.device.type == "cpu" and t.dim() == 0:
-            return t.to(device)
-        raise ValueError(f"gl_mul: {name} is on {t.device}, expected {device}")
-    return t
+def _broadcast_strides(shape, t_shape, t_stride):
+    """Element strides of a tensor of ``t_shape`` / ``t_stride`` expanded to
+    ``shape``: 0 on the axes it is broadcast along."""
+    lead = len(shape) - len(t_shape)
+    return [0 if d < lead or t_shape[d - lead] != size else t_stride[d - lead]
+            for d, size in enumerate(shape)]
 
 
-def mul_cuda(a, b):
-    """CUDA kernel (csrc/gl_mul.cu), same contract as ``mul_plain``: the
-    operands broadcast, may be strided views (an Fp2 component ``a[..., 0]``
-    has stride 2) and are read in place through their element strides (0 on
-    a broadcast axis), so no copy costs a launch; the output is contiguous.
+def _magic(d: int):
+    """(magic, shift) of the round-up multiply-high division by 0 < d < 2^31
+    that csrc/gl_mul.cu runs on 32-bit indices: for every i < 2^31,
+    i // d == ((i * magic >> 32) + i) >> shift."""
+    shift = (d - 1).bit_length()                  # the least s with 2^s >= d
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
 
-    Replaces the Pallas kernel ``ministark_tpu/ops/pallas_kernels.py::
-    _gl_mul_kernel`` (one (8, 128) tile of u32 limb pairs per grid step).
-    Bound on this card: device-memory bandwidth (16 bytes read and 8
-    written per product against ~30 integer operations)."""
-    global launches
-    device = a.device if a.device.type == "cuda" else b.device
-    if device.type != "cuda":
-        raise ValueError(f"gl_mul: expected a CUDA tensor, got {a.device}")
-    a, b = _on_device(a, "a", device), _on_device(b, "b", device)
-    for t, name in ((a, "a"), (b, "b")):
-        if t.dtype != torch.int64:
-            raise ValueError(f"gl_mul: {name} must be int64, got {t.dtype}")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    out = torch.empty(shape, dtype=torch.int64, device=device)
-    if out.numel() == 0:
-        return out
-    sizes, (sa, sb) = _collapse(shape, a.expand(shape).stride(),
-                                b.expand(shape).stride())
+
+def _plan(shape, sa, sb, vec: bool, ca: int = 0, cb: int = 0):
+    """The int64 plan of one csrc/gl_mul.cu launch over the row-major
+    ``shape`` with operand element strides ``sa`` / ``sb`` (and, for the Fp2
+    kernel, component strides ``ca`` / ``cb``): the merged axes, their magic
+    numbers, and whether the call needs 64-bit indices. ``vec`` asks for the
+    16-byte path; it is kept only where the kernel can take it."""
+    numel = 1
+    for size in shape:
+        numel *= size
+    sizes, (sa, sb) = _collapse(shape, sa, sb)
     if len(sizes) > MUL_MAX_DIMS:
         raise ValueError(f"gl_mul: operands of shape {tuple(shape)} need "
                          f"{len(sizes)} strided axes, the kernel takes "
                          f"{MUL_MAX_DIMS}")
     if not sizes:                                  # one element
         sizes, sa, sb = [1], [0], [0]
-    arr = ctypes.c_int64 * MUL_MAX_DIMS
-    err = cuda.library().ms_gl_mul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), len(sizes), arr(*sizes),
-        arr(*sa), arr(*sb), out.numel(), cuda.stream_ptr(out))
+    reach = max(sum((n - 1) * s for n, s in zip(sizes, st)) + c
+                for st, c in ((sa, ca), (sb, cb)))
+    wide = numel >= _I31 or reach >= _I31
+    magics = [_magic(n) if n < _I31 else (0, 0) for n in sizes]
+    pad = [0] * (MUL_MAX_DIMS - len(sizes))
+    return _PlanArray(numel, len(sizes), int(vec and not wide), int(wide), ca, cb,
+                      *sizes, *[1] * len(pad), *sa, *pad, *sb, *pad,
+                      *[m for m, _ in magics], *pad, *[s for _, s in magics], *pad)
+
+
+@functools.lru_cache(maxsize=4096)
+def _mul_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
+    """(output shape, plan or None when the output is empty) of a base
+    product; the 16-byte path when both operands are contiguous over the
+    whole output and 16-byte aligned."""
+    shape = torch.broadcast_shapes(a_shape, b_shape)
+    if shape.numel() == 0:
+        return shape, None
+    sa = _broadcast_strides(shape, a_shape, a_stride)
+    sb = _broadcast_strides(shape, b_shape, b_stride)
+    sizes, (ma, mb) = _collapse(shape, sa, sb)
+    contiguous = len(sizes) == 1 and ma == [1] and mb == [1]
+    return shape, _plan(shape, sa, sb, aligned and contiguous)
+
+
+@functools.lru_cache(maxsize=4096)
+def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
+    """(output shape, plan or None) of an Fp2 product over the leading axes;
+    16-byte loads when both operands' components are adjacent and every
+    element starts on a 16-byte boundary (even strides, aligned base)."""
+    for t_shape, name in ((a_shape, "a"), (b_shape, "b")):
+        if len(t_shape) < 1 or t_shape[-1] != 2:
+            raise ValueError(f"gl_ext_mul: {name} must have a trailing axis of "
+                             f"2 (c0, c1), got shape {tuple(t_shape)}")
+    lead = torch.broadcast_shapes(a_shape[:-1], b_shape[:-1])
+    shape = lead + (2,)
+    if lead.numel() == 0:
+        return shape, None
+    sa = _broadcast_strides(lead, a_shape[:-1], a_stride[:-1])
+    sb = _broadcast_strides(lead, b_shape[:-1], b_stride[:-1])
+    ca, cb = a_stride[-1], b_stride[-1]
+    vec = (aligned and ca == 1 and cb == 1
+           and all(s % 2 == 0 for s in sa + sb))
+    return shape, _plan(lead, sa, sb, vec, ca, cb)
+
+
+def _on_device(t: torch.Tensor, name: str, device, kernel="gl_mul",
+               scalar_dim=0) -> torch.Tensor:
+    """t on ``device``: a CPU scalar (0-d, or (2,) for the Fp2 kernel with
+    ``scalar_dim`` 1) is moved there, as torch's own binary ops move a 0-d
+    one; any other tensor elsewhere is refused."""
+    if t.device != device:
+        if t.device.type == "cpu" and t.dim() == scalar_dim and t.numel() <= 2:
+            return t.to(device)
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    return t
+
+
+def _operands(a, b, kernel, scalar_dim=0):
+    """(a, b) on one CUDA device, both int64, or raise."""
+    if (a.is_cuda and b.is_cuda and a.get_device() == b.get_device()
+            and a.dtype == b.dtype == torch.int64):
+        return a, b                        # every prover call: no more checks
+    device = a.device if a.device.type == "cuda" else b.device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: expected a CUDA tensor, got {a.device}")
+    a = _on_device(a, "a", device, kernel, scalar_dim)
+    b = _on_device(b, "b", device, kernel, scalar_dim)
+    for t, name in ((a, "a"), (b, "b")):
+        if t.dtype != torch.int64:
+            raise ValueError(f"{kernel}: {name} must be int64, got {t.dtype}")
+    return a, b
+
+
+def mul_cuda(a, b):
+    """CUDA kernel (csrc/gl_mul.cu ``ms_gl_mul``), same contract as
+    ``mul_plain``: the operands broadcast, may be strided views (an Fp2
+    component ``a[..., 0]`` has stride 2) and are read in place through
+    their element strides (0 on a broadcast axis), so no copy costs a
+    launch; the output is contiguous.
+
+    Replaces the Pallas kernel ``ministark_tpu/ops/pallas_kernels.py::
+    _gl_mul_kernel`` (one (8, 128) tile of u32 limb pairs per grid step).
+    Bound on this card: device-memory bandwidth (16 bytes read and 8
+    written per product against ~30 integer operations); contiguous aligned
+    operands take 16-byte vectors, the others 32-bit multiply-high index
+    arithmetic. The plan of a shape is built once (``_mul_plan``)."""
+    global launches
+    a, b = _operands(a, b, "gl_mul")
+    pa, pb = a.data_ptr(), b.data_ptr()
+    shape, plan = _mul_plan(a.shape, a.stride(), b.shape, b.stride(),
+                            not (pa | pb) & 15)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if plan is None:
+        return out
+    err = cuda.library().ms_gl_mul(pa, pb, out.data_ptr(), plan, cuda.stream_ptr(out))
     cuda.check("gl_mul", err)
     launches += 1
     return out
@@ -263,15 +356,52 @@ def ext_neg(a):
     return torch.stack([neg(a[..., 0]), neg(a[..., 1])], -1)
 
 
-def ext_mul(a, b):
-    """Karatsuba product in Fp[u]/(u^2 - 7), as ``ops/gl.py::ext_mul``."""
+def ext_mul_plain(a, b):
+    """Karatsuba product in Fp[u]/(u^2 - 7), as ``ops/gl.py::ext_mul``, in
+    torch ops with ``mul_plain``: the plain version of ``ext_mul_cuda``."""
     a0, a1 = a[..., 0], a[..., 1]
     b0, b1 = b[..., 0], b[..., 1]
-    v0 = mul(a0, b0)
-    v1 = mul(a1, b1)
+    v0 = mul_plain(a0, b0)
+    v1 = mul_plain(a1, b1)
     c0 = add(v0, _mul_nr(v1))
-    c1 = sub(mul(add(a0, a1), add(b0, b1)), add(v0, v1))
+    c1 = sub(mul_plain(add(a0, a1), add(b0, b1)), add(v0, v1))
     return torch.stack([c0, c1], -1)
+
+
+def ext_mul_cuda(a, b):
+    """CUDA kernel (csrc/gl_mul.cu ``ms_gl_ext_mul``), same contract as
+    ``ext_mul_plain``: (..., 2) operands that broadcast over their leading
+    axes, read in place through their strides (0 on a broadcast axis) and
+    their component strides; a CPU (2,) scalar joins a CUDA operand. One
+    launch; the output is a contiguous (..., 2) tensor.
+
+    Replaces ``ministark_tpu/ops/gl.py::ext_mul`` (:215), the Fp2 form that
+    ``pallas_kernels.py:12-16`` left to XLA on the TPU. Bound on this card:
+    device-memory bandwidth (32 bytes read and 16 written per product
+    against ~100 integer operations); operands with adjacent components
+    take one 16-byte load per element."""
+    global ext_launches
+    a, b = _operands(a, b, "gl_ext_mul", scalar_dim=1)
+    pa, pb = a.data_ptr(), b.data_ptr()
+    shape, plan = _ext_plan(a.shape, a.stride(), b.shape, b.stride(),
+                            not (pa | pb) & 15)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if plan is None:
+        return out
+    err = cuda.library().ms_gl_ext_mul(pa, pb, out.data_ptr(), plan,
+                                       cuda.stream_ptr(out))
+    cuda.check("gl_ext_mul", err)
+    ext_launches += 1
+    return out
+
+
+def ext_mul(a, b):
+    """Product in Fp2. Dispatch by device: CPU tensors -> ``ext_mul_plain``;
+    a CUDA tensor (with a CUDA tensor or a CPU scalar) -> ``ext_mul_cuda``,
+    the kernel, or raise."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return ext_mul_plain(a, b)
+    return ext_mul_cuda(a, b)
 
 
 def ext_scale_base(a, s):

@@ -144,13 +144,13 @@ def leaf_hash_cuda(comps: torch.Tensor, leafs_per_node: int, fmt: int,
 
     Replaces the Pallas kernel ``ministark_tpu/ops/sha256_pallas.py::
     _make_masked_kernel`` and the XLA digit extraction and byte placement
-    around it (``leaf_hash.py:87``, ``:243-304``). One thread per leaf
-    group reads the group's u64 components, writes the decimal digits and
-    constant segments into a 64-byte block buffer, compresses whenever the
-    buffer fills, pads, and stores 8 big-endian words; with 10 digits
-    the ladder runs on 32 bits. Bound on this card: integer ALU throughput
-    (up to 4 compressions plus 20 or 10 divide-by-10 steps per component,
-    per 8-32 bytes read)."""
+    around it (``leaf_hash.py:87``, ``:243-304``). One lane per leaf group:
+    a block stages its groups' components in shared memory, each lane counts
+    its components' digits, writes its padded preimage into a word-major
+    shared-memory column (conflict-free at any byte position) and a warp
+    compresses block by block in step. Bound on this card: integer ALU
+    throughput (one compression per 64-byte block plus ~4 operations per
+    decimal digit, per 8-32 bytes read)."""
     cuda.require(comps, "leaf_hash", torch.int64, 2)
     _check(comps, leafs_per_node, fmt, max_digits)
     G = comps.shape[0] // leafs_per_node
@@ -170,3 +170,54 @@ def leaf_hash(comps: torch.Tensor, leafs_per_node: int, fmt: int,
     if comps.device.type == "cpu":
         return leaf_hash_plain(comps, leafs_per_node, fmt, max_digits)
     return leaf_hash_cuda(comps, leafs_per_node, fmt, max_digits)
+
+
+# (fmt, max_digits, leafs_per_node, preimage lengths) whose lengths sit at
+# the SHA-256 padding boundaries: the 0x80 byte and the 8-byte length still
+# in the block (55), just past it (56), the block's last byte (63), a whole
+# block (64), and the same a block or two on; each k reaches its lengths
+BOUNDARY_CASES = (
+    (0, 20, 7, (55, 56, 63, 64, 119, 120, 127)),
+    (0, 20, 6, (55, 56, 63, 64, 119, 120)),
+    (1, 20, 2, (55, 56, 63, 64, 119, 120)),
+    (1, 20, 3, (119, 120, 127, 128, 183)),
+    (0, 10, 13, (55, 56, 63, 64, 119, 120, 127)),
+    (0, 10, 6, (55, 56, 60)),
+    (2, 10, 1, (67, 103)),
+    (2, 10, 2, (183, 184, 191, 192)),
+)
+
+
+def boundary_groups(fmt: int, k: int, max_digits: int, p: int, lengths):
+    """(len(lengths) * k, components) numpy uint64 groups of ``k`` elements
+    whose preimages are exactly ``lengths`` bytes long (a length the format
+    cannot reach raises), components of max_digits digits first and of 1
+    digit last (reversed in every other group), with the extreme values of
+    each digit count: 10^(d-1) and 10^d - 1, p - 1 where it has d digits, 2^32 - 1 on
+    the 10-digit path (its digits come from the low word) and 2^64 - 1 with
+    20. The plain version and the kernel must agree on these, and both
+    with the JAX package's leaf hash and hashlib."""
+    import numpy as np
+
+    per = _FMT_COMPS[fmt]
+    const = sum(len(v) for kind, v in _FMT_SEGMENTS[fmt] if kind == "const")
+    n = k * per
+    top = (1 << 32) - 1 if max_digits == 10 else (1 << 64) - 1
+    groups = []
+    for g, length in enumerate(lengths):
+        digits = length - k * const
+        if not n <= digits <= n * max_digits:
+            raise ValueError(f"fmt {fmt}, k {k}: no preimage of {length} bytes")
+        counts, extra = [1] * n, digits - n        # fill whole components
+        for i in range(n):                         # first: max and 1 digits
+            counts[i] += min(extra, max_digits - 1)
+            extra -= counts[i] - 1
+        if g % 2:
+            counts.reverse()
+        vals = []
+        for i, d in enumerate(counts):
+            choices = [10 ** (d - 1), min(10 ** d - 1, top)]
+            choices += [v for v in (p - 1, top) if len(str(v)) == d]
+            vals.append(choices[(g + i) % len(choices)])
+        groups.append(vals)
+    return np.array(groups, dtype=np.uint64).reshape(len(lengths) * k, per)

@@ -33,6 +33,9 @@ OPS_SHA_CONST_BLOCK = 64 * 14 + 8
 # each) with 4 adds, and the reduction of gl.cuh about 17; an add 8, a sub 5
 OPS_GL_MUL = 8 + 4 + 17
 OPS_BUTTERFLY = OPS_GL_MUL + 8 + 5
+# an Fp2 product (Karatsuba, u^2 = 7): three products, 7 v1 as three
+# doublings and a sub (29, a product's worth), three adds and two subs
+OPS_FP2_MUL = 4 * OPS_GL_MUL + 3 * 8 + 2 * 5
 # BabyBear (bb.cuh): a product is one 32x32->64 multiply (2), the Barrett
 # step's 64-bit multiply-high (four 32x32->64 multiplies and 4 adds, 12),
 # one 32-bit multiply-subtract (2) and the conditional subtraction (2); an
@@ -78,6 +81,72 @@ def time_ms(fn, reps: int, device="cuda") -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean wall ms per call of ``reps`` calls issued back to back with no
+    synchronize between them, after a warm-up: the host's share of a call
+    (argument checks, allocation, the launch), apart from the device's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms per call over ``reps`` calls run back to back on the
+    card: CUDA events around the calls, all enqueued behind a device-side
+    sleep (``torch.cuda._sleep``) that outlasts their enqueue, so that no
+    host time falls between the events. The sleep doubles until it does."""
+    fn()
+    torch.cuda.synchronize()
+    sleep_ms = 1.0 + 0.1 * reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    while True:
+        torch.cuda._sleep(int(sleep_ms * 2e6))        # ~2e6 cycles a ms
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms < sleep_ms / 2:
+            return start.elapsed_time(end) / reps
+        sleep_ms *= 2
+
+
+def profiler_ms(fn, reps: int):
+    """(device ms per call, kernels per call) from torch.profiler's (CUPTI)
+    kernel records over ``reps`` calls: the summed kernel time divided by
+    ``reps``, and how many kernel records it saw per call, which tells a
+    reading with records missing from a whole one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / 1e3 / reps, len(kernels) / reps
+
+
+def split_ms(fn, reps: int) -> dict:
+    """A call's times apart: ``host_ms`` (the enqueue), ``device_ms`` (the
+    card alone, ``device_ms()``) and ``profiler_ms`` with
+    ``profiler_kernels`` (``profiler_ms()``)."""
+    prof, kernels = profiler_ms(fn, reps)
+    return {"host_ms": host_ms(fn, reps), "device_ms": device_ms(fn, reps),
+            "profiler_ms": prof, "profiler_kernels": kernels}
+
+
 def sha_blocks(msg_bytes):
     """SHA-256 blocks of messages of these byte lengths (int or tensor)."""
     return (msg_bytes + 9 + 63) // 64
@@ -100,9 +169,33 @@ def pass_work(batch, n, stages, muls, tag="gl"):
     return 16 * batch * n, ops
 
 
+def _same(a, b) -> bool:
+    """a and b are one input (a * a): its bytes are read once."""
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
 def mul_work(a, b):
     out = a.numel() if a.numel() >= b.numel() else b.numel()
-    return 8 * (a.numel() + b.numel() + out), out * OPS_GL_MUL
+    reads = a.numel() + (0 if _same(a, b) else b.numel())
+    return 8 * (reads + out), out * OPS_GL_MUL
+
+
+def _stored(t):
+    """The elements a view reads: its numel without the stride-0 axes."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
+def ext_mul_work(a, b):
+    """An Fp2 product of (..., 2) operands: each operand's stored elements
+    read once (an expanded operand only as stored), the (..., 2) output
+    written once."""
+    out = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]).numel()
+    reads = _stored(a) + (0 if _same(a, b) else _stored(b))
+    return 8 * (reads + 2 * out), out * OPS_FP2_MUL
 
 
 def leaf_hash_work(comps, k, fmt, max_digits=20):

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""What the split query report costs: warm parity proves of the PyTorch/CUDA
-port (ministark_tpu_torch) with ``DeviceEngine(query_split=False)`` and
-``query_split=True`` in turns, in one process on one card.
+"""Warm parity proves of the PyTorch/CUDA port (ministark_tpu_torch) on two
+sides in turns, in one process on one card: with ``DeviceEngine(
+query_split=False)`` against ``query_split=True`` (what the split query
+report costs), or with ``--root DIR`` the package of another checkout (a
+parent commit unpacked beside this one) against this checkout's.
 
-    python3 scripts/torch_ab_prove.py [--steps N] [--pairs N]
+    python3 scripts/torch_ab_prove.py [--steps N] [--pairs N] [--root DIR]
                                       [--field goldilocks|babybear]
                                       [--device cuda|cpu]
 
-Proves Fibonacci (security 20, blowup 2, witness on the device) once with
-each engine to warm up, then ``--pairs`` times off, on, on, off (the order
-turns so that a drift of the machine falls on both alike), and prints one
-JSON line: the card's name and power limit (nvidia-smi), every prove's wall
-seconds, the median and the range of each side, and the median of the
-differences within a pair. The host's clock spreads by seconds between
-proves of this host-bound prover, so read the difference beside the range.
-``--device cpu`` is a dry run at a small ``--steps``: host times, no device
-metric.
+Proves Fibonacci (security 20, blowup 2, witness on the device) once on
+each side to warm up, checks that both give the same proof, then
+``--pairs`` times A, B, B, A (the order turns so that a drift of the
+machine falls on both alike), and prints one JSON line: the card's name and
+power limit (nvidia-smi), every prove's wall seconds, the median and the
+range of each side, and the median of the differences B - A within a pair.
+The host's clock spreads by seconds between proves of this host-bound
+prover, so read the difference beside the range. The other checkout's
+package is imported under another name (the package imports itself only
+relatively) and builds its kernels into its own ``_build/``. ``--device
+cpu`` is a dry run at a small ``--steps``: host times, no device metric.
 """
 
 import argparse
@@ -29,43 +33,73 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(steps, pairs, field="goldilocks", device="cuda"):
+def load_package(root, alias):
+    """ministark_tpu_torch of the checkout at ``root``, imported as
+    ``alias`` so that it lives beside this checkout's in one process."""
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "ministark_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _side(pkg, field, steps, device, **engine_kw):
+    """(engine, trace, proof_digests) of one side, from package ``pkg``."""
+    import importlib
+
+    fields = importlib.import_module(pkg + ".fields")
+    trace_mod = importlib.import_module(pkg + ".models.fibonacci_device")
+    stark = importlib.import_module(pkg + ".stark")
+    engine_mod = importlib.import_module(pkg + ".stark.engine")
+    proof_io = importlib.import_module(pkg + ".stark.proof_io")
+    sf = {"goldilocks": fields.Goldilocks, "babybear": fields.BabyBear}[field]
+    trace = trace_mod.fibonacci_device_trace(sf, steps, on_device=True, device=device)
+    cfg = stark.StarkConfig(sf, 20, 2, steps, trace.constrain_number())
+    engine = engine_mod.DeviceEngine(cfg, device=device, **engine_kw)
+    return engine, trace, lambda proof: proof_io.proof_digests(sf, proof)
+
+
+def run(steps, pairs, field="goldilocks", device="cuda", root=None):
     import torch
 
-    from ministark_tpu_torch.fields import BabyBear, Goldilocks
-    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
-    from ministark_tpu_torch.stark import StarkConfig
-    from ministark_tpu_torch.stark.engine import DeviceEngine
-    from ministark_tpu_torch.stark.proof_io import proof_digests
-
     on_card = torch.device(device).type == "cuda"
-    sf = {"goldilocks": Goldilocks, "babybear": BabyBear}[field]
-    trace = fibonacci_device_trace(sf, steps, on_device=True, device=device)
-    cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
-    engines = {split: DeviceEngine(cfg, device=device, query_split=split)
-               for split in (False, True)}
+    if root is None:
+        probe, names = "query_split_ab", ("off", "on")
+        sides = {name: _side("ministark_tpu_torch", field, steps, device,
+                             query_split=split)
+                 for name, split in zip(names, (False, True))}
+    else:
+        load_package(root, "ministark_tpu_torch_other")
+        probe, names = "parent_change_ab", ("parent", "change")
+        sides = {"parent": _side("ministark_tpu_torch_other", field, steps, device),
+                 "change": _side("ministark_tpu_torch", field, steps, device)}
 
-    def prove(split):
+    def prove(name):
+        engine, trace, digests = sides[name]
         if on_card:
             torch.cuda.synchronize()
         t0 = time.time()
-        proof = engines[split].prove(trace)
+        proof = engine.prove(trace)
         if on_card:
             torch.cuda.synchronize()
-        return time.time() - t0, proof
+        return time.time() - t0, digests(proof)
 
-    # warm-up, and the same bytes from both engines
-    if proof_digests(sf, prove(False)[1]) != proof_digests(sf, prove(True)[1]):
-        raise AssertionError("the split report changed the proof")
+    # warm-up, and the same bytes from both sides
+    if prove(names[0])[1] != prove(names[1])[1]:
+        raise AssertionError(f"{names[0]} and {names[1]} give different proofs")
 
-    secs = {False: [], True: []}
+    secs = {name: [] for name in names}
     diffs = []
     for i in range(pairs):
-        order = (False, True) if i % 2 == 0 else (True, False)
-        pair = {split: prove(split)[0] for split in order}
-        for split in order:
-            secs[split].append(pair[split])
-        diffs.append(pair[True] - pair[False])
+        order = names if i % 2 == 0 else names[::-1]
+        pair = {name: prove(name)[0] for name in order}
+        for name in order:
+            secs[name].append(pair[name])
+        diffs.append(pair[names[1]] - pair[names[0]])
 
     def side(v):
         return {"prove_s": v, "median_s": statistics.median(v),
@@ -76,17 +110,18 @@ def run(steps, pairs, field="goldilocks", device="cuda"):
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    return {"probe": "query_split_ab", "field": field, "steps": steps,
-            "pairs": pairs, "gpu": smi, "device": device,
-            "query_phase_labels": {
-                "off": sum(k.startswith("fri_query_round_")
-                           for k in engines[False].phase_seconds),
-                "on": sum(k.startswith("fri_query_round_")
-                          for k in engines[True].phase_seconds)},
-            "off": side(secs[False]), "on": side(secs[True]),
-            "median_diff_s": statistics.median(diffs),
-            "median_diff_share": statistics.median(diffs)
-            / statistics.median(secs[False])}
+    out = {"probe": probe, "field": field, "steps": steps, "pairs": pairs,
+           "gpu": smi, "device": device}
+    if root is None:
+        out["query_phase_labels"] = {
+            name: sum(k.startswith("fri_query_round_")
+                      for k in sides[name][0].phase_seconds) for name in names}
+    else:
+        out["root"] = os.path.abspath(root)
+    out.update({name: side(secs[name]) for name in names})
+    out["median_diff_s"] = statistics.median(diffs)
+    out["median_diff_share"] = statistics.median(diffs) / statistics.median(secs[names[0]])
+    return out
 
 
 def main():
@@ -96,6 +131,8 @@ def main():
     ap.add_argument("--field", choices=("goldilocks", "babybear"),
                     default="goldilocks")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--root", default=None,
+                    help="another checkout, proved against this one")
     args = ap.parse_args()
 
     import torch
@@ -103,7 +140,8 @@ def main():
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu for a dry run)", file=sys.stderr)
         sys.exit(1)
-    print(json.dumps(run(args.steps, args.pairs, args.field, args.device)), flush=True)
+    print(json.dumps(run(args.steps, args.pairs, args.field, args.device, args.root)),
+          flush=True)
 
 
 if __name__ == "__main__":

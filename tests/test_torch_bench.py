@@ -14,6 +14,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -221,6 +222,8 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
      {"LVL_N": "16384", "LVL_IDX": "1"}, '"probe": "digit_stage"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "2"],
      {}, '"probe": "query_split_ab"'),
+    ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",
+                                   "--root", "."], {}, '"probe": "parent_change_ab"'),
 ])
 def test_probe_scripts_dry_run(script, args, env, want):
     res = _run(script, *args, **env)
@@ -244,3 +247,9 @@ def test_bound_model():
     assert rf.tree_work(8, 4) == tuple(map(sum, zip(rf.level_work(2, 4),
                                                     rf.level_work(1, 2))))
     assert rf.time_ms(lambda: None, 2, "cpu") >= 0
+    # a * a reads its operand once; an expanded operand only as stored
+    x = torch.zeros(1 << 10, 2, dtype=torch.int64)
+    assert rf.mul_work(x[:, 0], x[:, 0])[0] == 8 * 2 * (1 << 10)
+    assert rf.mul_work(x[:, 0], x[:, 1])[0] == 8 * 3 * (1 << 10)
+    assert rf.ext_mul_work(x, x)[0] == 8 * 4 * (1 << 10)
+    assert rf.ext_mul_work(x, x[3].expand_as(x))[0] == 8 * (4 * (1 << 10) + 2)

@@ -71,6 +71,43 @@ def test_gl_mul_kernel_matches_plain(dev, case):
     assert torch.equal(gl.mul(a, b), got)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4097, 1 << 16])
+def test_gl_mul_contiguous_path_matches_plain(dev, n):
+    """The 16-byte path (aligned contiguous operands, odd tails) and the
+    same data one element off the boundary (the strided path)."""
+    x = _rand((2, n + 1), n).to(dev)
+    for a, b in ((x[0, :n], x[1, :n]), (x[0, 1:], x[1, :n]), (x[0, 1:], x[1, 1:])):
+        assert torch.equal(gl.mul_cuda(a, b).cpu(), gl.mul_plain(a.cpu(), b.cpu()))
+
+
+_EXT_CASES = {
+    "query-round": lambda x: (x, x.flip(0)),
+    "query-scalars": lambda x: (x[:, 0], x[:, 1]),
+    "powers": lambda x: (x, x[:, :1]),
+    "even-odd": lambda x: (x[:, 0::2], x[:, 1::2]),
+    "expand-as": lambda x: (x, x[3, 4].expand_as(x)),
+    "scalar": lambda x: (x, x[5, 6]),
+    "scalars": lambda x: (x[5, 6], x[4, 8]),
+    "cpu-scalar": lambda x: (x, gl.pack_u64([12345, P - 1])),
+    "component-stride": lambda x: (x.movedim(-1, 0).contiguous().movedim(0, -1), x),
+    "unaligned": lambda x: (x.reshape(-1)[1:-1].reshape(-1, 2), x.reshape(-1, 2)[1:]),
+    "empty": lambda x: (x[:0], x[0]),
+    "4-axes": lambda x: (x.reshape(2, 3, 2, -1, 2)[:, :, :, 1:], x.reshape(2, 3, 2, -1, 2)[0, :1, :, :-1]),
+}
+
+
+@pytest.mark.parametrize("case", list(_EXT_CASES))
+def test_gl_ext_mul_kernel_matches_plain(dev, case):
+    x = _rand((6, 1000, 2), 7).to(dev)
+    a, b = _EXT_CASES[case](x)
+    got = gl.ext_mul_cuda(a, b)
+    assert got.device.type == "cuda" and got.is_contiguous()
+    assert torch.equal(got.cpu(), gl.ext_mul_plain(a.cpu(), b.cpu()))
+    before = gl.ext_launches
+    assert torch.equal(gl.ext_mul(a, b), got)
+    assert gl.ext_launches == before + (got.numel() > 0)
+
+
 @pytest.mark.parametrize("log_n", [14, 17, 20, 21])
 def test_four_step_passes_match_plain(dev, log_n):
     n = 1 << log_n
@@ -111,6 +148,15 @@ def test_leaf_hash_kernel_matches_plain(dev, fmt, k):
     c = _rand((4096 * k, fmt + 1), fmt).to(dev)
     c[:1000] %= 1000
     assert torch.equal(lh.leaf_hash_cuda(c, k, fmt), lh.leaf_hash_plain(c, k, fmt))
+
+
+@pytest.mark.parametrize("fmt,md,k,lengths", lh.BOUNDARY_CASES,
+                         ids=[f"fmt{f}-md{m}-k{k}" for f, m, k, _ in lh.BOUNDARY_CASES])
+def test_leaf_hash_kernel_at_padding_boundaries(dev, fmt, md, k, lengths):
+    p = P if md == 20 else BABYBEAR_FP.p
+    c = torch.from_numpy(lh.boundary_groups(fmt, k, md, p, lengths).view(np.int64))
+    assert torch.equal(lh.leaf_hash_cuda(c.to(dev), k, fmt, md).cpu(),
+                       lh.leaf_hash_plain(c, k, fmt, md))
 
 
 def test_inner_level_kernel_matches_plain(dev):
