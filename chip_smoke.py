@@ -7,11 +7,14 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
-               leaf_hash instantiation has a 0-byte stack frame and no spill
+               leaf_hash and ntt instantiation has a 0-byte stack frame and
+               no spill
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
                equality, times in ms beside the least time the card could
-               take (bound); the four-step and pipelined NTTs also whole,
+               take (bound), the radix-2 NTT also at a three-pass 2^23 and
+               with its launches per call; the four-step and pipelined NTTs
+               also whole,
                against the plain radix-2 NTT; both paths of the base
                product, the Fp2 product at the provers' shapes, and the
                leaf hash at every SHA-256 padding boundary; the products'
@@ -249,12 +252,14 @@ def phase_build():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  ptxas " + ln.strip(), flush=True)
     say("build", f"{os.path.relpath(path, ROOT)} in {secs:.1f} s")
-    frames = _stack_frames(log, "leaf_hash")
-    if not frames or any(any(v) for v in frames.values()):
-        fail(f"build: leaf_hash uses local memory (stack frame, spill stores, "
-             f"spill loads in bytes): {frames}")
-    say("build", f"leaf_hash: {len(frames)} instantiations, 0 bytes stack frame, "
-                 "0 bytes spill stores and loads")
+    # the radix-2 NTT's kernel is csrc/ntt.cu's ntt_pass<gl / bb>
+    for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass")):
+        frames = _stack_frames(log, symbol)
+        if not frames or any(any(v) for v in frames.values()):
+            fail(f"build: {name} uses local memory (stack frame, spill stores, "
+                 f"spill loads in bytes): {frames}")
+        say("build", f"{name}: {len(frames)} instantiations, 0 bytes stack frame, "
+                     "0 bytes spill stores and loads")
 
 
 def _stack_frames(log, name):
@@ -303,7 +308,7 @@ def make_compare(results):
     output against its plain version's on the same inputs (exact), then both
     timed (and ``library``, one PyTorch call computing the same function,
     where there is one), into ``results[name]`` unless ``name`` is a whole
-    transform."""
+    transform; returns that record (None for a whole transform)."""
     import torch
 
     def compare(name, label, kern, plain, work, reps=5, plain_reps=2, library=None):
@@ -330,6 +335,7 @@ def make_compare(results):
         r["shapes"].append({"shape": label, "ms": ms, "plain_ms": pms,
                             "bound_ms": bms, "bound_by": by, "library_ms": lms,
                             **split})
+        return r["shapes"][-1]
 
     return compare
 
@@ -348,8 +354,18 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
     for label, batch, n, kw in radix2_shapes:
         x = _rand_u64(rng, (batch, n), F.p)
         work = rf.ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")), tag)
-        compare("ntt" + sfx, label, lambda: ntt.transform_cuda(x, **kw, field=F),
-                lambda: ntt.transform_plain(x, **kw, field=F), work)
+        rec = compare("ntt" + sfx, label, lambda: ntt.transform_cuda(x, **kw, field=F),
+                      lambda: ntt.transform_plain(x, **kw, field=F), work)
+        # the passes one call launched, as csrc/ntt.cu counts them
+        before = ntt.pass_launches[tag]
+        ntt.transform_cuda(x, **kw, field=F)
+        per_call = ntt.pass_launches[tag] - before
+        passes = len(ntt.pass_plan(n.bit_length() - 1))
+        say("kernels", f"ntt{sfx} {label}: {per_call} launch(es) per call")
+        if per_call != passes:
+            fail(f"ntt{sfx} {label}: {per_call} launches per call, where the plan "
+                 f"has {passes} passes")
+        rec["launches_per_call"] = per_call
 
     for label, batch, n, kw in backend_shapes:
         x = _rand_u64(rng, (batch, n), F.p)
@@ -452,6 +468,7 @@ def phase_kernels(results):
         ("fft (12, 2^21)", 12, 1 << 21, {}),
         ("fft (2, 2^3)", 2, 1 << 3, {}),
         ("coset_ifft (2, 2^14)", 2, 1 << 14, {"inverse": True, "post": shift}),
+        ("fft (1, 2^23) (three passes)", 1, 1 << 23, {}),
     ], [
         ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
         ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
@@ -566,6 +583,8 @@ def phase_kernels_bb(results):
         ("fft (4, 2^21)", 4, 1 << 21, {}),
         ("fft (4, 2^14)", 4, 1 << 14, {}),
         ("fft (24, 2^21)", 24, 1 << 21, {}),
+        ("coset_ifft (1, 2^23) (three passes)", 1, 1 << 23,
+         {"inverse": True, "post": shift}),
     ], [
         ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
         ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
@@ -1485,7 +1504,8 @@ def main():
                         # SHA-256, no modular u64 multiply and no digit stage
                         "library_ms": main_shape["library_ms"],
                         "shape": main_shape["shape"],
-                        **{k: main_shape[k] for k in SPLIT_KEYS if k in main_shape}})
+                        **{k: main_shape[k] for k in SPLIT_KEYS + ("launches_per_call",)
+                           if k in main_shape}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

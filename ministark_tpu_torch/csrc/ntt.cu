@@ -4,148 +4,253 @@
 // Replaces the Pallas kernel ministark_tpu/ops/ntt_mxu.py::_make_fused_kernel
 // (one NTT level as an int8 digit matmul on the TPU's MXU; its BabyBear
 // branch recombines one digit plane with _recombine_bb). Hopper multiplies
-// 64-bit integers natively, so this is a plain radix-2 decimation-in-time
-// NTT with the same root of unity, which gives the same canonical outputs:
+// 64-bit integers natively, so this is a radix-2 decimation-in-time NTT with
+// the same root of unity, which gives the same canonical outputs.
 //
-//  * ntt_local: each block loads one TILE-element tile of the bit-reversed
-//    row (multiplying in the coset offset s^src on the way, with s^src formed
-//    from a table of s^(2^b)), runs the first log2(TILE) butterfly stages in
-//    shared memory and stores the tile;
-//  * ntt_stage: one launch per remaining stage, one thread per butterfly,
-//    in place in device memory.
+// Bound on the H100: integer throughput, in both fields (a butterfly is ~42
+// operations in Goldilocks, ~24 in BabyBear, against 16 bytes per element
+// per trip through device memory). So a transform is a few passes, each one
+// trip (ops/ntt.py::pass_plan; transform_passes_plain replays it on the CPU):
 //
-// The last launch applies the 1/n scale of an inverse transform and a coset
-// post-multiply. Bound on the H100: integer throughput, in both fields (a
-// BabyBear butterfly is about half the operations of a Goldilocks one, still
-// above the 16 bytes each element moves through device memory).
+//  * a pass runs stages s0 + 1 .. s0 + L (L <= 11) on independent 2^L-point
+//    columns at stride 2^s0. A block holds C (<= 4) adjacent columns, so
+//    every load and store is a run of C * 8 = 32 bytes, a whole sector. The
+//    first pass reads column c of the input as x[brev_L(m) 2^(log n - L) + c]
+//    (the bit-reversed gather, on whole sectors) and writes it as tile
+//    brev(c) of the bit-reversed array, a contiguous run. A later pass first
+//    multiplies position m of column lo by w^(lo brev_L(m) 2^(log n - s0 -
+//    L)): the part of its stages' twiddles that depends on the column, taken
+//    out in front, so that the stages themselves use the 2^(L-1) roots of a
+//    2^L-point transform, held in shared memory;
+//  * inside a pass, each thread holds 8 elements of one column in registers
+//    and runs 3 stages on them between exchanges through shared memory
+//    (rows padded by one every 8, so neither the exchanges nor the runs of
+//    8 rows that a warp loads and stores meet a bank conflict);
+//  * coset powers s^i come from two tables, lo[i mod 2^h] * hi[i >> h]: one
+//    product. The last pass applies the post powers (1/n folded into hi by
+//    the wrapper) or the 1/n scale alone.
+//
+// Passes after the first run in place in y: a block reads its whole tile
+// before it writes, and no two blocks share an element.
 #include <cuda_runtime.h>
 
 #include "ntt_common.cuh"
 
 namespace {
 
-constexpr int TILE_LOG = 12;  // 4096 elements = 32 KB of shared memory
-constexpr int LOCAL_THREADS = 1024;
-constexpr int STAGE_THREADS = 256;
+constexpr int RADIX_LOG = 3;
+constexpr int MAX_THREADS = 512;
+constexpr int MAX_LOG_N = 30;
+constexpr int PLAN_HEAD = 3;    // passes, coset split h, log order of tile_tw
+constexpr int PLAN_FIELDS = 6;  // s0, L, log_cols, threads, blocks, smem
+
+// the shared-memory row of tile position m: one padding row every 8
+__device__ __forceinline__ uint32_t srow(uint32_t m) { return m + (m >> 3); }
 
 template <class F>
-__device__ __forceinline__ uint64_t finish(uint64_t v, uint32_t idx,
-                                           const uint64_t* post,
-                                           uint64_t scale) {
-  if (scale != 1) v = F::mul(v, scale);
-  if (post) v = F::mul(v, F::pow_bits(post, idx));
-  return v;
+__device__ __forceinline__ uint64_t coset_pow(const uint64_t* lo,
+                                              const uint64_t* hi, uint32_t i,
+                                              int h) {
+  return F::mul(lo[i & ((1u << h) - 1)], hi[i >> h]);
+}
+
+// Stages t0 + 1 .. t0 + R of the tile's columns: a group is the 2^R
+// positions base + k 2^t0 of one column, in registers.
+template <class F, int R>
+__device__ __forceinline__ void stages(uint64_t* s, const uint64_t* tws,
+                                       int L, int log_c, int t0) {
+  const uint32_t groups = (1u << (L + log_c)) >> R;
+  const uint32_t cmask = (1u << log_c) - 1;
+  for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
+    const uint32_t c = g & cmask, rest = g >> log_c;
+    const uint32_t jlo = rest & ((1u << t0) - 1);
+    const uint32_t base = jlo | ((rest >> t0) << (t0 + R));
+    uint64_t v[1 << R];
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) {
+      v[k] = s[(srow(base + (k << t0)) << log_c) + c];
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = t0 + 1 + q;  // the stage within the tile
+#pragma unroll
+      for (int k = 0; k < (1 << R); ++k) {
+        if (k & (1 << q)) continue;
+        const uint32_t j = jlo + ((uint32_t)(k & ((1 << q) - 1)) << t0);
+        const uint64_t a = v[k];
+        // the tile's first stage has only w^0 = 1
+        const uint64_t b = u == 1 ? v[k + (1 << q)]
+                                  : F::mul(v[k + (1 << q)], tws[j << (L - u)]);
+        v[k] = F::add(a, b);
+        v[k + (1 << q)] = F::sub(a, b);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) {
+      s[(srow(base + (k << t0)) << log_c) + c] = v[k];
+    }
+  }
 }
 
 template <class F>
-__global__ void ntt_local(const uint64_t* __restrict__ x,
-                          uint64_t* __restrict__ y, int log_n, int tile_log,
-                          const uint64_t* __restrict__ tw,
-                          const uint64_t* __restrict__ pre,
-                          const uint64_t* __restrict__ post, uint64_t scale,
-                          int last) {
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+    ntt_pass(const uint64_t* x, uint64_t* y, int log_n, int s0, int L,
+             int log_c, int tile_log, int h, const uint64_t* __restrict__ tw,
+             const uint64_t* __restrict__ tile_tw,
+             const uint64_t* __restrict__ pre_lo,
+             const uint64_t* __restrict__ pre_hi,
+             const uint64_t* __restrict__ post_lo,
+             const uint64_t* __restrict__ post_hi, uint64_t scale, int last) {
   extern __shared__ uint64_t s[];
-  const uint32_t n = 1u << log_n;
-  const uint32_t T = 1u << tile_log;
-  const uint64_t* xr = x + (size_t)blockIdx.y * n;
-  uint64_t* yr = y + (size_t)blockIdx.y * n;
-  const uint32_t base = blockIdx.x * T;
+  const uint32_t T = 1u << L, C = 1u << log_c, elems = T << log_c;
+  uint64_t* tws = s + ((size_t)(T + (T >> 3)) << log_c);
+  const size_t n = (size_t)1 << log_n;
+  const uint64_t* xr = x + blockIdx.y * n;
+  uint64_t* yr = y + blockIdx.y * n;
 
-  for (uint32_t t = threadIdx.x; t < T; t += blockDim.x) {
-    const uint32_t dst = base + t;
-    const uint32_t src = bit_reverse(dst, log_n);
-    uint64_t v = xr[src];
-    if (pre) v = F::mul(v, F::pow_bits(pre, src));
-    s[t] = v;
+  // the stage roots of a 2^L-point transform, w_(2^L)^j for j < 2^(L-1)
+  for (uint32_t j = threadIdx.x; j < T / 2; j += blockDim.x) {
+    tws[j] = tile_tw[(size_t)j << (tile_log - L)];
+  }
+
+  // load: warp lanes take C columns of 32 / C consecutive rows
+  const int cb = log_n - L;  // the first pass: log2 of the column count
+  const uint32_t c0 = blockIdx.x << log_c;
+  size_t origin = 0;         // a later pass: its tile's first element
+  uint32_t lo0 = 0;
+  if (s0 == 0) {
+    for (uint32_t t = threadIdx.x; t < elems; t += blockDim.x) {
+      const uint32_t c = t & (C - 1), m = t >> log_c;
+      const uint32_t src = (bit_reverse(m, L) << cb) + c0 + c;
+      uint64_t v = xr[src];
+      if (pre_lo) v = F::mul(v, coset_pow<F>(pre_lo, pre_hi, src, h));
+      s[(srow(m) << log_c) + c] = v;
+    }
+  } else {
+    const int lo_bits = s0 - log_c;
+    lo0 = (blockIdx.x & ((1u << lo_bits) - 1)) << log_c;
+    origin = ((size_t)(blockIdx.x >> lo_bits) << (s0 + L)) + lo0;
+    const int shift = log_n - s0 - L;
+    const uint32_t half = (uint32_t)(n / 2);
+    for (uint32_t t = threadIdx.x; t < elems; t += blockDim.x) {
+      const uint32_t c = t & (C - 1), m = t >> log_c;
+      uint64_t v = xr[origin + ((size_t)m << s0) + c];
+      // w^e, e < n: w^(n/2) = -1
+      const uint32_t e = ((lo0 + c) * bit_reverse(m, L)) << shift;
+      if (e) {
+        const uint64_t w = e < half ? tw[e] : F::sub(0, tw[e - half]);
+        v = F::mul(v, w);
+      }
+      s[(srow(m) << log_c) + c] = v;
+    }
   }
   __syncthreads();
 
-  for (int st = 1; st <= tile_log; ++st) {
-    const uint32_t half = 1u << (st - 1);
-    for (uint32_t k = threadIdx.x; k < T / 2; k += blockDim.x) {
-      const uint32_t j = k & (half - 1);
-      const uint32_t i0 = ((k >> (st - 1)) << st) + j;
-      const uint32_t i1 = i0 + half;
-      const uint64_t w = tw[(size_t)j << (log_n - st)];
-      const uint64_t u = s[i0];
-      const uint64_t v = F::mul(s[i1], w);
-      s[i0] = F::add(u, v);
-      s[i1] = F::sub(u, v);
-    }
+  int t0 = 0;
+  for (; t0 + RADIX_LOG <= L; t0 += RADIX_LOG) {
+    stages<F, RADIX_LOG>(s, tws, L, log_c, t0);
+    __syncthreads();
+  }
+  if (L - t0 == 2) {
+    stages<F, 2>(s, tws, L, log_c, t0);
+    __syncthreads();
+  } else if (L - t0 == 1) {
+    stages<F, 1>(s, tws, L, log_c, t0);
     __syncthreads();
   }
 
-  for (uint32_t t = threadIdx.x; t < T; t += blockDim.x) {
-    uint64_t v = s[t];
-    if (last) v = finish<F>(v, base + t, post, scale);
-    yr[base + t] = v;
+  // store: the first pass writes C separate tiles, so a warp takes runs of
+  // 8 rows of each column; a later pass writes as it loaded
+  const int ml = L < 3 ? L : 3;
+  for (uint32_t t = threadIdx.x; t < elems; t += blockDim.x) {
+    uint32_t c, m;
+    size_t dst;
+    if (s0 == 0) {
+      c = (t >> ml) & (C - 1);
+      m = ((t >> (ml + log_c)) << ml) | (t & ((1u << ml) - 1));
+      dst = ((size_t)bit_reverse(c0 + c, cb) << L) + m;
+    } else {
+      c = t & (C - 1);
+      m = t >> log_c;
+      dst = origin + ((size_t)m << s0) + c;
+    }
+    uint64_t v = s[(srow(m) << log_c) + c];
+    if (last) {
+      if (post_lo) {
+        v = F::mul(v, coset_pow<F>(post_lo, post_hi, (uint32_t)dst, h));
+      } else if (scale != 1) {
+        v = F::mul(v, scale);
+      }
+    }
+    yr[dst] = v;
   }
-}
-
-template <class F>
-__global__ void ntt_stage(uint64_t* __restrict__ y, int log_n, int st,
-                          const uint64_t* __restrict__ tw,
-                          const uint64_t* __restrict__ post, uint64_t scale,
-                          int last) {
-  const uint32_t n = 1u << log_n;
-  const uint32_t k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n / 2) return;
-  uint64_t* yr = y + (size_t)blockIdx.y * n;
-  const uint32_t half = 1u << (st - 1);
-  const uint32_t j = k & (half - 1);
-  const uint32_t i0 = ((k >> (st - 1)) << st) + j;
-  const uint32_t i1 = i0 + half;
-  const uint64_t w = tw[(size_t)j << (log_n - st)];
-  const uint64_t u = yr[i0];
-  const uint64_t v = F::mul(yr[i1], w);
-  uint64_t a = F::add(u, v);
-  uint64_t b = F::sub(u, v);
-  if (last) {
-    a = finish<F>(a, i0, post, scale);
-    b = finish<F>(b, i1, post, scale);
-  }
-  yr[i0] = a;
-  yr[i1] = b;
 }
 
 template <class F>
 int run_ntt(const uint64_t* x, uint64_t* y, int batch, int log_n,
-            const uint64_t* tw, const uint64_t* pre, const uint64_t* post,
-            uint64_t scale, void* stream) {
-  if (log_n < 0 || log_n > 30 || batch < 1 || batch > 65535) {
+            const int64_t* plan, const uint64_t* tw, const uint64_t* tile_tw,
+            const uint64_t* pre_lo, const uint64_t* pre_hi,
+            const uint64_t* post_lo, const uint64_t* post_hi, uint64_t scale,
+            int64_t* launched, void* stream) {
+  if (log_n < 0 || log_n > MAX_LOG_N || batch < 1 || batch > 65535 ||
+      plan[0] < 1 || (pre_lo == nullptr) != (pre_hi == nullptr) ||
+      (post_lo == nullptr) != (post_hi == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  const int tile_log = log_n < TILE_LOG ? log_n : TILE_LOG;
-  const uint32_t T = 1u << tile_log;
-  const uint32_t n = 1u << log_n;
-  int threads = (int)(T / 2);
-  if (threads < 1) threads = 1;
-  if (threads > LOCAL_THREADS) threads = LOCAL_THREADS;
-  const dim3 grid(n / T, batch);
-  ntt_local<F><<<grid, threads, T * sizeof(uint64_t), s>>>(
-      x, y, log_n, tile_log, tw, pre, post, scale, tile_log == log_n);
-  for (int st = tile_log + 1; st <= log_n; ++st) {
-    const dim3 g((n / 2 + STAGE_THREADS - 1) / STAGE_THREADS, batch);
-    ntt_stage<F><<<g, STAGE_THREADS, 0, s>>>(y, log_n, st, tw, post, scale,
-                                             st == log_n);
+  const int passes = (int)plan[0], h = (int)plan[1], tile_log = (int)plan[2];
+  int s0 = 0;
+  for (int i = 0; i < passes; ++i) {
+    const int64_t* p = plan + PLAN_HEAD + PLAN_FIELDS * i;
+    const int L = (int)p[1], log_c = (int)p[2], threads = (int)p[3];
+    const size_t smem = (size_t)p[5];
+    if (p[0] != s0 || L > tile_log || s0 + L > log_n ||
+        log_c > (s0 ? s0 : log_n - L) || threads < 1 || threads > MAX_THREADS ||
+        p[4] != ((int64_t)1 << log_n) >> (L + log_c)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int last = i == passes - 1;
+    if (last && s0 + L != log_n) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ntt_pass<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    ntt_pass<F><<<dim3((unsigned)p[4], batch), threads, smem,
+                  (cudaStream_t)stream>>>(
+        i == 0 ? x : y, y, log_n, s0, L, log_c, tile_log, h, tw, tile_tw,
+        pre_lo, pre_hi, post_lo, post_hi, scale, last);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+    s0 += L;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// x, y: (batch, 2^log_n) rows of canonical values; tw: root^j for
-// j < max(n/2, 1); pre / post: s^(2^b) for b < log_n, or null; scale: 1/n for
-// an inverse transform, else 1.
+// x, y: (batch, 2^log_n) rows of canonical values (x is read by the first
+// pass only); plan: ops/ntt.py::_plan_array; tw: w^j for j < max(n/2, 1);
+// tile_tw: the first pass's stage roots w_(2^L1)^j, j < max(2^(L1-1), 1);
+// pre_lo / pre_hi, post_lo / post_hi: ops/ntt.py::coset_tables, or null;
+// scale: 1/n for an inverse transform without post, else 1; launched: a
+// host counter, plus one for each pass launched.
 extern "C" int ms_ntt_gl(const uint64_t* x, uint64_t* y, int batch, int log_n,
-                         const uint64_t* tw, const uint64_t* pre,
-                         const uint64_t* post, uint64_t scale, void* stream) {
-  return run_ntt<gl>(x, y, batch, log_n, tw, pre, post, scale, stream);
+                         const int64_t* plan, const uint64_t* tw,
+                         const uint64_t* tile_tw, const uint64_t* pre_lo,
+                         const uint64_t* pre_hi, const uint64_t* post_lo,
+                         const uint64_t* post_hi, uint64_t scale,
+                         int64_t* launched, void* stream) {
+  return run_ntt<gl>(x, y, batch, log_n, plan, tw, tile_tw, pre_lo, pre_hi,
+                     post_lo, post_hi, scale, launched, stream);
 }
 
 extern "C" int ms_ntt_bb(const uint64_t* x, uint64_t* y, int batch, int log_n,
-                         const uint64_t* tw, const uint64_t* pre,
-                         const uint64_t* post, uint64_t scale, void* stream) {
-  return run_ntt<bb>(x, y, batch, log_n, tw, pre, post, scale, stream);
+                         const int64_t* plan, const uint64_t* tw,
+                         const uint64_t* tile_tw, const uint64_t* pre_lo,
+                         const uint64_t* pre_hi, const uint64_t* post_lo,
+                         const uint64_t* post_hi, uint64_t scale,
+                         int64_t* launched, void* stream) {
+  return run_ntt<bb>(x, y, batch, log_n, plan, tw, tile_tw, pre_lo, pre_hi,
+                     post_lo, post_hi, scale, launched, stream);
 }

@@ -38,7 +38,7 @@ _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)   # a host int64 array
-_NTT = [_P, _P, _I, _I, _P, _P, _P, _U64, _P]
+_NTT = [_P, _P, _I, _I, _I64P, _P, _P, _P, _P, _P, _P, _U64, _I64P, _P]
 _PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
 _PASS2 = [_P, _P, _I, _I, _I, _P, _P, _U64, _P]
 _LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P]
@@ -46,7 +46,9 @@ _LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P]
 # kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
 # (BabyBear), with the same arguments.
 _SIGNATURES = {
-    # x, y, batch, log_n, twiddles, pre_pows, post_pows, scale, stream
+    # x, y, batch, log_n, plan (int64, ops/ntt.py::_plan_array), twiddles,
+    # tile twiddles, pre lo / hi, post lo / hi (ops/ntt.py::coset_tables),
+    # scale, launched (a host int64, plus one a pass launched), stream
     "ms_ntt_gl": _NTT, "ms_ntt_bb": _NTT,
     # children, parents, n_parents, fan, stream
     "ms_sha256_inner_level": [_P, _P, _I, _I, _P],

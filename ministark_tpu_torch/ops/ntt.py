@@ -11,8 +11,8 @@ the prime field. The coset offset is a host scalar (a Fiat-Shamir challenge).
 with its CUDA kernels (one symbol per field, ``_gl`` or ``_bb``) and their
 plain versions:
 
-  "radix2"     this module: bit reversal plus radix-2 DIT stages
-               (csrc/ntt.cu), every size;
+  "radix2"     this module: radix-2 DIT stages in one to three
+               shared-memory passes (csrc/ntt.cu, ``pass_plan``), every size;
   "four_step"  ops/ntt_four_step.py, two shared-memory passes
                (csrc/ntt_four_step.cu), 2^14 <= n <= 2^22;
   "pipe"       ops/ntt_pipe.py, the factor walk with one pipelined level
@@ -31,6 +31,7 @@ is never looked up in the other's tables.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable
@@ -45,6 +46,8 @@ from .poly import powers
 
 # Incremented once per call that launches the CUDA NTT kernel, per field.
 launches = {"gl": 0, "bb": 0}
+# The passes those calls launched, as csrc/ntt.cu counts them, per field.
+pass_launches = {"gl": 0, "bb": 0}
 
 MAX_LOG_N = 30   # the CUDA kernel indexes a row with 32-bit positions
 
@@ -213,6 +216,168 @@ def offset_square_table(field, offset: int, log_n: int, device) -> torch.Tensor:
     return pack_u64(out, device)
 
 
+MAX_PASS_LOG = 11  # P: the most stages a pass of the CUDA kernel runs
+RADIX_LOG = 3      # stages a thread runs in registers between exchanges
+
+
+@dataclass(frozen=True)
+class NttPass:
+    """One launch of csrc/ntt.cu: stages s0 + 1 .. s0 + log_tile of the
+    decimation-in-time transform, on independent 2^log_tile-point columns
+    at stride 2^s0 (the first pass gathers its columns from the input in
+    bit-reversed order). A block holds 2^log_cols adjacent columns."""
+
+    s0: int
+    log_tile: int
+    log_cols: int
+    threads: int
+    blocks: int      # per row of the batch
+    smem: int        # bytes: the padded tile and the tile's root table
+
+
+@lru_cache(maxsize=None)
+def pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> tuple:
+    """The passes of a 2^log_n transform: ceil(log_n / max_pass_log) of
+    them (at least one), the stages split as evenly as they go, the larger
+    parts first; blocks of 4 columns (a 32-byte run per row) and at most
+    512 threads. The CUDA wrapper and ``transform_passes_plain`` both read
+    it."""
+    log_max_cols, max_threads = 2, 512
+    k = max(1, -(-log_n // max_pass_log))
+    base, extra = divmod(log_n, k)
+    passes, s0 = [], 0
+    for i in range(k):
+        L = base + (i < extra)
+        log_cols = min(log_max_cols, log_n - L if i == 0 else s0)
+        elements = 1 << (L + log_cols)
+        rows = (1 << L) + ((1 << L) >> 3)       # a padding row every 8
+        passes.append(NttPass(
+            s0, L, log_cols,
+            threads=min(max_threads, max(32, elements >> RADIX_LOG)),
+            blocks=(1 << log_n) // elements,
+            smem=8 * ((rows << log_cols) + max(1, (1 << L) >> 1))))
+        s0 += L
+    return tuple(passes)
+
+
+@lru_cache(maxsize=None)
+def _plan_array(log_n: int):
+    """``pass_plan(log_n)`` as the kernel's int64 plan: passes, the coset
+    tables' split h, the tile root table's log order, then per pass s0,
+    log_tile, log_cols, threads, blocks, shared bytes."""
+    plan = pass_plan(log_n)
+    vals = [len(plan), coset_split(log_n), plan[0].log_tile]
+    for p in plan:
+        vals += [p.s0, p.log_tile, p.log_cols, p.threads, p.blocks, p.smem]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _tile_root(field, root: int, log_n: int, plan) -> int:
+    """The root of order 2^(first pass's log_tile): every pass reads its
+    stage twiddles from this one table."""
+    return pow(root, 1 << (log_n - plan[0].log_tile), field.p)
+
+
+def coset_split(log_n: int) -> int:
+    """h = ceil(log_n / 2): ``coset_tables`` splits an index at bit h."""
+    return (log_n + 1) // 2
+
+
+COSET_CACHE = 16   # coset table pairs kept: a prove's offset is new per trace
+
+
+def coset_tables(field, offset: int, log_n: int, device, scale: int = 1):
+    """(lo, hi) with s^i * scale = lo[i mod 2^h] * hi[i >> h] for i < 2^log_n,
+    h = ``coset_split(log_n)``: 2^h and 2^(log_n - h) words. The kernel
+    forms a coset power with one product. The COSET_CACHE most recent
+    (field, offset, log_n, scale, device) are kept."""
+    return _coset_tables(field, offset, log_n, str(device), scale)
+
+
+@lru_cache(maxsize=COSET_CACHE)
+def _coset_tables(field, offset: int, log_n: int, device: str, scale: int):
+    p, h = field.p, coset_split(log_n)
+    s = field.from_int(offset)
+    lo, v = [], 1
+    for _ in range(1 << h):
+        lo.append(v)
+        v = v * s % p
+    hi, v, step = [], scale % p, pow(s, 1 << h, p)
+    for _ in range(1 << (log_n - h)):
+        hi.append(v)
+        v = v * step % p
+    return pack_u64(lo, device), pack_u64(hi, device)
+
+
+def _coset_powers(tables, idx: torch.Tensor, log_n: int, mul) -> torch.Tensor:
+    lo, hi = tables
+    h = coset_split(log_n)
+    return mul(lo[idx & ((1 << h) - 1)], hi[idx >> h])
+
+
+def transform_passes_plain(x: torch.Tensor, inverse: bool = False, pre=None,
+                           post=None, field=GOLDILOCKS_FP,
+                           max_pass_log: int = MAX_PASS_LOG) -> torch.Tensor:
+    """The CUDA kernel's plan replayed in torch ops, for the tests: the
+    same outputs as ``transform_plain`` by the kernel's route.
+
+    Pass 1 gathers column c of the input (x[brev_L(m) 2^(log n - L) + c],
+    times the coset power from ``coset_tables``) and writes it as tile
+    brev(c) of the bit-reversed array. A later pass takes the columns lo at
+    stride 2^s0, multiplies position m by w^(lo brev_L(m) 2^(log n - s0 -
+    L)) (the twiddles its stages carry for the column, taken out in front)
+    and runs stages 1 .. L of a 2^L-point transform on each, with
+    w_(2^u)^j read from the first pass's tile root table at j << (L1 - u).
+    The last pass applies 1/n and the post powers (1/n folded into the hi
+    table)."""
+    F = ntt_field(field)
+    batch, n = x.shape
+    log_n = _log2(n)
+    dev = x.device
+    plan = pass_plan(log_n, max_pass_log)
+    root = _roots(field, n, inverse)
+    tw = twiddles(field, root, n, dev)
+    L1 = plan[0].log_tile
+    tile_tw = twiddles(field, _tile_root(field, root, log_n, plan), 1 << L1, dev)
+    a = x
+    for p in plan:
+        L, s0 = p.log_tile, p.s0
+        T, rest = 1 << L, log_n - s0 - L
+        if s0 == 0:
+            cols = 1 << (log_n - L)
+            src = (bitrev(T, dev) << (log_n - L))[:, None] + torch.arange(cols, device=dev)
+            v = x[:, src]                                   # (batch, m, column)
+            if pre is not None:
+                v = F.mul(v, _coset_powers(coset_tables(field, pre, log_n, dev),
+                                           src, log_n, F.mul))
+            # column c becomes tile brev(c): (batch, hi, m, lo), one lo
+            v = v[:, :, bitrev(cols, dev)].transpose(1, 2).reshape(batch, cols, T, 1)
+        else:
+            v = a.reshape(batch, 1 << rest, T, 1 << s0)     # (batch, hi, m, lo)
+            lo = torch.arange(1 << s0, device=dev)
+            e = (bitrev(T, dev)[:, None] * lo) << rest
+            half = n // 2
+            w = tw[torch.where(e < half, e, e - half)]
+            w = torch.where(e < half, w, F.sub(torch.zeros_like(w), w))
+            v = F.mul(v, w)
+        for u in range(1, L + 1):
+            hw = 1 << (u - 1)
+            sh = v.shape
+            vr = v.reshape(sh[0], sh[1], T >> u, 2, hw, sh[3])
+            ev, od = vr[:, :, :, 0], vr[:, :, :, 1]
+            w = tile_tw[torch.arange(hw, device=dev) << (L1 - u)][:, None]
+            wv = F.mul(od, w)
+            v = torch.stack([F.add(ev, wv), F.sub(ev, wv)], 3).reshape(sh)
+        a = v.reshape(batch, n)
+    if post is not None:
+        tables = coset_tables(field, post, log_n, dev,
+                              inv_n(field, n) if inverse else 1)
+        a = F.mul(a, _coset_powers(tables, torch.arange(n, device=dev), log_n, F.mul))
+    elif inverse:
+        a = F.mul(a, pack_u64(inv_n(field, n), dev))
+    return a
+
+
 def transform_plain(x: torch.Tensor, inverse: bool = False, pre=None,
                     post=None, field=GOLDILOCKS_FP) -> torch.Tensor:
     """Plain PyTorch version: (batch, n) natural order -> natural order.
@@ -247,31 +412,39 @@ def transform_cuda(x: torch.Tensor, inverse: bool = False, pre=None,
 
     Replaces the Pallas kernel ``ministark_tpu/ops/ntt_mxu.py::
     _make_fused_kernel`` (one int8-MXU NTT level per call; BabyBear through
-    ``_recombine_bb``). Here one call runs the whole transform: a
-    shared-memory kernel does the bit-reversed load (with the coset
-    pre-multiply, s^i from a table of s^(2^b)) and the first 12 radix-2
-    stages on 4096-element tiles, then one global kernel per remaining
-    stage; the last launch applies 1/n and any post-multiply. Bound on this
-    card: integer throughput, at both fields (the butterflies, against one
-    read and one write of the batch per global stage)."""
+    ``_recombine_bb``). Here one call runs the whole transform as the
+    shared-memory passes of ``pass_plan`` (one launch each: 1 up to
+    2^MAX_PASS_LOG, 2 up to 2^(2 MAX_PASS_LOG), 3 above), with the coset
+    powers from ``coset_tables``; ``transform_passes_plain`` replays the
+    same plan in torch ops. Bound on this card: integer throughput, at both
+    fields (the butterflies, against one read and one write of the batch
+    per pass)."""
     F = ntt_field(field)
     cuda.require(x, "ntt", torch.int64, 2)
     batch, n = x.shape
     log_n = _log2(n)
     y = torch.empty_like(x)
-    tw = twiddles(field, _roots(field, n, inverse), n, x.device)
-    pre_t = None if pre is None else offset_square_table(field, pre, log_n, x.device)
-    post_t = None if post is None else offset_square_table(field, post, log_n,
-                                                           x.device)
-    if batch:
-        err = getattr(cuda.library(), f"ms_ntt_{F.tag}")(
-            x.data_ptr(), y.data_ptr(), batch, log_n, tw.data_ptr(),
-            None if pre_t is None else pre_t.data_ptr(),
-            None if post_t is None else post_t.data_ptr(),
-            inv_n(field, n) if inverse else 1, cuda.stream_ptr(x),
-        )
-        cuda.check("ntt", err)
-        launches[F.tag] += 1
+    if not batch:
+        return y
+    root = _roots(field, n, inverse)
+    plan = pass_plan(log_n)
+    tw = twiddles(field, root, n, x.device)
+    tile_tw = twiddles(field, _tile_root(field, root, log_n, plan), 1 << plan[0].log_tile,
+                       x.device)
+    scale = inv_n(field, n) if inverse else 1
+    pre_t = (None, None) if pre is None else coset_tables(field, pre, log_n, x.device)
+    post_t = ((None, None) if post is None
+              else coset_tables(field, post, log_n, x.device, scale))
+    launched = ctypes.c_int64(0)
+    err = getattr(cuda.library(), f"ms_ntt_{F.tag}")(
+        x.data_ptr(), y.data_ptr(), batch, log_n, _plan_array(log_n),
+        tw.data_ptr(), tile_tw.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in pre_t + post_t),
+        1 if post is not None else scale, ctypes.byref(launched), cuda.stream_ptr(x),
+    )
+    pass_launches[F.tag] += launched.value
+    cuda.check("ntt", err)
+    launches[F.tag] += 1
     return y
 
 

@@ -7,6 +7,8 @@ mode, the pipelined factor walk (ops/ntt_pipe.py) against
 fields the NTT refuses. Field arithmetic is exact: the tolerance is 0
 everywhere."""
 
+from functools import lru_cache
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,7 +49,7 @@ def _one_torch_thread():
 def _bb(shape, seed):
     """Seeded canonical values with 0, 1 and p - 1 up front."""
     v = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint32)
-    v.reshape(-1)[:3] = [0, 1, P - 1]
+    v.reshape(-1)[:3] = [0, 1, P - 1][: v.size]
     return v
 
 
@@ -83,6 +85,50 @@ def _compare_with_radix2(fns, n, seed):
 def test_radix2_matches_device_ntt(log_n):
     n = 1 << log_n
     _compare_with_jax(j_get_ntt_fns(J_BB, n), ntt.get_ntt_fns(F, n), 3, n, log_n)
+
+
+# (max_pass_log, log n): the CUDA kernel's plan in one to four passes,
+# replayed in torch ops
+PLAN_CASES = ([(2, k) for k in range(1, 9)] + [(3, k) for k in range(3, 13)]
+              + [(11, k) for k in (6, 11, 12, 13)])
+TRANSFORMS = ({}, {"inverse": True}, {"pre": SHIFT},
+              {"inverse": True, "post": J_BB.inv(SHIFT)})
+
+
+@lru_cache(maxsize=None)
+def _device_ntt(batch, log_n):
+    """One seeded input and the JAX device NTT's four transforms of it."""
+    n = 1 << log_n
+    x = jnp.asarray(_bb((batch, n), 100 + log_n))
+    fft, ifft, cfft, cifft = j_get_ntt_fns(J_BB, n)
+    off = jnp.asarray(np.uint32(SHIFT))
+    off_inv = jnp.asarray(np.uint32(J_BB.inv(SHIFT)))
+    return x, [np.asarray(y) for y in (fft(x), ifft(x), cfft(x, off), cifft(x, off_inv))]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("max_pass_log,log_n", PLAN_CASES)
+def test_pass_replay_matches_plain_and_device_ntt(max_pass_log, log_n, batch):
+    assert 1 <= len(ntt.pass_plan(log_n, max_pass_log)) <= 4
+    x, want = _device_ntt(batch, log_n)
+    tx = from_jax_packed(np.asarray(x), F)
+    for kw, w in zip(TRANSFORMS, want):
+        got = ntt.transform_passes_plain(tx, **kw, field=F, max_pass_log=max_pass_log)
+        assert torch.equal(got, ntt.transform_plain(tx, **kw, field=F)), kw
+        assert np.array_equal(to_jax_packed(got, F), w), kw
+
+
+@pytest.mark.parametrize("log_n,scale", [(0, 1), (1, 1), (6, 1), (7, 5), (21, 1),
+                                         (21, 3)])
+def test_coset_tables_match_pow(log_n, scale):
+    lo, hi = ntt.coset_tables(F, SHIFT, log_n, "cpu", scale)
+    h = ntt.coset_split(log_n)
+    assert lo.numel() == 1 << h and hi.numel() == 1 << (log_n - h)
+    for i in sorted({0, 1, (1 << h) - 1, 1 << h, (1 << log_n) - 1}):
+        if i >= 1 << log_n:
+            continue
+        assert int(lo[i & ((1 << h) - 1)]) * int(hi[i >> h]) % P == \
+            pow(SHIFT, i, P) * scale % P, i
 
 
 # ---------------------------------------------------------------- row 4

@@ -28,7 +28,8 @@ SIDE = ["fast_e2e_prove", "babybear_e2e_prove_2^20", "fast_e2e_prove_2^22",
         "fast_prove_many_batch4", "mimc_e2e_prove"]
 SCRIPTS = ["chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
            "scripts/torch_stream_probe.py", "scripts/torch_f32_pad_probe.py",
-           "scripts/torch_digit_stage_probe.py", "scripts/torch_launch_count.py",
+           "scripts/torch_digit_stage_probe.py", "scripts/torch_ntt_probe.py",
+           "scripts/torch_launch_count.py",
            "scripts/torch_ab_prove.py"]
 
 # run a script as __main__ with jax and the JAX package unimportable
@@ -220,6 +221,8 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
     ("scripts/torch_f32_pad_probe.py", ["--device", "cpu", "--rows", "16"], {}, "PASS"),
     ("scripts/torch_digit_stage_probe.py", ["--device", "cpu", "--reps", "1"],
      {"LVL_N": "16384", "LVL_IDX": "1"}, '"probe": "digit_stage"'),
+    ("scripts/torch_ntt_probe.py", ["--device", "cpu", "--max-log-n", "12", "--reps", "1"],
+     {}, '"probe": "ntt_radix2"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "2"],
      {}, '"probe": "query_split_ab"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",

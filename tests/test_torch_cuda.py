@@ -45,11 +45,19 @@ def _rand(shape, seed):
     return torch.from_numpy(v.view(np.int64))
 
 
-@pytest.mark.parametrize("log_n", [1, 3, 12, 13, 16])
+# the sizes where ntt.pass_plan changes (MAX_PASS_LOG 11): one pass up to
+# 2^11, two up to 2^22, three at 2^23 (batch 1 from 2^22)
+PLAN_SIZES = [1, 3, 10, 11, 12, 13, 16, 21, 22, 23]
+
+
+@pytest.mark.parametrize("log_n", PLAN_SIZES)
 def test_ntt_kernel_matches_plain(dev, log_n):
-    x = _rand((3, 1 << log_n), log_n).to(dev)
+    x = _rand((1 if log_n >= 22 else 3, 1 << log_n), log_n).to(dev)
     for kw in ({}, {"inverse": True}, {"pre": 7}, {"inverse": True, "post": 11}):
-        assert torch.equal(ntt.transform_cuda(x, **kw), ntt.transform_plain(x, **kw))
+        before = ntt.pass_launches["gl"]
+        got = ntt.transform_cuda(x, **kw)
+        assert ntt.pass_launches["gl"] - before == len(ntt.pass_plan(log_n))
+        assert torch.equal(got, ntt.transform_plain(x, **kw))
 
 
 @pytest.mark.parametrize("case", ["flat", "broadcast", "fp2-component",
@@ -234,12 +242,14 @@ def _rand_bb(shape, seed):
     return torch.from_numpy(v)
 
 
-@pytest.mark.parametrize("log_n", [1, 3, 12, 13, 16, 21])
+@pytest.mark.parametrize("log_n", PLAN_SIZES)
 def test_ntt_bb_kernel_matches_plain(dev, log_n):
-    x = _rand_bb((3, 1 << log_n), log_n).to(dev)
+    x = _rand_bb((1 if log_n >= 22 else 3, 1 << log_n), log_n).to(dev)
     for kw in ({}, {"inverse": True}, {"pre": 7}, {"inverse": True, "post": 11}):
-        assert torch.equal(ntt.transform_cuda(x, field=BABYBEAR_FP, **kw),
-                           ntt.transform_plain(x, field=BABYBEAR_FP, **kw))
+        before = ntt.pass_launches["bb"]
+        got = ntt.transform_cuda(x, field=BABYBEAR_FP, **kw)
+        assert ntt.pass_launches["bb"] - before == len(ntt.pass_plan(log_n))
+        assert torch.equal(got, ntt.transform_plain(x, field=BABYBEAR_FP, **kw))
 
 
 @pytest.mark.parametrize("log_n", [14, 17, 20, 21])
