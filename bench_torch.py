@@ -2,7 +2,8 @@
 
 The port's twin of bench.py: a 2^20-row Fibonacci AIR over Goldilocks
 (+Fp2) proved by the parity prover (``DeviceEngine``), or by the fast mode
-(``FastStark``) with BENCH_MODE=fast. One process: the kernels are built
+(``FastStark``) with BENCH_MODE=fast, or the fast mode with its STIR or
+WHIR low-degree test with BENCH_MODE=stir / whir. One process: the kernels are built
 (``build_s``), the first prove after the build is timed apart
 (``cold_prove_s``), then the steady state is the best of two proves. Every
 proof that is timed is verified unless BENCH_SKIP_VERIFY=1.
@@ -15,10 +16,9 @@ The last line of stdout that parses is the result: one whole JSON line
 is written after the headline, again after the kernel entries
 (bench_kernels_torch.py) and again after every side entry
 (``fast_e2e_prove``, ``babybear_e2e_prove_2^20``, ``fast_e2e_prove_2^22``,
-``fast_prove_many_batch4``, ``mimc_e2e_prove``), and once more on SIGTERM,
-so a run that is cut loses only the entry in flight. The STIR and WHIR
-entries of bench.py are not ported: a ``# not ported`` line on stderr says
-so and no such key appears.
+``fast_prove_many_batch4``, ``stir_e2e_prove``, ``whir_e2e_prove``,
+``mimc_e2e_prove``), and once more on SIGTERM, so a run that is cut loses
+only the entry in flight.
 
 vs_baseline is bench.py's: the host oracle (the same protocol in pure
 Python) timed at BENCH_BASE_STEPS rows, extrapolated by N log N to the
@@ -30,7 +30,7 @@ benchmark size, over the measured prove, divided by PY_VS_RUST_FACTOR.
 
 Environment: BENCH_MODEL (fibonacci, counter, lfsr, mimc), BENCH_FIELD
 (goldilocks, babybear), BENCH_STEPS (2^20 - 1), BENCH_BASE_STEPS (2^13 - 1),
-BENCH_MODE (fast), BENCH_BATCH, BENCH_ARITY, BENCH_SKIP_VERIFY=1,
+BENCH_MODE (fast, stir, whir), BENCH_BATCH, BENCH_ARITY, BENCH_SKIP_VERIFY=1,
 BENCH_SKIP_KERNELS=1, BENCH_SHRINK (cut the kernel sizes and the fixed
 2^20 / 2^22 side sizes by 2^BENCH_SHRINK: dry runs).
 """
@@ -52,7 +52,8 @@ import torch
 # bigint arithmetic, the reference single-core Rust over Montgomery fields;
 # both run the same N log N operation sequence, the oracle about 40x slower.
 PY_VS_RUST_FACTOR = 40.0
-MODES = ("parity", "fast")
+MODES = ("parity", "fast", "stir", "whir")
+FAST_MODES = ("fast", "stir", "whir")     # BENCH_MODE -> FastStark
 
 
 def _field(name: str):
@@ -152,15 +153,17 @@ def device_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
 
 
 def fast_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
-               ntt_backend="radix2", verify=True, batch=1, arity=4):
-    """One fast-mode prove of ``batch`` traces (``lde_backend="fri"``):
-    (prove seconds per trace, verify seconds or None, extras)."""
+               ntt_backend="radix2", verify=True, batch=1, arity=4,
+               lde_backend="fri"):
+    """One fast-mode prove of ``batch`` traces with the low-degree test
+    ``lde_backend`` ("fri", "stir" or "whir"): (prove seconds per trace,
+    verify seconds or None, extras)."""
     from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
 
     sf = _field(field)
     traces = [_device_trace(sf, steps, model, device) for _ in range(batch)]
     stark = FastStark(FastStarkConfig(sf, steps, queries=32, arity=arity,
-                                      lde_backend="fri"),
+                                      lde_backend=lde_backend),
                       device=device, ntt_backend=ntt_backend)
     _sync(device)
 
@@ -175,8 +178,8 @@ def fast_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
         t0 = time.time()
         assert stark.verify_many(cons, proof)
         t_verify = time.time() - t0
-    print(f"# fast proof size {proof.size_bytes() / 1e6:.2f} MB (batch {batch})",
-          file=sys.stderr)
+    print(f"# fast ({lde_backend}) proof size {proof.size_bytes() / 1e6:.2f} MB "
+          f"(batch {batch})", file=sys.stderr)
     return t_prove, t_verify, {"proof_bytes": proof.size_bytes(),
                                **_phase_report(stark.phase_seconds)}
 
@@ -246,18 +249,15 @@ def main(argv=None, side=True):
     mode = env.get("BENCH_MODE", "parity")
     shrink = int(env.get("BENCH_SHRINK", "0"))
     verify = env.get("BENCH_SKIP_VERIFY") != "1"
-    if mode in ("stir", "whir"):
-        print(f"# BENCH_MODE={mode}: not ported (the STIR and WHIR backends "
-              "are not in this package yet)", file=sys.stderr)
-        return 2
     if mode not in MODES:
         raise ValueError(f"unknown BENCH_MODE {mode!r}")
     common = dict(field=field, model=model, device=device, ntt_backend=backend,
                   verify=verify)
-    if mode == "fast":
+    if mode in FAST_MODES:
         prove_fn = fast_prove
         common.update(batch=int(env.get("BENCH_BATCH", "1")),
-                      arity=int(env.get("BENCH_ARITY", "4")))
+                      arity=int(env.get("BENCH_ARITY", "4")),
+                      lde_backend="fri" if mode == "fast" else mode)
     else:
         prove_fn = device_prove
 
@@ -290,8 +290,8 @@ def main(argv=None, side=True):
     vs_baseline = vs_host_oracle / PY_VS_RUST_FACTOR
 
     tag = "fib" if model == "fibonacci" else model
-    if mode == "fast":
-        tag = "fast_" + tag
+    if mode in FAST_MODES:
+        tag = mode + "_" + tag
     snapshot.update({
         "metric": f"e2e_prove_rows_per_s_{tag}{steps}_{field}",
         "value": round(rows_per_s, 1),
@@ -333,17 +333,13 @@ def main(argv=None, side=True):
             ("babybear_e2e_prove_2^20", device_prove, s20, {"field": "babybear"}),
             ("fast_e2e_prove_2^22", fast_prove, s22, {}),
             ("fast_prove_many_batch4", fast_prove, steps, {"batch": 4}),
-            ("stir_e2e_prove", None, steps, {}),
-            ("whir_e2e_prove", None, steps, {}),
+            ("stir_e2e_prove", fast_prove, steps, {"lde_backend": "stir"}),
+            ("whir_e2e_prove", fast_prove, steps, {"lde_backend": "whir"}),
             ("mimc_e2e_prove", device_prove, steps, {"model": "mimc"}),
         ]
         if field != "goldilocks":
             side = [s for s in side if "babybear" not in s[0]]
         for key, fn, ssteps, over in side:
-            if fn is None:
-                print(f"# {key}: not ported (the STIR and WHIR backends are "
-                      "not in this package yet)", file=sys.stderr)
-                continue
             kw = {**base, **over}
             if fn is fast_prove:
                 kw["arity"] = int(env.get("BENCH_ARITY", "4"))

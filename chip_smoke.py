@@ -51,20 +51,30 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                and warm, verified, both group roots recomputed with the plain
                versions, prove_many of 4; each other NTT backend at one
                2^20 - 1 prove equal to the radix-2 bytes, verified
-  9. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
+  9. stir_whir the fast prover with the STIR and the WHIR low-degree tests
+               (lde_backend="stir" / "whir", fri/{stir,whir}.py) in FAST_CFG:
+               tests/golden/fast_{stir,whir}_fib100.bin proved on the card,
+               decoded and verified; the STIR_PINS / WHIR_PINS sizes against
+               the JAX package's proof bytes; 2^20 - 1 steps cold and warm,
+               verified, both group roots recomputed with the plain versions
+               over the backend's own L_0 coset (offset g); one BabyBear + Fp4
+               2^20 - 1 prove, verified
+ 10. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
                on the card: small proofs byte-identical to the host oracle
                over both fields, the 2^14 - 1 pins of the JAX package
                (parity for all three, fast for MiMC and LFSR), MiMC at
                2^20 - 1 cold and warm, verified
- 10. probes    the three probe scripts in-process (scripts/torch_stream_probe,
+ 11. probes    the three probe scripts in-process (scripts/torch_stream_probe,
                torch_f32_pad_probe, torch_digit_stage_probe at the three
                levels of ifft 2^20)
- 11. bench     bench_kernels_torch.kernel_rooflines() at full size (every
+ 12. bench     bench_kernels_torch.kernel_rooflines() at full size (every
                entry present, bound_frac <= 1) and bench_torch's device_prove,
-               fast_prove and host_prove in-process
- 12. launches  every kernel was launched by the paths it is on (counts set to
+               fast_prove (with lde_backend "fri", then the stir_e2e_prove and
+               whir_e2e_prove entries) and host_prove in-process
+ 13. launches  every kernel was launched by the paths it is on (counts set to
                0 just before each path runs, read just after): the 2^20 - 1
-               proves of each prover, backend and field, the MiMC prove, the
+               proves of each prover, backend and field (the STIR and WHIR
+               paths stir, whir, stir_bb, whir_bb), the MiMC prove, the
                probes, the kernel bench and the bench's proves
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
@@ -128,6 +138,12 @@ FAST_PINS = {
 FAST_CFG = dict(queries=32, point_queries=2, blowup=2, arity=4, fold_factor=4,
                 final_len=32, lde_backend="fri", grinding_bits=0)
 FAST_BATCH = 4                     # bench.py's fast_prove_many_batch4
+# The same digest with the STIR / WHIR low-degree test (FAST_CFG with
+# lde_backend "stir" / "whir"; 2^14 - 1 steps gives 4 quotient rounds /
+# WHIR iterations): steps -> digest.
+STIR_PINS = {16383: "09c83fba627010b8ef5dde0b5b9c84e0ce28c3082a50583b59cad73321864be2"}
+WHIR_PINS = {16383: "f9dd5faafd2a5739d481df5238aa072db403bf6fd35e5c58e3b1f83b754b8ddb"}
+LDT_PINS = {"stir": STIR_PINS, "whir": WHIR_PINS}
 
 # The same pins over BabyBear + Fp4 (bench.py with BENCH_FIELD=babybear):
 # proof_digests() of ministark_tpu's DeviceEngine and the sha256 of its
@@ -993,7 +1009,9 @@ def _fast(steps, batch=1, ntt_backend="radix2", field="gl", **cfg):
 def _fast_reference_roots(stark, trace):
     """Both group roots of a fast prove, recomputed on the card with the
     plain versions of the NTT, row-leaf and inner-level kernels, and the
-    coset-row layout written out here afresh."""
+    coset-row layout written out here afresh. The batched FRI commits over
+    the subgroup of size N, STIR and WHIR over its coset by the prime
+    field's generator g (their L_0)."""
     import torch
 
     from ministark_tpu_torch.ops import ntt
@@ -1004,13 +1022,15 @@ def _fast_reference_roots(stark, trace):
     cfg, ke, ext = stark.config, stark.ke, stark.ext
     F, arity = cfg.fold_factor, cfg.arity
     d = ext.extension_degree
+    offset = None if cfg.lde_backend == "fri" else stark.base.generator
 
     def coset_rows(polys):                       # (B, n, d) coefficients
         B, n = polys.shape[0], polys.shape[1]
         N = cfg.blowup * n
         padded = torch.zeros((d * B, N), dtype=torch.int64, device=polys.device)
         padded[:, :n] = polys.movedim(-1, 1).reshape(d * B, n)
-        ev = ntt.transform_plain(padded, field=stark.base).reshape(B, d, N)
+        ev = ntt.transform_plain(padded, pre=offset,
+                                 field=stark.base).reshape(B, d, N)
         # row i: for each polynomial, for t < F, the d components of the
         # value at i + t * N / F
         rows = ev.reshape(B, d, F, N // F).permute(3, 0, 2, 1)
@@ -1207,6 +1227,107 @@ def phase_fast(results, field="gl"):
         del proof
 
 
+def phase_stir_whir(results):
+    """The fast prover with the STIR and the WHIR low-degree tests, each in
+    FAST_CFG: its golden fixture, its JAX pins, 2^20 - 1 cold and warm
+    (verified, both group roots recomputed with the plain versions), then
+    one BabyBear + Fp4 2^20 - 1 prove, verified."""
+    import hashlib
+
+    import torch
+
+    from ministark_tpu_torch.stark.proof_io import (
+        fast_proof_from_bytes,
+        fast_proof_to_bytes,
+    )
+
+    label = "stir_whir"
+    for lde, pins in LDT_PINS.items():
+        cfg = dict(FAST_CFG, lde_backend=lde)
+        sf = _stark_field("gl")
+
+        name = f"fast_{lde}_fib100.bin"
+        stark, (trace,) = _fast(100, queries=4, final_len=8, lde_backend=lde)
+        golden = open(os.path.join(ROOT, "tests", "golden", name), "rb").read()
+        if fast_proof_to_bytes(sf, stark.prove(trace)) != golden:
+            fail(f"{lde}: steps 100 differ from tests/golden/{name}")
+        if not stark.verify(stark._constraint_polys(trace),
+                            fast_proof_from_bytes(sf, golden)):
+            fail(f"{lde}: the golden proof was not accepted")
+        say(label, f"{lde}: steps 100 equal to {name}, decoded and verified")
+
+        for steps, pin in pins.items():
+            stark, (trace,) = _fast(steps, **cfg)
+            t0 = time.time()
+            proof = stark.prove(trace)
+            secs = time.time() - t0
+            got = hashlib.sha256(fast_proof_to_bytes(sf, proof)).hexdigest()
+            if got != pin:
+                fail(f"{lde}: steps {steps}: sha256 {got} differs from the JAX pin")
+            if not stark.verify(stark._constraint_polys(trace), proof):
+                fail(f"{lde}: steps {steps}: verify returned False")
+            say(label, f"{lde}: steps {steps}: equal to the JAX package's pinned "
+                       f"proof bytes, verified; prove {secs:.2f} s")
+
+        stark, (trace,) = _fast(MAIN_STEPS, **cfg)
+        reset_counts()
+        t0 = time.time()
+        proof = stark.prove(trace)
+        cold = time.time() - t0
+        launches, fans = read_counts()
+        say(label, f"{lde}: steps {MAIN_STEPS}: cold prove {cold:.3f} s; "
+                   "phase_seconds " + json.dumps(
+                       {k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        proof2 = stark.prove(trace)
+        warm = time.time() - t0
+        say(label, f"{lde}: steps {MAIN_STEPS}: warm prove {warm:.3f} s; peak "
+                   f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                   "GiB; phase_seconds " + json.dumps(
+                       {k: round(v, 4) for k, v in stark.phase_seconds.items()}))
+        blob = fast_proof_to_bytes(sf, proof)
+        if fast_proof_to_bytes(sf, proof2) != blob:
+            fail(f"{lde}: cold and warm proofs differ")
+        t0 = time.time()
+        if not stark.verify(stark._constraint_polys(trace), proof):
+            fail(f"{lde}: verify returned False")
+        vsecs = time.time() - t0
+        say(label, f"{lde}: steps {MAIN_STEPS}: {len(blob)} proof bytes "
+                   f"(size_bytes {proof.size_bytes()}), sha256 "
+                   f"{hashlib.sha256(blob).hexdigest()}; verify True in "
+                   f"{vsecs:.3f} s")
+        if list(_fast_reference_roots(stark, trace)) != proof.fri_proof.group_roots:
+            fail(f"{lde}: the group roots differ from the plain versions' roots")
+        say(label, f"{lde}: tree_w and tree_v roots equal the plain versions' "
+                   "over the coset g * H on the card")
+        record(results, lde, launches)
+        say(label, f"{lde}: launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}) + "; inner-level by fan "
+            + json.dumps(fans))
+        del proof, proof2, stark, trace
+
+        sf = _stark_field("bb")
+        stark, (trace,) = _fast(MAIN_STEPS, field="bb", **cfg)
+        reset_counts()
+        t0 = time.time()
+        proof = stark.prove(trace)
+        secs = time.time() - t0
+        launches, fans = read_counts()
+        if not stark.verify(stark._constraint_polys(trace), proof):
+            fail(f"{lde} BabyBear: verify returned False")
+        blob = fast_proof_to_bytes(sf, proof)
+        say(label, f"{lde} BabyBear: steps {MAIN_STEPS}: cold prove {secs:.3f} s, "
+                   f"{len(blob)} proof bytes, verified; phase_seconds "
+                   + json.dumps({k: round(v, 4)
+                                 for k, v in stark.phase_seconds.items()}))
+        record(results, f"{lde}_bb", launches)
+        say(label, f"{lde} BabyBear: launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}) + "; inner-level by fan "
+            + json.dumps(fans))
+        del proof, stark, trace
+
+
 def _model_case(name, field, steps):
     """(host claim, witness, device trace) of a model at ``steps``, through
     bench_torch.py's selection (BENCH_MODEL's)."""
@@ -1385,6 +1506,13 @@ def phase_bench(results):
     t_fast, v_fast, e_fast = bench_torch.fast_prove(MAIN_STEPS)
     say("bench", f"fast_prove steps {MAIN_STEPS}: {MAIN_STEPS / t_fast:.0f} rows/s "
                  f"({t_fast:.3f} s), verify {v_fast:.3f} s, " + json.dumps(e_fast))
+    ldt_reports = []
+    for key, lde in (("stir_e2e_prove", "stir"), ("whir_e2e_prove", "whir")):
+        t_ldt, v_ldt, e_ldt = bench_torch.fast_prove(MAIN_STEPS, lde_backend=lde)
+        say("bench", f"{key} (fast_prove, lde_backend={lde!r}) steps {MAIN_STEPS}: "
+                     f"{MAIN_STEPS / t_ldt:.0f} rows/s ({t_ldt:.3f} s), verify "
+                     f"{v_ldt:.3f} s, " + json.dumps(e_ldt))
+        ldt_reports.append((key, e_ldt))
     launches, _ = read_counts()
     record(results, "bench_prove", launches)
     t_host = bench_torch.host_prove(BENCH_BASE_STEPS)
@@ -1392,12 +1520,16 @@ def phase_bench(results):
     for key in ("device_s", "phases"):
         if key not in extras or key not in e_fast:
             fail(f"bench: the prove's report lacks {key}")
-    if "proof_bytes" not in e_fast:
-        fail("bench: fast_prove's report lacks proof_bytes")
+    for key, report in [("fast_prove", e_fast)] + ldt_reports:
+        if "proof_bytes" not in report:
+            fail(f"bench: {key}'s report lacks proof_bytes")
 
 
 _BACKEND_PATHS = tuple(f"{p}_{b}" for p in ("parity", "fast") for b in NTT_BACKENDS)
 _BB_PATHS = ("parity_bb", "fast_bb")
+# the fast prover's 2^20 - 1 proves with the STIR and WHIR low-degree tests
+_LDT_PATHS = ("stir", "whir")
+_LDT_BB_PATHS = ("stir_bb", "whir_bb")
 # the bench path's runs: the MiMC 2^20 - 1 prove, the kernel bench, the bench's
 # parity and fast proves (the probes launch only the probe kernels)
 _BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
@@ -1406,21 +1538,24 @@ _BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
 KERNELS = {
     "ntt": ("ministark_tpu_torch/csrc/ntt.cu",
-            "ministark_tpu/ops/ntt_mxu.py:370", ("parity", "fast") + _BENCH_PATHS),
+            "ministark_tpu/ops/ntt_mxu.py:370",
+            ("parity", "fast") + _LDT_PATHS + _BENCH_PATHS),
     "sha256_inner_level": ("ministark_tpu_torch/csrc/sha256.cu",
                            "ministark_tpu/ops/sha256_pallas.py:113",
-                           ("parity", "fast") + _BB_PATHS + _BENCH_PATHS),
+                           ("parity", "fast") + _BB_PATHS + _LDT_PATHS
+                           + _LDT_BB_PATHS + _BENCH_PATHS),
     "leaf_hash": ("ministark_tpu_torch/csrc/leaf_hash.cu",
                   "ministark_tpu/ops/sha256_pallas.py:163",
                   ("parity", "mimc", "bench_prove")),
     "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
                     "ministark_tpu/ops/sha256_pallas.py:113",
-                    ("fast", "fast_bb", "bench_kernels", "bench_prove")),
+                    ("fast", "fast_bb", "bench_kernels", "bench_prove")
+                    + _LDT_PATHS + _LDT_BB_PATHS),
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
-               ("parity", "fast") + _BACKEND_PATHS + _BENCH_PATHS),
+               ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS),
     "gl_ext_mul": ("ministark_tpu_torch/csrc/gl_mul.cu", "ministark_tpu/ops/gl.py:215",
-                   ("parity", "fast") + _BACKEND_PATHS + _BENCH_PATHS),
+                   ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS),
     "ntt_four_step_pass1": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
                             "ministark_tpu/ops/ntt_pallas.py:190",
                             ("parity_four_step", "fast_four_step", "bench_kernels")),
@@ -1431,7 +1566,7 @@ KERNELS = {
                        "ministark_tpu/ops/ntt_mxu.py:486",
                        ("parity_pipe", "fast_pipe", "bench_kernels", "probes")),
     "ntt_bb": ("ministark_tpu_torch/csrc/ntt.cu",
-               "ministark_tpu/ops/ntt_mxu.py:370", _BB_PATHS),
+               "ministark_tpu/ops/ntt_mxu.py:370", _BB_PATHS + _LDT_BB_PATHS),
     "leaf_hash_bb": ("ministark_tpu_torch/csrc/leaf_hash.cu",
                      "ministark_tpu/ops/sha256_pallas.py:163", ("parity_bb",)),
     "ntt_four_step_pass1_bb": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
@@ -1476,6 +1611,7 @@ def main():
     phase_fast(results)
     phase_main(results, "bb")
     phase_fast(results, "bb")
+    phase_stir_whir(results)
     phase_models(results)
     phase_probes(results)
     phase_bench(results)

@@ -193,9 +193,11 @@ class BatchedFri:
         self._ntt_base = self.ext.base
 
     # -- batched component NTT: ext NTT = base NTT per base component
-    def _fft_batched(self, coeffs: torch.Tensor, domain_size: int) -> torch.Tensor:
+    def _fft_batched(self, coeffs: torch.Tensor, domain_size: int,
+                     offset: int = None) -> torch.Tensor:
         """coeffs: (..., m, d) extension values, m <= domain_size ->
-        (..., N, d) evals."""
+        (..., N, d) evals over the subgroup of size N, or with ``offset``
+        over its coset offset * <w_N> (STIR's and WHIR's domains)."""
         lead = coeffs.dim() - 2
         m = coeffs.shape[lead]
         comp = coeffs.movedim(-1, lead)                   # (..., d, m)
@@ -203,8 +205,9 @@ class BatchedFri:
         flat = torch.zeros((rows.shape[0], domain_size), dtype=torch.int64,
                            device=coeffs.device)
         flat[:, :m] = rows
-        fft = get_ntt_fns(self._ntt_base, domain_size, self.ntt_backend)[0]
-        ev = fft(flat).reshape(comp.shape[:-1] + (domain_size,))
+        fns = get_ntt_fns(self._ntt_base, domain_size, self.ntt_backend)
+        ev = fns[0](flat) if offset is None else fns[2](flat, offset)
+        ev = ev.reshape(comp.shape[:-1] + (domain_size,))
         return ev.movedim(lead, -1)                       # (..., N, d)
 
     def _tree(self, rows: torch.Tensor) -> IndexMerkleTree:

@@ -1,14 +1,16 @@
 """Fast-mode STARK: the parity protocol's structure on production-style
 commitments (batched multi-poly FRI, 4/8-ary index trees).
 
-Port of ``ministark_tpu/stark/fast.py`` with the batched-FRI LDE backend:
-the same transcript, proofs and verifier checks
-(tests/test_torch_fast.py holds the serialized proofs to the JAX package's
-byte for byte). It keeps the reference's trust model — the verifier holds
+Port of ``ministark_tpu/stark/fast.py`` with its three LDE backends
+(``lde_backend``: batched FRI, STIR or WHIR): the same transcripts, proofs
+and verifier checks (tests/test_torch_fast.py, test_torch_stir.py and
+test_torch_whir.py hold the serialized proofs to the JAX package's byte for
+byte). It keeps the reference's trust model — the verifier holds
 the out-of-band constraint polynomials — and swaps the commitment layer:
 
-  * ONE batched FRI (fri/batched.py) across all w+t constraint polynomials
-    plus the validity polynomial, rho-mixed on the device;
+  * ONE low-degree test (fri/batched.py, or fri/stir.py / fri/whir.py)
+    across all w+t constraint polynomials plus the validity polynomial,
+    rho-mixed on the device;
   * index-addressed Merkle trees with binary row hashing
     (commit/index_tree.py: the row-leaf and inner-level kernels);
   * index-addressed query openings.
@@ -17,7 +19,7 @@ Verifier checks:
   1. point checks at ``point_queries`` random extension points z_j: the
      prover ships all w+t evaluations, the verifier re-evaluates its own
      constraint polynomials and compares;
-  2. the batched-FRI chain: low degree of the rho-mix of all committed
+  2. the low-degree test's chain: low degree of the rho-mix of all committed
      polynomials, Merkle paths, fold consistency;
   3. row relation: at every FRI query index the opened row must equal the
      verifier's own LDE of the constraint polynomials, and validity ==
@@ -39,6 +41,8 @@ from typing import List
 import torch
 
 from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_bytes
+from ..fri.stir import Stir, StirConfig
+from ..fri.whir import Whir, WhirConfig
 from ..ops.field import get_ops, lift_base_array, pack_u64
 from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import eval_many, field_sum
@@ -49,14 +53,14 @@ from .engine import DeviceTrace
 class FastStarkConfig:
     stark_field: object
     steps: int
-    queries: int = 32          # FRI query indices
+    queries: int = 32          # FRI query indices / STIR, WHIR security bits
     point_queries: int = 2     # random-point DEEP checks (each ~|ext|^-1)
     blowup: int = 2
     arity: int = 4             # Merkle fan-in
-    fold_factor: int = 4       # FRI F-to-1 folds per layer
+    fold_factor: int = 4       # FRI F-to-1 folds per layer / STIR, WHIR k
     final_len: int = 32
-    lde_backend: str = "fri"   # only "fri" is ported (ROADMAP §1 item 11)
-    grinding_bits: int = 0     # PoW before query sampling
+    lde_backend: str = "fri"   # "fri" | "stir" | "whir" (fri/{batched,stir,whir}.py)
+    grinding_bits: int = 0     # PoW before query sampling (every backend)
 
 
 @dataclass
@@ -64,18 +68,26 @@ class FastStarkProof:
     width: int
     transitions: int
     point_evals: List[List]            # [z_j][poly i] extension evaluations
-    fri_proof: object                  # BatchedFriProof
+    fri_proof: object                  # BatchedFriProof | StirProof | WhirProof
     n_traces: int = 1                  # batched multi-trace proofs (prove_many)
 
     def size_bytes(self) -> int:
         fp = self.fri_proof
         paths = [p for q in fp.batch_openings for p in q]
-        paths += [p for q in fp.layer_openings for p in q]
-        roots = len(fp.group_roots) + len(fp.layer_roots)
+        if hasattr(fp, "round_openings"):      # STIR / WHIR backends
+            paths += [p for rnd in fp.round_openings for p in rnd]
+            roots = len(fp.group_roots) + len(fp.round_roots)
+            scalars = len(fp.final_coeffs) + len(fp.betas)
+            if hasattr(fp, "sumcheck"):        # WHIR sumcheck messages
+                scalars += sum(3 * len(it) for it in fp.sumcheck)
+        else:
+            paths += [p for q in fp.layer_openings for p in q]
+            roots = len(fp.group_roots) + len(fp.layer_roots)
+            scalars = len(fp.final_coeffs)
         return (
             32 * roots
             + sum(len(p.row) + sum(len(g) for g in p.groups) for p in paths)
-            + 16 * len(fp.final_coeffs)
+            + 16 * scalars
             + sum(16 * len(e) for e in self.point_evals)
         )
 
@@ -83,11 +95,7 @@ class FastStarkProof:
 class FastStark:
     def __init__(self, config: FastStarkConfig, device="cuda",
                  ntt_backend: str = "radix2"):
-        if config.lde_backend in ("stir", "whir"):
-            raise NotImplementedError(
-                f"the {config.lde_backend!r} LDE backend is not ported yet "
-                "(ROADMAP §1 item 11: STIR and WHIR backends of the fast mode)")
-        if config.lde_backend != "fri":
+        if config.lde_backend not in ("fri", "stir", "whir"):
             raise ValueError(f"unknown LDE backend {config.lde_backend!r}")
         self.config = config
         self.device = torch.device(device)
@@ -98,11 +106,20 @@ class FastStark:
         self.base, self.ext = sf.base, sf.extension
         self.kb = get_ops(self.base)
         self.ke = get_ops(self.ext)
-        self.fri = BatchedFri(BatchedFriConfig(
-            self.ext, blowup=config.blowup, queries=config.queries,
-            arity=config.arity, fold_factor=config.fold_factor,
-            final_len=config.final_len, grinding_bits=config.grinding_bits,
-        ), ntt_backend=ntt_backend)
+        if config.lde_backend == "fri":
+            self.fri = BatchedFri(BatchedFriConfig(
+                self.ext, blowup=config.blowup, queries=config.queries,
+                arity=config.arity, fold_factor=config.fold_factor,
+                final_len=config.final_len, grinding_bits=config.grinding_bits,
+            ), ntt_backend=ntt_backend)
+        else:
+            ldt, ldt_config = {"stir": (Stir, StirConfig),
+                               "whir": (Whir, WhirConfig)}[config.lde_backend]
+            self.fri = ldt(ldt_config(
+                self.ext, k=config.fold_factor, blowup=config.blowup,
+                security_bits=config.queries, final_len=config.final_len,
+                arity=config.arity, grinding_bits=config.grinding_bits,
+            ), ntt_backend=ntt_backend)
         # wall seconds per phase of the latest prove; each boundary
         # synchronizes a CUDA device, so a phase owns its kernels' time
         self.phase_seconds: dict = {}
@@ -124,7 +141,9 @@ class FastStark:
     def _transcript(self, width: int, n_transitions: int, n: int,
                     n_traces: int = 1) -> FastTranscript:
         c = self.config
-        tr = FastTranscript(b"fast-stark")
+        label = (b"fast-stark" if c.lde_backend == "fri"
+                 else b"fast-stark/" + c.lde_backend.encode())
+        tr = FastTranscript(label)
         tr.absorb(b"%d/%d/%d/%d/%d/%d/%d/%d/%d/%d" % (
             width, n_transitions, c.steps, n, c.queries, c.point_queries,
             c.blowup, c.arity, c.final_len, n_traces,

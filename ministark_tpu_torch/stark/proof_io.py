@@ -111,8 +111,8 @@ def proof_digests(stark_field, proof: StarkProof) -> dict:
 
 # ---------------------------------------------------------------------------
 # Fast-mode proofs (stark/fast.py): compact length-prefixed binary, format
-# MSF4 (``ministark_tpu/stark/proof_io.py`` :79-258). Only the batched-FRI
-# backend (tag 0) is ported; the STIR and WHIR tags raise until their slice.
+# MSF4 (``ministark_tpu/stark/proof_io.py`` :79-258), for every LDE backend:
+# tag 0 batched FRI, 1 STIR, 2 WHIR.
 # ---------------------------------------------------------------------------
 
 _FAST_MAGIC = b"MSF4"
@@ -141,19 +141,15 @@ class _Reader:
         return self.take(self.u(width))
 
 
-def _stir_whir_not_ported():
-    raise NotImplementedError(
-        "STIR and WHIR fast proofs are not ported yet (ROADMAP §1 item 11)")
-
-
 def fast_proof_to_bytes(stark_field, proof) -> bytes:
     ext = stark_field.extension
     fp = proof.fri_proof
-    if hasattr(fp, "round_openings"):
-        _stir_whir_not_ported()
+    whir = hasattr(fp, "sumcheck")
+    stir = hasattr(fp, "round_openings")
     out = bytearray(_FAST_MAGIC)
     _w_bytes(out, stark_field.name.encode(), 1)
-    out += (0).to_bytes(1, "little")             # LDE backend tag: batched FRI
+    # LDE backend tag: 0 = batched FRI, 1 = STIR, 2 = WHIR
+    out += (2 if whir else 1 if stir else 0).to_bytes(1, "little")
     out += proof.width.to_bytes(2, "little")
     out += proof.transitions.to_bytes(2, "little")
     out += proof.n_traces.to_bytes(2, "little")
@@ -170,13 +166,32 @@ def fast_proof_to_bytes(stark_field, proof) -> bytes:
     out += fp.n.to_bytes(4, "little")
     for root in fp.group_roots:
         out += root
-    out += len(fp.layer_roots).to_bytes(2, "little")
-    for r in fp.layer_roots:
+    inner_roots = fp.round_roots if stir else fp.layer_roots
+    out += len(inner_roots).to_bytes(2, "little")
+    for r in inner_roots:
         out += r
+    if stir:
+        out += len(fp.betas).to_bytes(2, "little")
+        for bta in fp.betas:
+            _w_bytes(out, ext.serialize_compressed(bta), 1)
+    if whir:
+        out += len(fp.sumcheck).to_bytes(2, "little")
+        for it in fp.sumcheck:
+            out += len(it).to_bytes(1, "little")
+            for h in it:
+                assert len(h) == 3
+                for c in h:
+                    _w_bytes(out, ext.serialize_compressed(c), 1)
     out += len(fp.final_coeffs).to_bytes(4, "little")
     for c in fp.final_coeffs:
         _w_bytes(out, ext.serialize_compressed(c), 1)
-    _w_bytes(out, fp.pow_nonce, 1)
+    if stir:
+        nonces = fp.pow_nonces or []
+        out += len(nonces).to_bytes(2, "little")
+        for nc in nonces:
+            _w_bytes(out, nc, 1)
+    else:
+        _w_bytes(out, fp.pow_nonce, 1)
 
     def w_openings(paths):
         out.extend(len(paths).to_bytes(2, "little"))
@@ -189,8 +204,9 @@ def fast_proof_to_bytes(stark_field, proof) -> bytes:
     out += len(fp.batch_openings).to_bytes(2, "little")
     for per_query in fp.batch_openings:
         w_openings(per_query)
-    out += len(fp.layer_openings).to_bytes(2, "little")
-    for group in fp.layer_openings:
+    inner_openings = fp.round_openings if stir else fp.layer_openings
+    out += len(inner_openings).to_bytes(2, "little")
+    for group in inner_openings:
         w_openings(group)
     return bytes(out)
 
@@ -198,6 +214,8 @@ def fast_proof_to_bytes(stark_field, proof) -> bytes:
 def fast_proof_from_bytes(stark_field, data: bytes):
     from ..commit.index_tree import IndexMerklePath
     from ..fri.batched import BatchedFriProof
+    from ..fri.stir import StirProof
+    from ..fri.whir import WhirProof
     from .fast import FastStarkProof
 
     ext = stark_field.extension
@@ -206,8 +224,8 @@ def fast_proof_from_bytes(stark_field, data: bytes):
     assert r.blob(1).decode() == stark_field.name, "field mismatch"
     tag = r.u(1)
     assert tag in (0, 1, 2), f"unknown LDE backend tag {tag}"
-    if tag:
-        _stir_whir_not_ported()
+    whir = tag == 2
+    stir = tag >= 1
     width = r.u(2)
     transitions = r.u(2)
     n_traces = r.u(2)
@@ -221,9 +239,25 @@ def fast_proof_from_bytes(stark_field, data: bytes):
     group_sizes = [r.u(2) for _ in range(r.u(1))]
     n = r.u(4)
     group_roots = [r.take(32) for _ in range(len(group_sizes))]
-    layer_roots = [r.take(32) for _ in range(r.u(2))]
+    inner_roots = [r.take(32) for _ in range(r.u(2))]
+    betas = (
+        [ext.deserialize_compressed(r.blob(1)) for _ in range(r.u(2))]
+        if stir else []
+    )
+    sumcheck = None
+    if whir:
+        sumcheck = [
+            [[ext.deserialize_compressed(r.blob(1)) for _ in range(3)]
+             for _ in range(r.u(1))]
+            for _ in range(r.u(2))
+        ]
     final_coeffs = [ext.deserialize_compressed(r.blob(1)) for _ in range(r.u(4))]
-    pow_nonce = r.blob(1)
+    if stir:
+        pow_nonces = [r.blob(1) for _ in range(r.u(2))]
+        pow_nonce = b""
+    else:
+        pow_nonces = None
+        pow_nonce = r.blob(1)
 
     def r_openings():
         paths = []
@@ -234,14 +268,29 @@ def fast_proof_from_bytes(stark_field, data: bytes):
         return paths
 
     batch_openings = [r_openings() for _ in range(r.u(2))]
-    layer_openings = [r_openings() for _ in range(r.u(2))]
+    inner_openings = [r_openings() for _ in range(r.u(2))]
     assert r.pos == len(data), "trailing bytes"
-    fri_proof = BatchedFriProof(
-        group_sizes=group_sizes, n=n, group_roots=group_roots,
-        layer_roots=layer_roots, final_coeffs=final_coeffs,
-        batch_openings=batch_openings, layer_openings=layer_openings,
-        pow_nonce=pow_nonce,
-    )
+    if whir:
+        fri_proof = WhirProof(
+            group_sizes=group_sizes, n=n, group_roots=group_roots,
+            round_roots=inner_roots, betas=betas, sumcheck=sumcheck,
+            final_coeffs=final_coeffs, batch_openings=batch_openings,
+            round_openings=inner_openings, pow_nonces=pow_nonces,
+        )
+    elif stir:
+        fri_proof = StirProof(
+            group_sizes=group_sizes, n=n, group_roots=group_roots,
+            round_roots=inner_roots, betas=betas, final_coeffs=final_coeffs,
+            batch_openings=batch_openings, round_openings=inner_openings,
+            pow_nonces=pow_nonces,
+        )
+    else:
+        fri_proof = BatchedFriProof(
+            group_sizes=group_sizes, n=n, group_roots=group_roots,
+            layer_roots=inner_roots, final_coeffs=final_coeffs,
+            batch_openings=batch_openings, layer_openings=inner_openings,
+            pow_nonce=pow_nonce,
+        )
     return FastStarkProof(
         width=width, transitions=transitions, point_evals=point_evals,
         fri_proof=fri_proof, n_traces=n_traces,

@@ -5,17 +5,19 @@ PyTorch/CUDA port (ministark_tpu_torch) with torch.profiler.
     python3 scripts/torch_launch_count.py [--root DIR] [--steps N]
                                           [--ntt-backend B]
                                           [--field goldilocks|babybear]
-                                          [--mode parity|fast] [--match S]
+                                          [--mode parity|fast|stir|whir]
+                                          [--match S]
 
 Proves Fibonacci over Goldilocks + Fp2, or with ``--field babybear`` over
 BabyBear + Fp4 (security 20, blowup 2, witness on the card) once to warm
 up, then once under torch.profiler (``--mode fast``: the fast mode's
 ``FastStark.prove_many`` of one trace in bench.py's configuration, arity 4
-and ``lde_backend="fri"``), and prints one JSON line: the card's
+and ``lde_backend="fri"``; ``--mode stir`` / ``whir``: the same with that
+low-degree test), and prints one JSON line: the card's
 name and power limit (nvidia-smi), the runtime's
 kernel-launch calls by name, the kernels that ran on the device and their
 summed time, the prove's wall seconds and the device's busy share (kernel
-time over wall time), and with ``--match S`` the launches and summed ms
+time over wall time), the fast modes' ``phase_seconds``, and with ``--match S`` the launches and summed ms
 of the kernels whose names contain S. ``--root`` names the checkout whose
 ministark_tpu_torch is imported (default: the one holding this script), so
 an older commit unpacked beside this one can be measured in the same run;
@@ -39,7 +41,8 @@ def main():
     ap.add_argument("--ntt-backend", default=None)
     ap.add_argument("--field", choices=("goldilocks", "babybear"),
                     default="goldilocks")
-    ap.add_argument("--mode", choices=("parity", "fast"), default="parity")
+    ap.add_argument("--mode", choices=("parity", "fast", "stir", "whir"),
+                    default="parity")
     ap.add_argument("--match", default=None)
     args = ap.parse_args()
 
@@ -59,10 +62,13 @@ def main():
     sf = {"goldilocks": Goldilocks, "babybear": BabyBear}[args.field]
     trace = fibonacci_device_trace(sf, args.steps, on_device=True, device="cuda")
     kw = {} if args.ntt_backend is None else {"ntt_backend": args.ntt_backend}
-    if args.mode == "fast":
+    phases = None
+    if args.mode != "parity":
+        lde = "fri" if args.mode == "fast" else args.mode
         stark = FastStark(FastStarkConfig(sf, args.steps, queries=32, arity=4,
-                                          lde_backend="fri"), device="cuda", **kw)
+                                          lde_backend=lde), device="cuda", **kw)
         prove = lambda: stark.prove_many([trace])  # noqa: E731
+        phases = lambda: {k: round(v, 4) for k, v in stark.phase_seconds.items()}  # noqa: E731
     else:
         cfg = StarkConfig(sf, 20, 2, args.steps, trace.constrain_number())
         engine = DeviceEngine(cfg, device="cuda", **kw)
@@ -97,6 +103,7 @@ def main():
         "launch_calls": launch_calls, "device_kernels": kernels,
         "device_ms": device_us / 1e3, "prove_wall_s": wall,
         "device_busy_share": device_us / 1e6 / wall,
+        "phase_seconds": None if phases is None else phases(),
         **({} if args.match is None else {"match": {
             "name": args.match, "launches": match_kernels,
             "device_ms": match_us / 1e3}}),

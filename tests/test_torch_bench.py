@@ -1,6 +1,7 @@
 """The port's bench path on the CPU at tiny sizes: bench_torch.py (every key
 and metric name bench.py forms, one whole JSON line per emission, the last
-line parseable after SIGTERM, no STIR / WHIR entry), bench_kernels_torch.py
+line parseable after SIGTERM, the STIR and WHIR entries and modes),
+bench_kernels_torch.py
 (every entry, at cut sizes), the probe scripts' dry runs and the shared bound
 model. The scripts run with jax and ministark_tpu blocked: the bench path
 imports neither. CPU runs state no device metric (``bound_frac`` is None)."""
@@ -25,7 +26,8 @@ from ministark_tpu_torch.utils import roofline as rf  # noqa: E402
 
 KERNEL_METRICS = list(bench_kernels_torch.METRICS)
 SIDE = ["fast_e2e_prove", "babybear_e2e_prove_2^20", "fast_e2e_prove_2^22",
-        "fast_prove_many_batch4", "mimc_e2e_prove"]
+        "fast_prove_many_batch4", "stir_e2e_prove", "whir_e2e_prove",
+        "mimc_e2e_prove"]
 SCRIPTS = ["chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
            "scripts/torch_stream_probe.py", "scripts/torch_f32_pad_probe.py",
            "scripts/torch_digit_stage_probe.py", "scripts/torch_ntt_probe.py",
@@ -84,7 +86,9 @@ def test_bench_torch_emits_whole_lines_with_every_key():
     assert last["device_s"] > 0
     kernels = last["kernels"]
     assert list(kernels) == KERNEL_METRICS + SIDE       # bench.py's order
-    assert not any("stir" in k or "whir" in k for k in kernels)
+    # both low-degree-test entries, in bench.py's order (bench.py:433-434)
+    assert [k for k in kernels if "stir" in k or "whir" in k] == [
+        "stir_e2e_prove", "whir_e2e_prove"]
     for name in KERNEL_METRICS:
         assert set(kernels[name]) == {"value", "unit", "bound_frac"}
         assert kernels[name]["bound_frac"] is None       # no device metric here
@@ -92,9 +96,10 @@ def test_bench_torch_emits_whole_lines_with_every_key():
         e = kernels[name]
         assert e["unit"] == "rows/s" and e["value"] > 0
         assert "device_s" in e and "phases" in e
-        assert ("proof_bytes" in e) == name.startswith("fast")
+        assert ("proof_bytes" in e) == name.startswith(("fast", "stir", "whir"))
     for key in ("stir_e2e_prove", "whir_e2e_prove"):
-        assert f"# {key}: not ported" in res.stderr
+        assert kernels[key]["proof_bytes"] > 0 and kernels[key]["verify_s"] is not None
+    assert "not ported" not in res.stderr
     # each snapshot extends the one before
     for a, b in zip(snaps, snaps[1:]):
         assert set(a["kernels"]) < set(b["kernels"])
@@ -146,10 +151,18 @@ def test_metric_names_follow_bench_py(monkeypatch, capfd, model, mode, field, st
 
 @pytest.mark.parametrize("mode", ["stir", "whir"])
 def test_unported_modes_are_refused(monkeypatch, capfd, mode):
-    monkeypatch.setenv("BENCH_MODE", mode)
-    assert bench_torch.main(["--device", "cpu"]) == 2
+    """BENCH_MODE=stir / whir (once refused here) runs FastStark with that
+    low-degree test and names the metric as bench.py does."""
+    for key, val in (("BENCH_MODE", mode), ("BENCH_STEPS", "255"),
+                     ("BENCH_BASE_STEPS", "7"), ("BENCH_SKIP_KERNELS", "1")):
+        monkeypatch.setenv(key, val)
+    assert bench_torch.main(["--device", "cpu"]) == 0
     cap = capfd.readouterr()
-    assert cap.out == "" and "not ported" in cap.err
+    snap = json.loads(cap.out.splitlines()[-1])
+    assert snap["metric"] == f"e2e_prove_rows_per_s_{mode}_fib255_goldilocks"
+    assert snap["proof_bytes"] > 0 and snap["verify_s"] is not None
+    assert snap["kernels"] == {} and "not ported" not in cap.err
+    assert f"# fast ({mode}) proof size" in cap.err
 
 
 def test_bench_torch_refuses_a_missing_card():

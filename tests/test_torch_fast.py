@@ -235,5 +235,14 @@ def test_rejects_wrong_witness_and_tampering():
 
 @pytest.mark.parametrize("backend", ["stir", "whir"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_stark(60, lde_backend=backend)
+    """The STIR and WHIR backends (once refused here) build, prove 60 steps
+    and verify; an unknown backend is refused."""
+    stark = _port_stark(60, queries=8, final_len=8, lde_backend=backend)
+    trace = _port_trace(60)
+    proof = stark.prove(trace)
+    blob = fast_proof_to_bytes(Goldilocks, proof)
+    assert blob[len(b"MSF4") + 1 + len(b"Goldilocks")] == {"stir": 1, "whir": 2}[backend]
+    assert stark.verify(stark._constraint_polys(trace),
+                        fast_proof_from_bytes(Goldilocks, blob))
+    with pytest.raises(ValueError, match="unknown LDE backend"):
+        _port_stark(60, lde_backend=backend + "2")
