@@ -59,23 +59,36 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                verified, both group roots recomputed with the plain versions
                over the backend's own L_0 coset (offset g); one BabyBear + Fp4
                2^20 - 1 prove, verified
- 10. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
+ 10. sharded   the sharded paths (ministark_tpu_torch/parallel/) with ranks
+               that share the one card in gloo groups (parallel/launch.py):
+               two ranks prove GL parity and fast at 2^20 - 1 cold and warm,
+               each rank's proof equal to phases main's / fast's and
+               verified, with its kernel launches (paths sharded_parity and
+               sharded_fast, per rank); the sharded coset LDE (6, 2^21),
+               constrain tree (6 x 2^21 elements) and index tree (2^19, 48)
+               equal to one device's, both timed (a time of the code path:
+               the ranks share the card); then four ranks prove the 2^14 - 1
+               pins (PINS, FAST_PINS x 1 and x 4, STIR_PINS, WHIR_PINS, one
+               BB_PINS and one BB_FAST_PINS entry, MiMC's MODEL_PINS)
+ 11. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
                on the card: small proofs byte-identical to the host oracle
                over both fields, the 2^14 - 1 pins of the JAX package
                (parity for all three, fast for MiMC and LFSR), MiMC at
                2^20 - 1 cold and warm, verified
- 11. probes    the three probe scripts in-process (scripts/torch_stream_probe,
+ 12. probes    the three probe scripts in-process (scripts/torch_stream_probe,
                torch_f32_pad_probe, torch_digit_stage_probe at the three
                levels of ifft 2^20)
- 12. bench     bench_kernels_torch.kernel_rooflines() at full size (every
+ 13. bench     bench_kernels_torch.kernel_rooflines() at full size (every
                entry present, bound_frac <= 1) and bench_torch's device_prove,
                fast_prove (with lde_backend "fri", then the stir_e2e_prove and
                whir_e2e_prove entries) and host_prove in-process
- 13. launches  every kernel was launched by the paths it is on (counts set to
+ 14. launches  every kernel was launched by the paths it is on (counts set to
                0 just before each path runs, read just after): the 2^20 - 1
                proves of each prover, backend and field (the STIR and WHIR
-               paths stir, whir, stir_bb, whir_bb), the MiMC prove, the
-               probes, the kernel bench and the bench's proves
+               paths stir, whir, stir_bb, whir_bb; the sharded paths
+               sharded_parity and sharded_fast, rank 0's, every rank
+               checked), the MiMC prove, the probes, the kernel bench and the
+               bench's proves
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
@@ -87,6 +100,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -992,6 +1006,7 @@ def phase_main(results, field="gl"):
                    f"cold prove {cold:.3f} s, phase_seconds "
                    + json.dumps({k: round(v, 4) for k, v in cold_phases.items()}))
         record(results, f"{path}_{backend}", launches)
+    return d1
 
 
 def _fast(steps, batch=1, ntt_backend="radix2", field="gl", **cfg):
@@ -1225,6 +1240,7 @@ def phase_fast(results, field="gl"):
                    f"traces (prove_many) equal to the radix-2 proof, verified; "
                    f"prove {secs:.3f} s ({secs / FAST_BATCH:.3f} s per trace)")
         del proof
+    return blob
 
 
 def phase_stir_whir(results):
@@ -1326,6 +1342,223 @@ def phase_stir_whir(results):
             {k: v for k, v in launches.items() if v}) + "; inner-level by fan "
             + json.dumps(fans))
         del proof, stark, trace
+
+
+SHARDED_TIMEOUT_S = 900
+# phase sharded's shapes: the sharded pieces timed against one device (the
+# 2^20 - 1 prove's coset LDE and constrain tree, the fast prove's witness
+# index tree) and the four-rank group's pinned steps
+SHARDED_LDE = (6, 1 << 21)
+SHARDED_TREE = 6 << 21
+SHARDED_ROWS = (1 << 19, 48)
+SHARDED_PIN_STEPS = MODEL_PIN_STEPS
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sharded_timed(fn, device, reps=3):
+    """(result, mean ms of ``reps`` warm calls): host clock, the card
+    synchronized around the calls."""
+    out = fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def _sharded_prove(prove, digest, device):
+    """(the cold proof, its digest, cold s, warm s, the cold prove's kernel
+    launches, its collectives, the warm proof's digest)."""
+    from ministark_tpu_torch.parallel import mesh as pm
+
+    reset_counts()
+    before = sum(pm.collectives.values())
+    t0 = time.time()
+    proof = prove()
+    _sync(device)
+    cold = time.time() - t0
+    launches, _ = read_counts()
+    collectives = sum(pm.collectives.values()) - before
+    t0 = time.time()
+    proof2 = prove()
+    _sync(device)
+    warm = time.time() - t0
+    return proof, digest(proof), cold, warm, launches, collectives, digest(proof2)
+
+
+def _sharded_full(mesh):
+    """One rank of phase sharded's two-rank group: the GL parity and fast
+    proves at 2^20 - 1 (cold, warm, verified), then the sharded coset LDE,
+    constrain tree and index tree against one device, timed."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ministark_tpu_torch.commit.index_tree import IndexMerkleTree
+    from ministark_tpu_torch.commit.packed_tree import PackedMerkleTree
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+    from ministark_tpu_torch.ops.field import pack_u64
+    from ministark_tpu_torch.ops.ntt import get_ntt_fns
+    from ministark_tpu_torch.parallel import get_sharded_ntt_fns
+    from ministark_tpu_torch.stark import StarkConfig
+    from ministark_tpu_torch.stark.engine import DeviceEngine
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes, proof_digests
+
+    sf, dev = _stark_field("gl"), mesh.device
+    out = {"rank": mesh.rank}
+    trace = fibonacci_device_trace(sf, MAIN_STEPS, on_device=True, device=dev)
+    cfg = StarkConfig(sf, 20, 2, MAIN_STEPS, trace.constrain_number())
+    engine = DeviceEngine(cfg, device=dev, mesh=mesh)
+    proof, *rest = _sharded_prove(lambda: engine.prove(trace),
+                                  lambda p: proof_digests(sf, p), dev)
+    out["parity"] = rest + [engine.verify(engine.constrain_coeffs(trace), proof),
+                            dict(engine.phase_seconds)]
+    del proof, engine
+
+    stark = FastStark(FastStarkConfig(sf, MAIN_STEPS, **FAST_CFG), device=dev, mesh=mesh)
+    proof, *rest = _sharded_prove(
+        lambda: stark.prove(trace),
+        lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
+    out["fast"] = rest + [stark.verify(stark._constraint_polys(trace), proof),
+                          dict(stark.phase_seconds)]
+    del proof, stark, trace
+
+    rng = np.random.default_rng(SEED)
+    base = sf.base
+
+    def rand(shape):
+        return pack_u64(rng.integers(0, base.p, size=shape, dtype=np.uint64), dev)
+
+    x, shift, n = rand(SHARDED_LDE), base.generator, SHARDED_LDE[1]
+    dist.barrier()
+    a, ms = _sharded_timed(lambda: get_sharded_ntt_fns(base, n, mesh)[2](x, shift), dev)
+    b, ms1 = _sharded_timed(lambda: get_ntt_fns(base, n)[2](x, shift), dev)
+    out["coset_fft"] = (bool(torch.equal(a, b)), ms, ms1)
+    vals = rand((SHARDED_TREE,))
+    mcfg = cfg.merkle_config
+    dist.barrier()
+    a, ms = _sharded_timed(lambda: PackedMerkleTree(base, vals, mcfg, mesh), dev)
+    b, ms1 = _sharded_timed(lambda: PackedMerkleTree(base, vals, mcfg), dev)
+    out["constrain_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
+    rows = rand(SHARDED_ROWS)
+    dist.barrier()
+    a, ms = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"], mesh), dev)
+    b, ms1 = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"]), dev)
+    out["index_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
+    return out
+
+
+def _sharded_pins(mesh):
+    """One rank of phase sharded's four-rank group: the proves pinned at
+    2^14 - 1 (parity, fast x 1 and x 4, STIR, WHIR, BabyBear parity and
+    fast, MiMC parity), sharded; their digests."""
+    import hashlib
+
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+    from ministark_tpu_torch.models.mimc import mimc_device_trace
+    from ministark_tpu_torch.stark import StarkConfig
+    from ministark_tpu_torch.stark.engine import DeviceEngine
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes, proof_digests
+
+    steps, dev, out = SHARDED_PIN_STEPS, mesh.device, {}
+    for field, model in (("gl", "fib"), ("bb", "fib"), ("gl", "mimc")):
+        sf = _stark_field(field)
+        trace = (mimc_device_trace(sf, steps, device=dev) if model == "mimc" else
+                 fibonacci_device_trace(sf, steps, on_device=True, device=dev))
+        cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
+        out[("parity", field, model)] = proof_digests(
+            sf, DeviceEngine(cfg, device=dev, mesh=mesh).prove(trace))
+    for field, lde, batch in (("gl", "fri", 1), ("gl", "fri", 4), ("gl", "stir", 1),
+                              ("gl", "whir", 1), ("bb", "fri", 1)):
+        sf = _stark_field(field)
+        traces = [fibonacci_device_trace(sf, steps, on_device=True, device=dev)
+                  for _ in range(batch)]
+        stark = FastStark(FastStarkConfig(sf, steps, **dict(FAST_CFG, lde_backend=lde)),
+                          device=dev, mesh=mesh)
+        out[("fast", field, lde, batch)] = hashlib.sha256(
+            fast_proof_to_bytes(sf, stark.prove_many(traces))).hexdigest()
+    return out
+
+
+def phase_sharded(results, parity_digests, fast_sha):
+    """The sharded paths (ministark_tpu_torch/parallel/) with ranks that
+    share the one card: a two-rank group at full width against phases main
+    and fast and the sharded pieces against one device, then a four-rank
+    group at the pinned 2^14 - 1 sizes."""
+    import torch
+
+    from ministark_tpu_torch.parallel import launch
+
+    label = "sharded"
+    t0 = time.time()
+    ranks = launch.run(_sharded_full, 2, "gloo", "cuda:0", SHARDED_TIMEOUT_S)
+    say(label, f"2 ranks on {torch.cuda.get_device_name(0)} (one card shared, "
+               "so every time here is a time of the code path, not a scaling), "
+               "backend gloo, collectives on the card's tensors unstaged; group "
+               f"ran in {time.time() - t0:.1f} s")
+    for path, what, phase, want in (
+            ("parity", "sharded_parity", "main", parity_digests),
+            ("fast", "sharded_fast", "fast", fast_sha)):
+        for r in ranks:
+            cold_digest, cold, warm, launches, collectives, warm_digest, ok, phases = \
+                r[path]
+            if cold_digest != want or warm_digest != want:
+                fail(f"sharded: rank {r['rank']}'s {path} proof at {MAIN_STEPS} "
+                     f"steps differs from phase {phase}'s")
+            if not ok:
+                fail(f"sharded: rank {r['rank']}'s {path} proof did not verify")
+            say(label, f"{path} steps {MAIN_STEPS}, rank {r['rank']} of 2: cold "
+                       f"{cold:.3f} s, warm {warm:.3f} s, equal to phase {phase}'s "
+                       f"proof, verified; {collectives} collectives; phase_seconds "
+                       + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+            say(label, f"{what} rank {r['rank']} launches "
+                       + json.dumps({k: v for k, v in launches.items() if v}))
+            for name, (_, _, paths) in KERNELS.items():
+                if what in paths and launches.get(name, 0) <= 0:
+                    fail(f"{name} was not launched by rank {r['rank']} of the "
+                         f"{what} path")
+        record(results, what, ranks[0][path][3])     # per rank: rank 0's
+    for what, shape in (("coset_fft", str(SHARDED_LDE)),
+                        ("constrain_tree", f"{SHARDED_TREE} elements, 6 per group"),
+                        ("index_tree", f"{SHARDED_ROWS}, arity {FAST_CFG['arity']}")):
+        for r in ranks:
+            equal, ms, ms1 = r[what]
+            if not equal:
+                fail(f"sharded: rank {r['rank']}'s {what} {shape} differs from "
+                     "one device's")
+            say(label, f"{what} {shape}, rank {r['rank']} of 2: equal to one "
+                       f"device; sharded {ms:.3f} ms, one device {ms1:.3f} ms")
+
+    t0 = time.time()
+    ranks = launch.run(_sharded_pins, 4, "gloo", "cuda:0", SHARDED_TIMEOUT_S)
+    steps = SHARDED_PIN_STEPS
+    pins = {("parity", "gl", "fib"): PINS[steps], ("parity", "bb", "fib"): BB_PINS[steps],
+            ("parity", "gl", "mimc"): MODEL_PINS["mimc"],
+            ("fast", "gl", "fri", 1): FAST_PINS[(steps, 1)],
+            ("fast", "gl", "fri", 4): FAST_PINS[(steps, 4)],
+            ("fast", "gl", "stir", 1): STIR_PINS[steps],
+            ("fast", "gl", "whir", 1): WHIR_PINS[steps],
+            ("fast", "bb", "fri", 1): BB_FAST_PINS[(steps, 1)]}
+    for key, want in pins.items():
+        for rank, r in enumerate(ranks):
+            if r[key] != want:
+                fail(f"sharded: rank {rank} of 4, {key} at {steps} steps differs "
+                     f"from the JAX pin: {r[key]}")
+    say(label, f"4 ranks on one card: steps {steps} parity (GL, "
+               "BabyBear, MiMC) and fast (GL x 1 and x 4, STIR, WHIR, BabyBear) "
+               "proofs equal to the JAX pins on every rank; group ran in "
+               f"{time.time() - t0:.1f} s")
 
 
 def _model_case(name, field, steps):
@@ -1533,29 +1766,33 @@ _LDT_BB_PATHS = ("stir_bb", "whir_bb")
 # the bench path's runs: the MiMC 2^20 - 1 prove, the kernel bench, the bench's
 # parity and fast proves (the probes launch only the probe kernels)
 _BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
+# the 2^20 - 1 proves of phase sharded, per rank (of two)
+_SHARDED_PATHS = ("sharded_parity", "sharded_fast")
 # name -> (source, the TPU kernel it replaces, the paths whose 2^20 - 1 prove
 # must launch it). The BabyBear entries are the same sources' bb
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
 KERNELS = {
     "ntt": ("ministark_tpu_torch/csrc/ntt.cu",
             "ministark_tpu/ops/ntt_mxu.py:370",
-            ("parity", "fast") + _LDT_PATHS + _BENCH_PATHS),
+            ("parity", "fast") + _LDT_PATHS + _BENCH_PATHS + _SHARDED_PATHS),
     "sha256_inner_level": ("ministark_tpu_torch/csrc/sha256.cu",
                            "ministark_tpu/ops/sha256_pallas.py:113",
                            ("parity", "fast") + _BB_PATHS + _LDT_PATHS
-                           + _LDT_BB_PATHS + _BENCH_PATHS),
+                           + _LDT_BB_PATHS + _BENCH_PATHS + _SHARDED_PATHS),
     "leaf_hash": ("ministark_tpu_torch/csrc/leaf_hash.cu",
                   "ministark_tpu/ops/sha256_pallas.py:163",
-                  ("parity", "mimc", "bench_prove")),
+                  ("parity", "mimc", "bench_prove", "sharded_parity")),
     "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
                     "ministark_tpu/ops/sha256_pallas.py:113",
-                    ("fast", "fast_bb", "bench_kernels", "bench_prove")
+                    ("fast", "fast_bb", "bench_kernels", "bench_prove", "sharded_fast")
                     + _LDT_PATHS + _LDT_BB_PATHS),
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
-               ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS),
+               ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS
+               + _SHARDED_PATHS),
     "gl_ext_mul": ("ministark_tpu_torch/csrc/gl_mul.cu", "ministark_tpu/ops/gl.py:215",
-                   ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS),
+                   ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS
+                   + _SHARDED_PATHS),
     "ntt_four_step_pass1": ("ministark_tpu_torch/csrc/ntt_four_step.cu",
                             "ministark_tpu/ops/ntt_pallas.py:190",
                             ("parity_four_step", "fast_four_step", "bench_kernels")),
@@ -1607,11 +1844,12 @@ def main():
     phase_kernels_bb(results)
     phase_kernels_digit(results)
     phase_parity()
-    phase_main(results)
-    phase_fast(results)
+    parity_digests = phase_main(results)
+    fast_blob = phase_fast(results)
     phase_main(results, "bb")
     phase_fast(results, "bb")
     phase_stir_whir(results)
+    phase_sharded(results, parity_digests, hashlib.sha256(fast_blob).hexdigest())
     phase_models(results)
     phase_probes(results)
     phase_bench(results)

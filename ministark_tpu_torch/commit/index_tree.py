@@ -9,7 +9,8 @@ level of a 2^19-leaf 4-ary tree is fan 2).
 
 The rows and all level digests stay tensors on the device the rows were
 given on: a CUDA tensor hashes with the row-leaf and inner-level kernels,
-one launch per level; a CPU tensor takes their plain versions.
+one launch per level; a CPU tensor takes their plain versions. With a mesh
+(``parallel/``) the leaf hashing and the lower levels shard over its ranks.
 Verification (``verify_path``) is pure-host hashlib.
 """
 
@@ -24,6 +25,7 @@ import torch
 
 from ..ops.field import unpack_u64
 from ..ops.sha256 import binary_row_digests, digests_to_bytes, inner_level
+from ..parallel.merkle_sharded import gather_levels, local_rows
 
 
 def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
@@ -36,6 +38,21 @@ def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
         cur = inner_level(cur, min(arity, cur.shape[0]))
         levels.append(cur)
     return torch.cat(levels, 0) if len(levels) > 1 else levels[0]
+
+
+def _build_digests_sharded(comps: torch.Tensor, arity: int, mesh) -> torch.Tensor:
+    """``_build_digests`` over a mesh, the same digests and layout. Each
+    rank hashes its contiguous block of rows and folds fan ``arity`` while
+    its local level size divides the fan (every rank holds the same
+    power-of-two node count, so local blocks stay group-aligned); one
+    gather of the local levels, then the top levels replicated."""
+    levels = [binary_row_digests(local_rows(mesh, comps))]
+    while levels[-1].shape[0] % arity == 0:
+        levels.append(inner_level(levels[-1], arity))
+    levels = gather_levels(mesh, levels)
+    while levels[-1].shape[0] > 1:
+        levels.append(inner_level(levels[-1], min(arity, levels[-1].shape[0])))
+    return torch.cat(levels, 0)
 
 
 def _level_sizes(n_leaves: int, arity: int) -> List[int]:
@@ -57,9 +74,11 @@ class IndexMerklePath:
 
 
 class IndexMerkleTree:
-    def __init__(self, comps: torch.Tensor, arity: int = 2):
+    def __init__(self, comps: torch.Tensor, arity: int = 2, mesh=None):
         """comps: (n, C) int64 tensor of u64 row components, n a power of
-        two; the tree is built on its device."""
+        two; the tree is built on its device. ``mesh``: a
+        ``parallel.Mesh``, the whole rows on every rank; the build shards
+        when n splits over it (the same digests)."""
         assert arity >= 2 and arity & (arity - 1) == 0
         n = int(comps.shape[0])
         assert n & (n - 1) == 0, "leaf count must be a power of two"
@@ -68,7 +87,10 @@ class IndexMerkleTree:
         self.sizes = _level_sizes(n, arity)
         self.offsets = np.concatenate([[0], np.cumsum(self.sizes)])
         self._comps = comps.contiguous()
-        self._digests = _build_digests(self._comps, arity)
+        if mesh is not None and n % mesh.size == 0 and n > mesh.size:
+            self._digests = _build_digests_sharded(self._comps, arity, mesh)
+        else:
+            self._digests = _build_digests(self._comps, arity)
         self._root = None
 
     def root(self) -> bytes:

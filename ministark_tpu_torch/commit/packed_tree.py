@@ -27,6 +27,7 @@ import torch
 from ..ops.field import pack_u64, unpack_u64
 from ..ops.leaf_hash import digits_for, leaf_hash
 from ..ops.sha256 import digests_to_bytes, merkle_inner_levels
+from ..parallel.merkle_sharded import can_shard_tree, sharded_tree_digests
 from ..utils import LeafNotFound, logarithm_of_two_k
 from .merkle import MerklePath, MerkleTreeConfig
 
@@ -78,7 +79,10 @@ def _first_match_find(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 class PackedMerkleTree:
     """Same commitment as commit/merkle.py MerkleTree, over a tensor."""
 
-    def __init__(self, field, vals: torch.Tensor, config: MerkleTreeConfig):
+    def __init__(self, field, vals: torch.Tensor, config: MerkleTreeConfig,
+                 mesh=None):
+        """``vals``: the field values, whole on every rank of ``mesh``
+        (a ``parallel.Mesh``) when one is given."""
         self.field = field
         self.config = config
         self.fmt = field_fmt(field)
@@ -95,11 +99,13 @@ class PackedMerkleTree:
         assert c ** (self.levels - 1) == group_num
 
         self._comps = comps
-        leaf_dig = leaf_hash(comps, k, self.fmt, digits_for(field))
-        if group_num > 1:
-            self._digests = torch.cat([leaf_dig, merkle_inner_levels(leaf_dig)], 0)
+        md = digits_for(field)
+        if mesh is not None and group_num > 1 and can_shard_tree(n, k, mesh.size):
+            self._digests = sharded_tree_digests(comps, k, self.fmt, mesh, md)
         else:
-            self._digests = leaf_dig
+            leaf_dig = leaf_hash(comps, k, self.fmt, md)
+            self._digests = (torch.cat([leaf_dig, merkle_inner_levels(leaf_dig)], 0)
+                             if group_num > 1 else leaf_dig)
         self._root = None
 
     @property

@@ -16,7 +16,8 @@ proof bytes (tests/test_torch_fast.py holds them to the JAX package's).
 
 Polynomials are (B, n, d) extension tensors (d = 2 for Goldilocks Fp2, 4
 for BabyBear Fp4) on any device; the NTTs and tree
-builds run where they live. The verifier is pure host (hashlib and host
+builds run where they live, sharded over a mesh when one is given
+(``parallel/``, the same proof bytes). The verifier is pure host (hashlib and host
 field ops). Challenges come from a ratcheted SHA-256 transcript
 (``FastTranscript``), not the parity sponge.
 """
@@ -31,8 +32,9 @@ import torch
 
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
-from ..ops.ntt import check_backend, get_ntt_fns
+from ..ops.ntt import check_backend
 from ..ops.poly import fold_factor, mix_columns
+from ..parallel.ntt_sharded import select_ntt_fns
 
 
 # --------------------------------------------------------------- transcript
@@ -180,11 +182,15 @@ def _row_values(field, row: bytes, count: int) -> List:
 
 
 class BatchedFri:
-    def __init__(self, config: BatchedFriConfig, ntt_backend: str = "radix2"):
+    def __init__(self, config: BatchedFriConfig, ntt_backend: str = "radix2",
+                 mesh=None):
         """``ntt_backend``: the NTT kernels of the LDE (ops/ntt.py); not part
-        of the config or the transcript, and it changes no proof byte."""
+        of the config or the transcript, and it changes no proof byte.
+        ``mesh``: a ``parallel.Mesh``; the LDE NTTs and the tree builds
+        shard over it where their sizes split."""
         self.cfg = config
         self.ntt_backend = check_backend(ntt_backend)
+        self.mesh = mesh
         self.ext = config.field
         self.ke = get_ops(self.ext)
         # the ext elements' components are prime-field values, so the
@@ -205,14 +211,15 @@ class BatchedFri:
         flat = torch.zeros((rows.shape[0], domain_size), dtype=torch.int64,
                            device=coeffs.device)
         flat[:, :m] = rows
-        fns = get_ntt_fns(self._ntt_base, domain_size, self.ntt_backend)
+        fns = select_ntt_fns(self._ntt_base, domain_size, self.mesh, self.ntt_backend)
         ev = fns[0](flat) if offset is None else fns[2](flat, offset)
         ev = ev.reshape(comp.shape[:-1] + (domain_size,))
         return ev.movedim(lead, -1)                       # (..., N, d)
 
     def _tree(self, rows: torch.Tensor) -> IndexMerkleTree:
         """(N/F, ..., d) coset rows -> tree over their u64 components."""
-        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity)
+        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity,
+                               self.mesh)
 
     def _transcript(self, b: int, n: int) -> FastTranscript:
         tr = FastTranscript(b"batched-fri")

@@ -205,9 +205,11 @@ class CosetRowLdt:
     of a group over L_0, the binding LDE and the transcript. A subclass
     sets ``LABEL`` and ``_schedule``."""
 
-    def __init__(self, config, ntt_backend: str = "radix2"):
+    def __init__(self, config, ntt_backend: str = "radix2", mesh=None):
         """``ntt_backend``: the NTT kernels of every coset FFT (ops/ntt.py);
-        not part of the config or the transcript, it changes no proof byte."""
+        not part of the config or the transcript, it changes no proof byte.
+        ``mesh``: a ``parallel.Mesh``, handed to the ``BatchedFri`` whose
+        coset FFTs and trees then shard over it."""
         self.cfg = config
         self.ext = config.field
         self.ke = get_ops(self.ext)
@@ -216,7 +218,7 @@ class CosetRowLdt:
                 config.field, blowup=config.blowup, queries=1,
                 arity=config.arity, fold_factor=config.k, final_len=1,
             ),
-            ntt_backend=ntt_backend,
+            ntt_backend=ntt_backend, mesh=mesh,
         )
         self.prime = self._bf._ntt_base
 
@@ -311,7 +313,7 @@ _SCHEDULE_CACHE: dict = {}
 
 # --------------------------------------------------------------- protocol
 class Stir(CosetRowLdt):
-    """``Stir(StirConfig(...), ntt_backend="radix2")``."""
+    """``Stir(StirConfig(...), ntt_backend="radix2", mesh=None)``."""
 
     LABEL = b"stir"
 

@@ -138,7 +138,7 @@ _SCHEDULE_CACHE: dict = {}
 
 # --------------------------------------------------------------- protocol
 class Whir(CosetRowLdt):
-    """``Whir(WhirConfig(...), ntt_backend="radix2")``."""
+    """``Whir(WhirConfig(...), ntt_backend="radix2", mesh=None)``."""
 
     LABEL = b"whir"
 

@@ -20,6 +20,9 @@ raises on a host without a card (the CPU is used only when asked for with
 ``device="cpu"``); a tensor handed in on another device is moved there
 once. ``ntt_backend`` ("radix2", "four_step" or "pipe", ops/ntt.py) chooses
 the NTT kernels; it is not part of the config and changes no proof byte.
+``mesh`` (a ``parallel.Mesh``, every rank proving the same trace) shards
+the NTTs, the Merkle builds and the FRI rounds over its ranks by the JAX
+package's size rules, for the same proof bytes on every rank.
 
 Two value-preserving deviations from the reference's algorithm, as in the
 JAX engine: query-phase y values are read from the committed codeword
@@ -40,7 +43,7 @@ from ..commit.merkle import MerkleTree
 from ..commit.packed_tree import PackedMerkleTree, to_leaf_comps
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import check_backend, get_ntt_fns
+from ..ops.ntt import check_backend
 from ..ops.poly import (
     effective_len,
     eval_even_odd,
@@ -49,6 +52,8 @@ from ..ops.poly import (
     mix_columns,
     synth_div_suffix,
 )
+from ..parallel.fri_sharded import get_sharded_fri_fns
+from ..parallel.ntt_sharded import select_ntt_fns
 from ..poly import DensePolynomial, Radix2EvaluationDomain
 from ..transcript.merlin import Arthur, Merlin
 from ..utils import LeafNotFound
@@ -105,9 +110,14 @@ class DeviceTrace:
 
 class DeviceEngine:
     def __init__(self, config: StarkConfig, device="cuda",
-                 ntt_backend: str = "radix2", query_split: bool = False):
+                 ntt_backend: str = "radix2", query_split: bool = False,
+                 mesh=None):
         self.config = config
         self.device = torch.device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks are on {mesh.device}, the "
+                             f"engine on {self.device}")
+        self.mesh = mesh
         self.ntt_backend = check_backend(ntt_backend)
         # report each query round as three phases (host, device, copy)
         # instead of one: about six more device synchronizes a round, so
@@ -143,6 +153,24 @@ class DeviceEngine:
             self._t(f"{label}_{kind}")
 
     # ------------------------------------------------------------------ utils
+    def _ntt(self, n: int):
+        """(fft, ifft, coset_fft, coset_ifft) over the base field for size
+        n: sharded over the engine's mesh when one is set and n splits."""
+        return select_ntt_fns(self.config.stark_field.base, n, self.mesh,
+                              self.ntt_backend)
+
+    def _fri_sharded(self, n: int):
+        """Sharded fold/deep/divide for coefficient length n, or None when
+        no mesh is set or the length does not split (the JAX engine's
+        ``_fri_sharded``, ``ministark_tpu/stark/engine.py:179``)."""
+        if self.mesh is None:
+            return None
+        n_dev = self.mesh.size
+        m = n // n_dev if n % n_dev == 0 else 0
+        if m < 2 or m % 2 or m & (m - 1):
+            return None
+        return get_sharded_fri_fns(self.config.stark_field.extension, n, self.mesh)
+
     def _cols(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) int64 column evaluations on the engine's device."""
         if trace.cols_dev is not None:
@@ -151,9 +179,7 @@ class DeviceEngine:
 
     def _trace_polys(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) evaluations -> (width, N) coefficients."""
-        _, ifft, _, _ = get_ntt_fns(self.config.stark_field.base,
-                                    trace.domain_size, self.ntt_backend)
-        return ifft(self._cols(trace))
+        return self._ntt(trace.domain_size)[1](self._cols(trace))
 
     def constrain_coeffs(self, trace: DeviceTrace) -> torch.Tensor:
         """The out-of-band Constrains as one (w+t, N) coefficient tensor:
@@ -178,7 +204,7 @@ class DeviceEngine:
         # the constraint count (6), so one leaf group spans two rows
         cols = self._cols(trace)
         trace_tree = PackedMerkleTree(
-            base, cols.T.contiguous().reshape(-1), cfg.merkle_config)
+            base, cols.T.contiguous().reshape(-1), cfg.merkle_config, self.mesh)
         trace_commit = trace_tree.root()
         del trace_tree
         merlin.add_bytes(trace_commit)
@@ -187,21 +213,19 @@ class DeviceEngine:
         # 1.2 LDE of all constraint polynomials
         lde_n = cfg.blowup_factor * n
         random_shift = merlin.challenge_scalar(base)
-        _, ifft, _, _ = get_ntt_fns(base, n, self.ntt_backend)
-        trace_poly = ifft(cols)                                      # (w, n)
+        trace_poly = self._ntt(n)[1](cols)                           # (w, n)
         del cols
         all_coeffs = torch.cat(
             [trace_poly] + [f(trace_poly)[None] for f in trace.transitions], 0)
         total = all_coeffs.shape[0]
         padded = torch.zeros((total, lde_n), dtype=torch.int64, device=dev)
         padded[:, :n] = all_coeffs
-        _, _, coset_fft, _ = get_ntt_fns(base, lde_n, self.ntt_backend)
-        lde_evals = coset_fft(padded, random_shift)                  # (w+t, 2n)
+        lde_evals = self._ntt(lde_n)[2](padded, random_shift)        # (w+t, 2n)
         del padded
 
         self._t("constrain_tree")
         constrain_tree = PackedMerkleTree(
-            base, lde_evals.T.contiguous().reshape(-1), cfg.merkle_config)
+            base, lde_evals.T.contiguous().reshape(-1), cfg.merkle_config, self.mesh)
         del lde_evals
         constrain_trace_commit = constrain_tree.root()
         del constrain_tree
@@ -252,9 +276,7 @@ class DeviceEngine:
         comp = torch.zeros((coeffs.shape[1], domain_size), dtype=torch.int64,
                            device=coeffs.device)
         comp[:, :coeffs.shape[0]] = coeffs.T
-        fft, _, _, _ = get_ntt_fns(self.config.stark_field.base, domain_size,
-                                   self.ntt_backend)
-        return fft(comp).T.contiguous()
+        return self._ntt(domain_size)[0](comp).T.contiguous()
 
     def _fri_prove(self, merlin: Merlin, poly_coeffs) -> "DeviceFriProof":
         """Hybrid FRI: tensors for large rounds, host scalars for the
@@ -371,15 +393,20 @@ class DeviceEngine:
         codeword = self._ext_fft(coeffs[: min(size, coeffs.shape[0])], size)
         return _FriRoundRepr(device=True, ke=self.ke, coeffs=coeffs,
                              codeword=codeword,
-                             tree=PackedMerkleTree(ext, codeword, mcfg), size=size)
+                             tree=PackedMerkleTree(ext, codeword, mcfg, self.mesh),
+                             size=size)
 
     def _deep_evals(self, rnd: "_FriRoundRepr", z):
         ext = self.config.stark_field.extension
         if rnd.device:
             if rnd.coeffs.shape[0] == 0:
                 return ext.zero(), ext.zero()
-            fe, fo = eval_even_odd(self.ke, rnd.coeffs,
-                                   self.ke.pack_scalar(z, self.device))
+            zp = self.ke.pack_scalar(z, self.device)
+            fns = self._fri_sharded(rnd.coeffs.shape[0])
+            if fns is not None:
+                fe, fo = fns["deep"](rnd.coeffs, zp)
+            else:
+                fe, fo = eval_even_odd(self.ke, rnd.coeffs, zp)
             both = self.ke.unpack(torch.stack([fe, fo]))   # one pull
             return both[0], both[1]
         parts = HostFriRound.split_poly(ext, DensePolynomial(ext, rnd.coeffs), 2)
@@ -393,12 +420,23 @@ class DeviceEngine:
         if rnd.device and not ext.is_zero(z):
             n = rnd.coeffs.shape[0]
             pack = lambda v: ke.pack_scalar(v, self.device)  # noqa: E731
-            folded = fold_even_odd(ke, rnd.coeffs, pack(alpha))
-            folded[0] = ke.sub(folded[0], pack(deep_value))
-            q = synth_div_suffix(ke, folded, pack(z), pack(ext.inv(z)))
-            rp = torch.zeros((n // 2,) + ke.elem_axes, dtype=torch.int64,
-                             device=self.device)
-            rp[: q.shape[0]] = q
+            fns = self._fri_sharded(n)
+            fns_half = self._fri_sharded(n // 2) if fns is not None else None
+            if fns_half is not None:
+                # a distributed round (ministark_tpu/stark/engine.py:
+                # 738-752): sharded fold, the DEEP value off x^0, sharded
+                # division; the quotient keeps the length n/2 with its
+                # trailing slot zero
+                folded = fns["fold"](rnd.coeffs, pack(alpha))
+                folded[0] = ke.sub(folded[0], pack(deep_value))
+                rp = fns_half["divide"](folded, pack(z), pack(ext.inv(z)))
+            else:
+                folded = fold_even_odd(ke, rnd.coeffs, pack(alpha))
+                folded[0] = ke.sub(folded[0], pack(deep_value))
+                q = synth_div_suffix(ke, folded, pack(z), pack(ext.inv(z)))
+                rp = torch.zeros((n // 2,) + ke.elem_axes, dtype=torch.int64,
+                                 device=self.device)
+                rp[: q.shape[0]] = q
             # hand off to the host representation when the next round is small
             if rnd.size // 2 < DEVICE_MIN_SIZE:
                 return ke.unpack(rp[: effective_len(rp)])

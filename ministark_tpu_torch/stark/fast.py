@@ -29,7 +29,9 @@ The device is explicit: ``FastStark(config, device="cuda")`` by default;
 without a card the constructor raises. Traces on another device are moved
 to the prover's once. ``ntt_backend`` ("radix2", "four_step" or "pipe",
 ops/ntt.py) chooses the NTT kernels; it is not part of ``FastStarkConfig``
-or the transcript and changes no proof byte.
+or the transcript and changes no proof byte. ``mesh`` (a ``parallel.Mesh``,
+every rank proving the same traces) shards the trace iFFT and, through the
+low-degree test, its LDEs and trees, for the same proof bytes.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_
 from ..fri.stir import Stir, StirConfig
 from ..fri.whir import Whir, WhirConfig
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import check_backend, get_ntt_fns
+from ..ops.ntt import check_backend
 from ..ops.poly import eval_many, field_sum
+from ..parallel.ntt_sharded import select_ntt_fns
 from .engine import DeviceTrace
 
 
@@ -94,11 +97,15 @@ class FastStarkProof:
 
 class FastStark:
     def __init__(self, config: FastStarkConfig, device="cuda",
-                 ntt_backend: str = "radix2"):
+                 ntt_backend: str = "radix2", mesh=None):
         if config.lde_backend not in ("fri", "stir", "whir"):
             raise ValueError(f"unknown LDE backend {config.lde_backend!r}")
         self.config = config
         self.device = torch.device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks are on {mesh.device}, the "
+                             f"prover on {self.device}")
+        self.mesh = mesh
         self.ntt_backend = check_backend(ntt_backend)
         # fails here, not mid-prove, when the device does not exist
         torch.empty(0, device=self.device)
@@ -111,7 +118,7 @@ class FastStark:
                 self.ext, blowup=config.blowup, queries=config.queries,
                 arity=config.arity, fold_factor=config.fold_factor,
                 final_len=config.final_len, grinding_bits=config.grinding_bits,
-            ), ntt_backend=ntt_backend)
+            ), ntt_backend=ntt_backend, mesh=mesh)
         else:
             ldt, ldt_config = {"stir": (Stir, StirConfig),
                                "whir": (Whir, WhirConfig)}[config.lde_backend]
@@ -119,7 +126,7 @@ class FastStark:
                 self.ext, k=config.fold_factor, blowup=config.blowup,
                 security_bits=config.queries, final_len=config.final_len,
                 arity=config.arity, grinding_bits=config.grinding_bits,
-            ), ntt_backend=ntt_backend)
+            ), ntt_backend=ntt_backend, mesh=mesh)
         # wall seconds per phase of the latest prove; each boundary
         # synchronizes a CUDA device, so a phase owns its kernels' time
         self.phase_seconds: dict = {}
@@ -158,7 +165,7 @@ class FastStark:
             x = trace.cols_dev.to(self.device)
         else:
             x = pack_u64(trace.cols, self.device)
-        tp = get_ntt_fns(self.base, n, self.ntt_backend)[1](x)
+        tp = select_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1](x)
         return torch.cat([tp] + [f(tp)[None] for f in trace.transitions], 0)
 
     def _point_evals(self, ext_coeffs: torch.Tensor, z) -> list:

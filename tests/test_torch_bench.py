@@ -32,7 +32,7 @@ SCRIPTS = ["chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
            "scripts/torch_stream_probe.py", "scripts/torch_f32_pad_probe.py",
            "scripts/torch_digit_stage_probe.py", "scripts/torch_ntt_probe.py",
            "scripts/torch_launch_count.py",
-           "scripts/torch_ab_prove.py"]
+           "scripts/torch_ab_prove.py", "scripts/torch_dist_probe.py"]
 
 # run a script as __main__ with jax and the JAX package unimportable
 _BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "
@@ -240,6 +240,8 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
      {}, '"probe": "query_split_ab"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",
                                    "--root", "."], {}, '"probe": "parent_change_ab"'),
+    ("scripts/torch_dist_probe.py", ["--device", "cpu", "--log-n", "10", "--reps", "1"],
+     {}, '"all_gather_into_tensor": "ok"'),
 ])
 def test_probe_scripts_dry_run(script, args, env, want):
     res = _run(script, *args, **env)

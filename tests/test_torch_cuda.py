@@ -444,3 +444,124 @@ def test_digit_and_stream_wrappers_refuse_cpu_tensors(dev):
         stream.stream_add1_cuda(torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         nd.level_cuda(x.to(dev), vd)            # the matrix left on the CPU
+
+
+# ---- the sharded paths (parallel/): two ranks sharing this card in a gloo
+# group, each output against the plain single-device version
+SHARDED_LOG_N = 16
+SHARDED_OFFSET = 7
+
+
+def _sharded_inputs():
+    from ministark_tpu_torch.fields import BABYBEAR_FP
+
+    rng = np.random.default_rng(10)
+    n = 1 << SHARDED_LOG_N
+    return {
+        "x": {"gl": rng.integers(0, P, size=(3, n), dtype=np.uint64),
+              "bb": rng.integers(0, BABYBEAR_FP.p, size=(3, n), dtype=np.uint64)},
+        "coeffs": {"gl": rng.integers(0, P, size=(1 << 12, 2), dtype=np.uint64),
+                   "bb": rng.integers(0, BABYBEAR_FP.p, size=(1 << 12, 4),
+                                      dtype=np.uint64)},
+        "scalars": {"gl": ((5, 6), (7, 8)), "bb": (((5, 6), (7, 8)), ((9, 1), (2, 3)))},
+        "leaves": {0: rng.integers(0, P, size=(6 << 12, 1), dtype=np.uint64),
+                   1: rng.integers(0, P, size=(2 << 12, 2), dtype=np.uint64)},
+        "rows": rng.integers(0, P, size=(1 << 12, 48), dtype=np.uint64),
+    }
+
+
+SHARDED_KINDS = ("fft", "ifft", "coset_fft", "coset_ifft")
+
+
+@pytest.fixture(scope="module")
+def sharded():
+    """(inputs, rank results) of one two-rank group on the card running
+    every sharded case once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ministark_tpu_torch.parallel import cases, launch
+
+    inp = _sharded_inputs()
+    todo = []
+    for field in ("gl", "bb"):
+        for kind in SHARDED_KINDS:
+            todo.append(((field, kind), "ntt", dict(
+                field=field, n=1 << SHARDED_LOG_N, x=inp["x"][field], kind=kind,
+                offset=SHARDED_OFFSET if kind.startswith("coset") else None)))
+        alpha, z = inp["scalars"][field]
+        todo.append(((field, "fri"), "fri", dict(field=field, n=1 << 12,
+                                                 coeffs=inp["coeffs"][field],
+                                                 alpha=alpha, z=z)))
+    for fmt, k in ((0, 6), (1, 2)):
+        todo.append((("tree", fmt), "tree", dict(field="gl", comps=inp["leaves"][fmt],
+                                                 leafs_per_node=k, fmt=fmt)))
+    for arity in (4, 8):
+        todo.append((("index", arity), "index_tree", dict(comps=inp["rows"],
+                                                          arity=arity)))
+    return inp, launch.run(cases.run, 2, "gloo", "cuda:0", 600, (todo,))
+
+
+def _u64(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64))
+
+
+@pytest.mark.parametrize("field", ["gl", "bb"])
+@pytest.mark.parametrize("kind", SHARDED_KINDS)
+def test_sharded_ntt_on_card_matches_plain(sharded, field, kind):
+    from ministark_tpu_torch.fields import BABYBEAR_FP, GOLDILOCKS_FP
+
+    inp, ranks = sharded
+    F = {"gl": GOLDILOCKS_FP, "bb": BABYBEAR_FP}[field]
+    x = _u64(inp["x"][field]).cuda()
+    kw = {"fft": {}, "ifft": {"inverse": True}, "coset_fft": {"pre": SHARDED_OFFSET},
+          "coset_ifft": {"inverse": True, "post": SHARDED_OFFSET}}[kind]
+    want = ntt.transform_plain(x, field=F, **kw).cpu()
+    for r in ranks:
+        got, single = r[(field, kind)]
+        assert torch.equal(_u64(got), want)
+        assert torch.equal(_u64(single), want)
+
+
+@pytest.mark.parametrize("field", ["gl", "bb"])
+def test_sharded_fri_on_card_matches_plain(sharded, field):
+    """fold / deep / divide of the two ranks against ops/poly.py's on the
+    CPU (whose products are the plain versions)."""
+    from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2
+    from ministark_tpu_torch.ops.poly import eval_even_odd, fold_even_odd, synth_div_suffix
+
+    inp, ranks = sharded
+    E = {"gl": GOLDILOCKS_FP2, "bb": BABYBEAR_FP4}[field]
+    k = gl.get_ops(E)
+    c = _u64(inp["coeffs"][field])
+    alpha, z = inp["scalars"][field]
+    ap, zp, zi = k.pack_scalar(alpha), k.pack_scalar(z), k.pack_scalar(E.inv(z))
+    q = synth_div_suffix(k, c, zp, zi)
+    want = {"fold": fold_even_odd(k, c, ap),
+            "deep": torch.stack(list(eval_even_odd(k, c, zp))),
+            "divide": torch.cat([q, torch.zeros_like(q[:1])])}
+    for r in ranks:
+        for name, (got, _) in r[(field, "fri")].items():
+            assert torch.equal(_u64(got), want[name]), name
+
+
+@pytest.mark.parametrize("fmt,k", [(0, 6), (1, 2)])
+def test_sharded_tree_on_card_matches_plain(sharded, fmt, k):
+    inp, ranks = sharded
+    leaf = lh.leaf_hash_plain(_u64(inp["leaves"][fmt]).cuda(), k, fmt)
+    levels = [leaf]
+    while levels[-1].shape[0] > 1:
+        levels.append(sh.inner_level_plain(levels[-1]))
+    want = torch.cat(levels).cpu().numpy()
+    for r in ranks:
+        assert np.array_equal(r[("tree", fmt)][0], want)
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+def test_sharded_index_tree_on_card_matches_plain(sharded, arity):
+    inp, ranks = sharded
+    levels = [sh.binary_row_digests_plain(_u64(inp["rows"]).cuda())]
+    while levels[-1].shape[0] > 1:
+        levels.append(sh.inner_level_plain(levels[-1], min(arity, levels[-1].shape[0])))
+    want = torch.cat(levels).cpu().numpy()
+    for r in ranks:
+        assert np.array_equal(r[("index", arity)][0], want)
