@@ -7,13 +7,15 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
-               leaf_hash and ntt instantiation has a 0-byte stack frame and
-               no spill
+               leaf_hash, ntt and ntt_four_step instantiation has a 0-byte
+               stack frame and no spill
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
                equality, times in ms beside the least time the card could
                take (bound), the radix-2 NTT also at a three-pass 2^23 and
-               with its launches per call; the four-step and pipelined NTTs
+               with its launches per call; the four-step passes (pass 2 with
+               the coset post-multiply at a coset_ifft shape) with their
+               device time and bound_frac; the four-step and pipelined NTTs
                also whole,
                against the plain radix-2 NTT; both paths of the base
                product, the Fp2 product at the provers' shapes, and the
@@ -282,8 +284,10 @@ def phase_build():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  ptxas " + ln.strip(), flush=True)
     say("build", f"{os.path.relpath(path, ROOT)} in {secs:.1f} s")
-    # the radix-2 NTT's kernel is csrc/ntt.cu's ntt_pass<gl / bb>
-    for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass")):
+    # the radix-2 NTT's kernel is csrc/ntt.cu's ntt_pass<gl / bb>, the
+    # four-step's csrc/ntt_four_step.cu's four_step_pass{1,2}<gl / bb>
+    for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
+                         ("ntt_four_step", "four_step_pass")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -334,14 +338,16 @@ SPLIT_KEYS = ("host_ms", "device_ms", "profiler_ms", "profiler_kernels")
 
 
 def make_compare(results):
-    """compare(name, label, kern, plain, work, library=None): the kernel's
-    output against its plain version's on the same inputs (exact), then both
-    timed (and ``library``, one PyTorch call computing the same function,
-    where there is one), into ``results[name]`` unless ``name`` is a whole
-    transform; returns that record (None for a whole transform)."""
+    """compare(name, label, kern, plain, work, library=None, device=False):
+    the kernel's output against its plain version's on the same inputs
+    (exact), then both timed (and ``library``, one PyTorch call computing
+    the same function, where there is one; with ``device``, the kernel's
+    device_ms and bound_frac), into ``results[name]`` unless ``name`` is a
+    whole transform; returns that record (None for a whole transform)."""
     import torch
 
-    def compare(name, label, kern, plain, work, reps=5, plain_reps=2, library=None):
+    def compare(name, label, kern, plain, work, reps=5, plain_reps=2, library=None,
+                device=False):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -354,6 +360,9 @@ def make_compare(results):
         lms = None if library is None else timed(library, reps)
         bms, by = rf.bound(*work)
         split = rf.split_ms(kern, reps) if name in SPLIT_TIMED else {}
+        if device:                  # the card's time alone, and the share of it
+            dms = rf.device_ms(kern, reps)
+            split.update(device_ms=dms, bound_frac=bms / dms)
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
                        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
                        f"({by})" + ("" if lms is None else f", library {lms:.3f} ms")
@@ -399,22 +408,25 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
 
     for label, batch, n, kw in backend_shapes:
         x = _rand_u64(rng, (batch, n), F.p)
-        inverse, pre = bool(kw.get("inverse")), kw.get("pre")
+        inverse, pre, post = bool(kw.get("inverse")), kw.get("pre"), kw.get("post")
         scale = ntt.inv_n(F, n) if inverse else None
         n1, n2 = fs._split_sizes(n)
         tw1, tw2, wpow = fs._tables(n, inverse, x.device, F)
         c = fs.pass1_cuda(x, tw2, wpow, pre, F)
+        # pass 2 stores with one product: the post power (1/n folded in) or 1/n
+        work1, work2 = rf.four_step_work(batch, n1, n2, pre is not None,
+                                         inverse or post is not None, tag)
         compare("ntt_four_step_pass1" + sfx, label,
                 lambda: fs.pass1_cuda(x, tw2, wpow, pre, F),
-                lambda: fs.pass1_plain(x, tw2, wpow, pre, F),
-                rf.pass_work(batch, n, n2.bit_length() - 1, 1 + (pre is not None),
-                           tag), plain_reps=1)
+                lambda: fs.pass1_plain(x, tw2, wpow, pre, F), work1,
+                plain_reps=1, device=True)
         compare("ntt_four_step_pass2" + sfx, label,
-                lambda: fs.pass2_cuda(c, tw1, scale, None, F),
-                lambda: fs.pass2_plain(c, tw1, scale, None, F),
-                rf.pass_work(batch, n, n1.bit_length() - 1, int(inverse), tag),
-                plain_reps=1)
-        levels = pp._tables(n, inverse, x.device, F)
+                lambda: fs.pass2_cuda(c, tw1, scale, post, F),
+                lambda: fs.pass2_plain(c, tw1, scale, post, F), work2,
+                plain_reps=1, device=True)
+        # the pipe's levels take no post power (its transform multiplies it
+        # in after them): a shape with one would repeat the ifft levels
+        levels = [] if post is not None else pp._tables(n, inverse, x.device, F)
         y = x
         for i, (Fi, tw, W, k_prod) in enumerate(levels):
             last = i == len(levels) - 1
@@ -422,9 +434,12 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
                     W, k_prod, scale if last else None, F)
             muls = int(i == 0 and pre is not None) + int(W is not None) + int(
                 last and inverse)
+            # products by 1: s^0, and the twiddles W that are w^0
+            ones = int(i == 0 and pre is not None) + (
+                0 if W is None else int((W == 1).sum()) * k_prod)
             compare("ntt_pipe_level" + sfx, f"{label} level {i} (F {Fi})",
                     lambda: pp.level_cuda(*args), lambda: pp.level_plain(*args),
-                    rf.pass_work(batch, n, Fi.bit_length() - 1, muls, tag),
+                    rf.pass_work(batch, n, Fi.bit_length() - 1, muls, tag, ones),
                     plain_reps=1)
             y = pp.level_cuda(*args)
         work = rf.ntt_work(batch, n, pre is not None, inverse, tag)
@@ -503,6 +518,7 @@ def phase_kernels(results):
         ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
         ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
         ("fft (12, 2^21)", 12, 1 << 21, {}),
+        ("coset_ifft (6, 2^21)", 6, 1 << 21, {"inverse": True, "post": shift}),
     ])
 
     # K5: the base product on both of its paths: 16-byte vectors over
@@ -619,6 +635,7 @@ def phase_kernels_bb(results):
         ("ifft (3, 2^20)", 3, 1 << 20, {"inverse": True}),
         ("coset_fft (6, 2^21)", 6, 1 << 21, {"pre": shift}),
         ("fft (24, 2^21)", 24, 1 << 21, {}),
+        ("coset_ifft (6, 2^21)", 6, 1 << 21, {"inverse": True, "post": shift}),
     ])
 
     # K2: the 10-digit leaf hash of the trace tree (3 x 2^20 values, 6 per
@@ -1878,8 +1895,8 @@ def main():
                         # SHA-256, no modular u64 multiply and no digit stage
                         "library_ms": main_shape["library_ms"],
                         "shape": main_shape["shape"],
-                        **{k: main_shape[k] for k in SPLIT_KEYS + ("launches_per_call",)
-                           if k in main_shape}})
+                        **{k: main_shape[k] for k in SPLIT_KEYS
+                           + ("bound_frac", "launches_per_call") if k in main_shape}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,67 +30,21 @@
 //    product. The last pass applies the post powers (1/n folded into hi by
 //    the wrapper) or the 1/n scale alone.
 //
+// The padded rows, the coset power and the stages are in ntt_stages.cuh,
+// which the four-step passes (ntt_four_step.cu) share.
+//
 // Passes after the first run in place in y: a block reads its whole tile
 // before it writes, and no two blocks share an element.
 #include <cuda_runtime.h>
 
-#include "ntt_common.cuh"
+#include "ntt_stages.cuh"
 
 namespace {
 
-constexpr int RADIX_LOG = 3;
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_LOG_N = 30;
 constexpr int PLAN_HEAD = 3;    // passes, coset split h, log order of tile_tw
 constexpr int PLAN_FIELDS = 6;  // s0, L, log_cols, threads, blocks, smem
-
-// the shared-memory row of tile position m: one padding row every 8
-__device__ __forceinline__ uint32_t srow(uint32_t m) { return m + (m >> 3); }
-
-template <class F>
-__device__ __forceinline__ uint64_t coset_pow(const uint64_t* lo,
-                                              const uint64_t* hi, uint32_t i,
-                                              int h) {
-  return F::mul(lo[i & ((1u << h) - 1)], hi[i >> h]);
-}
-
-// Stages t0 + 1 .. t0 + R of the tile's columns: a group is the 2^R
-// positions base + k 2^t0 of one column, in registers.
-template <class F, int R>
-__device__ __forceinline__ void stages(uint64_t* s, const uint64_t* tws,
-                                       int L, int log_c, int t0) {
-  const uint32_t groups = (1u << (L + log_c)) >> R;
-  const uint32_t cmask = (1u << log_c) - 1;
-  for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
-    const uint32_t c = g & cmask, rest = g >> log_c;
-    const uint32_t jlo = rest & ((1u << t0) - 1);
-    const uint32_t base = jlo | ((rest >> t0) << (t0 + R));
-    uint64_t v[1 << R];
-#pragma unroll
-    for (int k = 0; k < (1 << R); ++k) {
-      v[k] = s[(srow(base + (k << t0)) << log_c) + c];
-    }
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int u = t0 + 1 + q;  // the stage within the tile
-#pragma unroll
-      for (int k = 0; k < (1 << R); ++k) {
-        if (k & (1 << q)) continue;
-        const uint32_t j = jlo + ((uint32_t)(k & ((1 << q) - 1)) << t0);
-        const uint64_t a = v[k];
-        // the tile's first stage has only w^0 = 1
-        const uint64_t b = u == 1 ? v[k + (1 << q)]
-                                  : F::mul(v[k + (1 << q)], tws[j << (L - u)]);
-        v[k] = F::add(a, b);
-        v[k + (1 << q)] = F::sub(a, b);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < (1 << R); ++k) {
-      s[(srow(base + (k << t0)) << log_c) + c] = v[k];
-    }
-  }
-}
 
 template <class F>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
@@ -146,18 +100,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
   }
   __syncthreads();
 
-  int t0 = 0;
-  for (; t0 + RADIX_LOG <= L; t0 += RADIX_LOG) {
-    stages<F, RADIX_LOG>(s, tws, L, log_c, t0);
-    __syncthreads();
-  }
-  if (L - t0 == 2) {
-    stages<F, 2>(s, tws, L, log_c, t0);
-    __syncthreads();
-  } else if (L - t0 == 1) {
-    stages<F, 1>(s, tws, L, log_c, t0);
-    __syncthreads();
-  }
+  all_stages<F>(s, tws, L, log_c);
 
   // store: the first pass writes C separate tiles, so a warp takes runs of
   // 8 rows of each column; a later pass writes as it loaded

@@ -28,7 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu")
-HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "sha256.cuh")
+HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "ntt_stages.cuh",
+           "sha256.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -39,8 +40,8 @@ _U64 = ctypes.c_uint64
 _I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)   # a host int64 array
 _NTT = [_P, _P, _I, _I, _I64P, _P, _P, _P, _P, _P, _P, _U64, _I64P, _P]
-_PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
-_PASS2 = [_P, _P, _I, _I, _I, _P, _P, _U64, _P]
+_PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+_PASS2 = [_P, _P, _I, _I, _I, _P, _P, _P, _U64, _P]
 _LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P]
 # name -> argtypes; every function returns int (a cudaError_t). The NTT
 # kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
@@ -59,9 +60,11 @@ _SIGNATURES = {
     # a, b, out, plan (int64[ops/field.py::PLAN_LEN]), stream
     "ms_gl_mul": [_P, _P, _P, _I64P, _P],
     "ms_gl_ext_mul": [_P, _P, _P, _I64P, _P],
-    # x, c, batch, log_n1, log_n2, tw2, wpow, pre, stream
+    # x, c, batch, log_n1, log_n2, w2 stage roots, wpow, pre lo / hi
+    # (ops/ntt.py::coset_tables), stream
     "ms_ntt_four_step_pass1_gl": _PASS1, "ms_ntt_four_step_pass1_bb": _PASS1,
-    # c, y, batch, log_n1, log_n2, tw1, post, scale, stream
+    # c, y, batch, log_n1, log_n2, w1 stage roots, post lo / hi (1/n folded
+    # into hi), scale, stream
     "ms_ntt_four_step_pass2_gl": _PASS2, "ms_ntt_four_step_pass2_bb": _PASS2,
     # x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale, stream
     "ms_ntt_pipe_level_gl": _LEVEL, "ms_ntt_pipe_level_bb": _LEVEL,

@@ -95,11 +95,16 @@ def host_ms(fn, reps: int) -> float:
     return secs * 1e3 / reps
 
 
+MAX_SLEEP_MS = 10_000.0
+
+
 def device_ms(fn, reps: int) -> float:
     """Mean device ms per call over ``reps`` calls run back to back on the
     card: CUDA events around the calls, all enqueued behind a device-side
     sleep (``torch.cuda._sleep``) that outlasts their enqueue, so that no
-    host time falls between the events. The sleep doubles until it does."""
+    host time falls between the events. The sleep doubles until it does;
+    a call that waits for the device itself (a blocking copy) never
+    outruns the sleep, and raises once the sleep passes MAX_SLEEP_MS."""
     fn()
     torch.cuda.synchronize()
     sleep_ms = 1.0 + 0.1 * reps
@@ -117,6 +122,9 @@ def device_ms(fn, reps: int) -> float:
         if enqueue_ms < sleep_ms / 2:
             return start.elapsed_time(end) / reps
         sleep_ms *= 2
+        if sleep_ms > MAX_SLEEP_MS:
+            raise RuntimeError("device_ms: the calls do not queue behind a device "
+                               f"sleep of {MAX_SLEEP_MS} ms (a call waits for the device)")
 
 
 def profiler_ms(fn, reps: int):
@@ -152,21 +160,45 @@ def sha_blocks(msg_bytes):
     return (msg_bytes + 9 + 63) // 64
 
 
+def stage_muls(n, stages):
+    """Products by a stage root other than 1 in ``stages`` DIT stages over
+    each 2^stages-point block of n values: stage u has n / 2 butterflies,
+    n / 2^u of them by w^0 = 1, which need no product."""
+    return (n // 2) * stages - n + (n >> stages)
+
+
 def ntt_work(batch, n, coset_mul: bool, scale_mul: bool, tag="gl"):
+    """The whole transform: log2(n) stages, and per value a coset product
+    (but the one by s^0 = 1) and a scale product if asked; values in and
+    out, the n / 2 roots read once."""
     mul, butterfly = FIELD_OPS[tag]
     log_n = n.bit_length() - 1
-    ops = batch * ((n // 2) * log_n * butterfly
-                   + n * mul * (int(coset_mul) + int(scale_mul)))
+    ops = batch * ((n // 2) * log_n * (butterfly - mul) + stage_muls(n, log_n) * mul
+                   + (n * (int(coset_mul) + int(scale_mul)) - int(coset_mul)) * mul)
     return 16 * batch * n + 8 * (n // 2), ops
 
 
-def pass_work(batch, n, stages, muls, tag="gl"):
-    """One pass over (batch, n): ``stages`` radix-2 stages and ``muls``
-    elementwise products per value (coset, twiddle, scale); each value read
-    and written once."""
+def pass_work(batch, n, stages, muls, tag="gl", ones=0):
+    """One pass over (batch, n): ``stages`` radix-2 stages over blocks of
+    2^stages values (``stage_muls``) and ``muls`` elementwise products per
+    value (coset, twiddle, scale), ``ones`` of each row's by 1 and not
+    counted; each value read and written once."""
     mul, butterfly = FIELD_OPS[tag]
-    ops = batch * ((n // 2) * stages * butterfly + n * mul * muls)
+    ops = batch * ((n // 2) * stages * (butterfly - mul) + stage_muls(n, stages) * mul
+                   + (n * muls - ones) * mul)
     return 16 * batch * n, ops
+
+
+def four_step_work(batch, n1, n2, pre: bool, store_mul: bool, tag="gl"):
+    """(pass 1, pass 2) of the four-step over (batch, n1 n2): pass 1 has
+    log2(n2) stages, the twiddle w^(i1 k2) (by 1 where i1 = 0 or k2 = 0)
+    and, with ``pre``, the coset power (by 1 at i = 0); pass 2 has log2(n1)
+    stages and, with ``store_mul``, one product at the store (1/n, or the
+    post power with 1/n folded in)."""
+    n = n1 * n2
+    return (pass_work(batch, n, n2.bit_length() - 1, 1 + int(pre), tag,
+                      ones=n1 + n2 - 1 + int(pre)),
+            pass_work(batch, n, n1.bit_length() - 1, int(store_mul), tag))
 
 
 def _same(a, b) -> bool:

@@ -4,16 +4,21 @@ The port's twin of scripts/pallas_stream_probe.py: out = x + 1 over a
 (16384, 4096) array of 32-bit words (256 MB read, 256 MB written) with the
 ``stream_add1`` kernel (csrc/stream.cu) at a few launch shapes, beside
 ``torch.add(x, 1)`` on the same tensor. Times are CUDA events around
-``--reps`` launches after a warm-up. Prints one line per shape and, last,
-one JSON line with every reading in GB/s (2 x 4 bytes per word).
+``--reps`` launches after a warm-up. With ``--pairs N`` the kernel at the
+wrapper's own launch shape and ``torch.add`` are then timed in N pairs of
+interleaved turns (kernel first in even pairs, ``torch.add`` first in odd
+ones), with the median of each and of the differences. Prints one line per
+shape and, last, one JSON line with every reading in GB/s (2 x 4 bytes per
+word).
 
-    python3 scripts/torch_stream_probe.py            # on the GPU host
+    python3 scripts/torch_stream_probe.py [--pairs 15]   # on the GPU host
     python3 scripts/torch_stream_probe.py --device cpu --rows 64   # dry run
 """
 
 import argparse
 import json
 import os
+import statistics
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -28,7 +33,24 @@ from ministark_tpu_torch.utils.roofline import time_ms
 LAUNCH_SHAPES = ((128, 1), (256, 1), (256, 4), (512, 4), (1024, 4), (256, 16))
 
 
-def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0):
+def paired(kernel, library, pairs, reps, device):
+    """Both functions timed in ``pairs`` interleaved turns: ms lists, their
+    medians and the median of kernel - library over the pairs."""
+    k_ms, l_ms = [], []
+    for i in range(pairs):
+        if i % 2 == 0:
+            k_ms.append(time_ms(kernel, reps, device))
+            l_ms.append(time_ms(library, reps, device))
+        else:
+            l_ms.append(time_ms(library, reps, device))
+            k_ms.append(time_ms(kernel, reps, device))
+    return {"pairs": pairs, "kernel_ms": k_ms, "torch_add_ms": l_ms,
+            "kernel_median_ms": statistics.median(k_ms),
+            "torch_add_median_ms": statistics.median(l_ms),
+            "diff_median_ms": statistics.median(a - b for a, b in zip(k_ms, l_ms))}
+
+
+def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0, pairs=0):
     """The probe's readings as a dict; raises if the kernel and the plain
     version disagree."""
     rng = np.random.default_rng(seed)
@@ -59,6 +81,14 @@ def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0):
     print(f"torch.add(x, 1):                      {ms:8.3f} ms  "
           f"{gb / ms * 1e3:7.1f} GB/s", flush=True)
     out["best_gb_per_s"] = max(k["gb_per_s"] for k in out["kernel"])
+    if pairs:
+        pr = out["paired"] = paired(lambda: stream.stream_add1(x),
+                                    lambda: torch.add(x, 1), pairs, reps, device)
+        print(f"paired, {pairs} pairs of {reps} calls: stream_add1 median "
+              f"{pr['kernel_median_ms']:.4f} ms ({min(pr['kernel_ms']):.4f}-"
+              f"{max(pr['kernel_ms']):.4f}), torch.add {pr['torch_add_median_ms']:.4f} "
+              f"ms ({min(pr['torch_add_ms']):.4f}-{max(pr['torch_add_ms']):.4f}), "
+              f"median difference {pr['diff_median_ms']:+.4f} ms", flush=True)
     return out
 
 
@@ -68,8 +98,10 @@ def main(argv=None):
     ap.add_argument("--rows", type=int, default=16384)
     ap.add_argument("--cols", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--pairs", type=int, default=0)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.rows, args.cols, args.reps, args.device)), flush=True)
+    print(json.dumps(run(args.rows, args.cols, args.reps, args.device,
+                         pairs=args.pairs)), flush=True)
     return 0
 
 

@@ -30,6 +30,9 @@ from ministark_tpu_torch.ops import ntt
 from ministark_tpu_torch.ops import ntt_four_step as fs
 from ministark_tpu_torch.ops import ntt_pipe as pp
 
+
+import torch_four_step_checks as checks  # tests/, shared with the Goldilocks file
+
 F = BABYBEAR_FP
 P = F.p
 SHIFT = 0x9E3779B9 % P
@@ -132,12 +135,54 @@ def test_coset_tables_match_pow(log_n, scale):
 
 
 # ---------------------------------------------------------------- row 4
+@lru_cache(maxsize=None)
+def _pallas_four_step(log_n):
+    """A seeded (3, 2^log_n) input and its transforms by
+    ``make_pallas_ntt_fns`` (nlimbs = 1) in interpret mode, as the port's
+    tensors: fft, ifft, coset_fft(x, SHIFT), coset_ifft(x, SHIFT^-1), as
+    the Goldilocks file makes them (fft and ifft through the coset entry
+    points at offset 1, None at 2^15)."""
+    n = 1 << log_n
+    _, _, coset_fft, coset_ifft = make_pallas_ntt_fns(J_BB, n)
+    x = jnp.asarray(_bb((3, n), log_n))
+    off = jnp.asarray(np.uint32(SHIFT))
+    off_inv = jnp.asarray(np.uint32(J_BB.inv(SHIFT)))
+    one = jnp.asarray(np.uint32(1))
+    outs = [coset_fft(x, one), coset_ifft(x, one)] if log_n == 14 else [None, None]
+    outs += [coset_fft(x, off), coset_ifft(x, off_inv)]
+    return from_jax_packed(np.asarray(x), F), [
+        None if y is None else from_jax_packed(np.asarray(y), F) for y in outs]
+
+
 def test_four_step_matches_pallas_four_step():
     """ntt_pallas._make_pass1_kernel / _make_pass2_kernel with nlimbs = 1 in
-    interpret mode, batch 2, all four transforms."""
-    n = 1 << 14
-    _compare_with_jax(make_pallas_ntt_fns(J_BB, n),
-                      fs.make_four_step_ntt_fns(F, n), 2, n, 14)
+    interpret mode, batch 3, all four transforms."""
+    x, want = _pallas_four_step(14)
+    fns = fs.make_four_step_ntt_fns(F, 1 << 14)
+    got = [fns[0](x), fns[1](x), fns[2](x, SHIFT), fns[3](x, J_BB.inv(SHIFT))]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", [14, 15])
+def test_four_step_replay_matches_pallas_four_step(log_n, batch):
+    """As the Goldilocks test (tests/torch_four_step_checks.py), over
+    BabyBear."""
+    x, want = _pallas_four_step(log_n)
+    checks.replay_matches_pallas(x, want, batch, SHIFT, F)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", [14, 15])
+def test_four_step_replay_passes_match_plain(log_n, batch):
+    x = torch.from_numpy(_bb((batch, 1 << log_n), 40 + log_n).astype(np.int64))
+    checks.replay_passes_match_plain(x, SHIFT, F)
+
+
+@pytest.mark.parametrize("log_n", [14, 15, 22])
+def test_four_step_kernel_tables_match_pow(log_n):
+    checks.kernel_tables_match_pow(log_n, SHIFT, F)
 
 
 @pytest.mark.parametrize("log_n", [14, 16])

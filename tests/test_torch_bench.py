@@ -249,6 +249,45 @@ def test_probe_scripts_dry_run(script, args, env, want):
     assert want in res.stdout.splitlines()[-1]
 
 
+@pytest.mark.parametrize("n,stages", [(1 << 4, 4), (1 << 6, 3), (1 << 10, 10),
+                                      (1 << 10, 1)])
+def test_stage_muls_count_the_roots_other_than_one(n, stages):
+    """The bound's products in ``stages`` DIT stages over blocks of
+    2^stages values: stage u's butterflies take the stage roots
+    w^(j 2^(stages - u)), j < 2^(u - 1), as the kernels read them; a root
+    that is 1 needs no product."""
+    from ministark_tpu_torch.fields import GOLDILOCKS_FP
+    from ministark_tpu_torch.ops import ntt
+
+    m = 1 << stages
+    roots = ntt.stage_table(GOLDILOCKS_FP, ntt._roots(GOLDILOCKS_FP, m, False), m,
+                            "cpu")[-1]
+    want = sum((n >> u) * int((roots[torch.arange(1 << (u - 1)) << (stages - u)]
+                               != 1).sum()) for u in range(1, stages + 1))
+    assert rf.stage_muls(n, stages) == want
+
+
+def test_four_step_work_skips_the_twiddles_that_are_one():
+    """Pass 1's twiddles w^(i1 k2) that are 1 (i1 = 0 or k2 = 0), counted
+    from the port's tables, are the ones ``four_step_work`` leaves out."""
+    from ministark_tpu_torch.fields import GOLDILOCKS_FP
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import ntt_four_step as fs
+
+    n = 1 << 15
+    n1, n2 = fs._split_sizes(n)
+    _, tw2, wpow = fs._tables(n, False, "cpu")
+    e = (torch.arange(n2)[:, None] * torch.arange(n1)).reshape(-1)
+    tw = fs._split_twiddle(e, wpow, tw2[-1], ntt.ntt_field(GOLDILOCKS_FP))
+    ones = int((tw == 1).sum())
+    assert ones == n1 + n2 - 1
+    work1, work2 = rf.four_step_work(2, n1, n2, False, False)
+    assert work1 == rf.pass_work(2, n, 7, 1, ones=ones)
+    assert work2 == rf.pass_work(2, n, 8, 0)
+    assert work1[1] == 2 * ((n // 2) * 7 * (rf.OPS_BUTTERFLY - rf.OPS_GL_MUL)
+                            + (rf.stage_muls(n, 7) + n - ones) * rf.OPS_GL_MUL)
+
+
 def test_bound_model():
     assert rf.bound(3.35e12, 0) == (1000.0, "bytes")
     ms, by = rf.bound(8, rf.INT32_OPS_PER_S)

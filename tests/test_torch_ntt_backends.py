@@ -10,6 +10,7 @@ tolerance is 0 everywhere."""
 import hashlib
 import json
 import os
+from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,8 @@ from ministark_tpu_torch.stark.proof_io import (
     proof_digests,
     proof_to_json,
 )
+
+import torch_four_step_checks as checks  # tests/, shared with the BabyBear file
 
 P = GOLDILOCKS_FP.p
 SHIFT = 0x9E3779B97F4A7C15 % P
@@ -105,12 +108,99 @@ def _compare_with_radix2(fns, n, seed):
 
 
 # ---------------------------------------------------------------- row 4
+@lru_cache(maxsize=None)
+def _pallas_four_step(log_n):
+    """A seeded (3, 2^log_n) input and its transforms by
+    ``make_pallas_ntt_fns`` in interpret mode, as the port's tensors: fft,
+    ifft, coset_fft(x, SHIFT), coset_ifft(x, SHIFT^-1). fft and ifft are its
+    coset entry points at offset 1 (the same Pallas passes, two compiles
+    fewer); at 2^15, where an interpret-mode run costs seconds, they are
+    None and the checks derive them from the coset transforms."""
+    n = 1 << log_n
+    _, _, coset_fft, coset_ifft = make_pallas_ntt_fns(J_FP, n)
+    x = jnp.asarray(jgl.pack(_u64((3, n), log_n)))
+    off = jnp.asarray(jgl.pack([SHIFT])[0])
+    off_inv = jnp.asarray(jgl.pack([J_FP.inv(SHIFT)])[0])
+    one = jnp.asarray(jgl.pack([1])[0])
+    outs = [coset_fft(x, one), coset_ifft(x, one)] if log_n == 14 else [None, None]
+    outs += [coset_fft(x, off), coset_ifft(x, off_inv)]
+    return (from_jax_packed(x, GOLDILOCKS_FP),
+            [None if y is None else from_jax_packed(y, GOLDILOCKS_FP) for y in outs])
+
+
 def test_four_step_matches_pallas_four_step():
     """ntt_pallas._make_pass1_kernel / _make_pass2_kernel in interpret mode,
-    batch 2, all four transforms."""
-    n = 1 << 14
-    _compare_with_jax(make_pallas_ntt_fns(J_FP, n),
-                      fs.make_four_step_ntt_fns(GOLDILOCKS_FP, n), 2, n, 14)
+    batch 3, all four transforms."""
+    x, want = _pallas_four_step(14)
+    fns = fs.make_four_step_ntt_fns(GOLDILOCKS_FP, 1 << 14)
+    got = [fns[0](x), fns[1](x), fns[2](x, SHIFT), fns[3](x, J_FP.inv(SHIFT))]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", [14, 15])
+def test_four_step_replay_matches_pallas_four_step(log_n, batch):
+    """The kernels' route replayed in torch ops (bit-reversed tile loads,
+    the (lo, hi) coset product with 1/n in hi, the split twiddle, the
+    radix-8 stage rounds over 4-wide tiles) against the Pallas passes, at
+    n1 = n2 (2^14) and n1 = 2 n2 (2^15); batch 1 is the first row."""
+    x, want = _pallas_four_step(log_n)
+    checks.replay_matches_pallas(x, want, batch, SHIFT, GOLDILOCKS_FP)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", [14, 15])
+def test_four_step_replay_passes_match_plain(log_n, batch):
+    checks.replay_passes_match_plain(_tensor(_u64((batch, 1 << log_n), 40 + log_n)),
+                                     SHIFT, GOLDILOCKS_FP)
+
+
+@pytest.mark.parametrize("log_n", [14, 15, 22])
+def test_four_step_kernel_tables_match_pow(log_n):
+    checks.kernel_tables_match_pow(log_n, SHIFT, GOLDILOCKS_FP)
+
+
+def _bank_pairs_per_half_warp(addrs):
+    """Each half-warp's 8-byte words as 16 bank pairs: a 64-bit shared-memory
+    access meets no conflict when the 16 lanes of each half take 16
+    different pairs (word address mod 16)."""
+    return [len({a % 16 for a in addrs[h:h + 16]}) for h in range(0, len(addrs), 16)]
+
+
+@pytest.mark.parametrize("quarter", [False, True], ids=["pass1", "pass2"])
+def test_four_step_tiles_meet_no_bank_conflict(quarter):
+    """csrc/ntt_four_step.cu's lane maps on the tile's rows: pass 1's load and
+    store and pass 2's store (4 columns of 8 consecutive positions a warp),
+    pass 2's load (8 consecutive i1 of 4 rows, to positions brev(i1), with
+    the quarter shift), and every stage round's reads (a warp's groups), at
+    every tile size; and the row maps fit the tile."""
+    for L in range(7, 12):
+        T = 1 << L
+        rows = [int(r) for r in fs._tile_rows(torch.arange(T), L, quarter)]
+        assert len(set(rows)) == T and max(rows) * 4 + 3 < fs._tile_words(L)
+        warps = [range(w, w + 32) for w in range(0, 4 * T, 32)]
+        maps = [[(rows[t >> 2] << 2) + (t & 3) for t in lanes] for lanes in warps]
+        if quarter:   # pass 2's load
+            rev = [int(v) for v in ntt.bitrev(T, "cpu")]
+            i1 = [((t >> 5) << 3) | ((t >> 2) & 4) | (t & 3) for t in range(4 * T)]
+            maps += [[(rows[rev[i1[t]]] << 2) + ((t >> 2) & 3) for t in lanes]
+                     for lanes in warps]
+        t0 = 0
+        while t0 < L:     # stages<F, R>: group g reads base + k 2^t0 of column g & 3
+            R = min(3, L - t0)
+            for g0 in range(0, (4 * T) >> R, 32):
+                for k in range(1 << R):
+                    addrs = []
+                    for g in range(g0, min(g0 + 32, (4 * T) >> R)):
+                        rest = g >> 2
+                        base = (rest & ((1 << t0) - 1)) | ((rest >> t0) << (t0 + R))
+                        addrs.append((rows[base + (k << t0)] << 2) + (g & 3))
+                    maps.append(addrs)
+            t0 += R
+        for addrs in maps:
+            assert all(p == min(16, len(addrs)) for p in
+                       _bank_pairs_per_half_warp(addrs)), (L, addrs)
 
 
 @pytest.mark.parametrize("log_n", [14, 16])
