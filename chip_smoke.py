@@ -7,16 +7,16 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
-               leaf_hash, ntt and ntt_four_step instantiation has a 0-byte
-               stack frame and no spill
+               leaf_hash, ntt, ntt_four_step, ntt_pipe and stream
+               instantiation has a 0-byte stack frame and no spill
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
                equality, times in ms beside the least time the card could
                take (bound), the radix-2 NTT also at a three-pass 2^23 and
                with its launches per call; the four-step passes (pass 2 with
-               the coset post-multiply at a coset_ifft shape) with their
-               device time and bound_frac; the four-step and pipelined NTTs
-               also whole,
+               the coset post-multiply at a coset_ifft shape) and every
+               pipelined level with their device time and bound_frac; the
+               four-step and pipelined NTTs also whole,
                against the plain radix-2 NTT; both paths of the base
                product, the Fp2 product at the provers' shapes, and the
                leaf hash at every SHA-256 padding boundary; the products'
@@ -96,7 +96,8 @@ Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
 the probes' shapes and the dot at the kernel bench's 4096^3, the fused level
 against the butterfly level, and times
-torch.add and torch._int_mm beside them (library_ms).
+torch.add and torch._int_mm beside them (library_ms); the stream kernel and
+torch.add also in 15 pairs of interleaved turns (paired medians).
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -285,9 +286,12 @@ def phase_build():
             print("  ptxas " + ln.strip(), flush=True)
     say("build", f"{os.path.relpath(path, ROOT)} in {secs:.1f} s")
     # the radix-2 NTT's kernel is csrc/ntt.cu's ntt_pass<gl / bb>, the
-    # four-step's csrc/ntt_four_step.cu's four_step_pass{1,2}<gl / bb>
+    # four-step's csrc/ntt_four_step.cu's four_step_pass{1,2}<gl / bb>, the
+    # pipe's csrc/ntt_pipe.cu's pipe_level<gl / bb>, the stream's
+    # stream_add1_kernel<1, 2, 4, 8>
     for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
-                         ("ntt_four_step", "four_step_pass")):
+                         ("ntt_four_step", "four_step_pass"),
+                         ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -427,8 +431,9 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
         # the pipe's levels take no post power (its transform multiplies it
         # in after them): a shape with one would repeat the ifft levels
         levels = [] if post is not None else pp._tables(n, inverse, x.device, F)
+        splits = pp.level_splits(n, inverse, x.device, F)   # W as transform gives it
         y = x
-        for i, (Fi, tw, W, k_prod) in enumerate(levels):
+        for i, ((Fi, tw, W, k_prod), split) in enumerate(zip(levels, splits)):
             last = i == len(levels) - 1
             args = (y.reshape(batch, Fi, n // Fi), tw, pre if i == 0 else None,
                     W, k_prod, scale if last else None, F)
@@ -438,10 +443,11 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
             ones = int(i == 0 and pre is not None) + (
                 0 if W is None else int((W == 1).sum()) * k_prod)
             compare("ntt_pipe_level" + sfx, f"{label} level {i} (F {Fi})",
-                    lambda: pp.level_cuda(*args), lambda: pp.level_plain(*args),
+                    lambda: pp.level_cuda(*args, w_split=split),
+                    lambda: pp.level_plain(*args),
                     rf.pass_work(batch, n, Fi.bit_length() - 1, muls, tag, ones),
-                    plain_reps=1)
-            y = pp.level_cuda(*args)
+                    plain_reps=1, device=True)
+            y = pp.level_cuda(*args, w_split=split)
         work = rf.ntt_work(batch, n, pre is not None, inverse, tag)
         for name, mod in (("four_step", fs), ("pipe", pp)):
             compare(f"{name} transform{sfx}", label,
@@ -678,11 +684,21 @@ def phase_kernels_digit(results):
                                           dtype=np.uint64).astype(np.uint32)
                              .view(np.int32)).cuda()
     words.view(-1)[:2] = torch.tensor([-1, 2**31 - 1], dtype=torch.int32)
-    compare("stream_add1", "(16384, 4096) words",
-            lambda: stream.stream_add1_cuda(words),
-            lambda: stream.stream_add1_plain(words),
-            rf.stream_work(words.numel()), reps=10, plain_reps=1,
-            library=lambda: torch.add(words, 1))
+    rec = compare("stream_add1", "(16384, 4096) words",
+                  lambda: stream.stream_add1_cuda(words),
+                  lambda: stream.stream_add1_plain(words),
+                  rf.stream_work(words.numel()), reps=10, plain_reps=1,
+                  library=lambda: torch.add(words, 1))
+    # the kernel and torch.add in 15 pairs of interleaved turns, medians
+    pr = _load_script("torch_stream_probe").paired(
+        lambda: stream.stream_add1_cuda(words), lambda: torch.add(words, 1), 15, 10,
+        "cuda")
+    rec["paired_ms"] = pr["kernel_median_ms"]
+    rec["paired_library_ms"] = pr["torch_add_median_ms"]
+    say("kernels", f"stream_add1 (16384, 4096) words, {pr['pairs']} pairs in turns: "
+                   f"kernel median {pr['kernel_median_ms']:.4f} ms, torch.add median "
+                   f"{pr['torch_add_median_ms']:.4f} ms, median difference "
+                   f"{pr['diff_median_ms']:+.4f} ms")
     del words
 
     def level_shapes():
@@ -1896,7 +1912,8 @@ def main():
                         "library_ms": main_shape["library_ms"],
                         "shape": main_shape["shape"],
                         **{k: main_shape[k] for k in SPLIT_KEYS
-                           + ("bound_frac", "launches_per_call") if k in main_shape}})
+                           + ("bound_frac", "launches_per_call", "paired_ms",
+                              "paired_library_ms") if k in main_shape}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,14 +34,4 @@ struct bb {
     const uint32_t r = (uint32_t)x - (uint32_t)q * P32;     // x - q p < 2p
     return r >= P32 ? r - P32 : r;
   }
-
-  // s^e from a table of s^(2^b), as gl::pow_bits
-  static __device__ __forceinline__ uint64_t pow_bits(const uint64_t* sq,
-                                                      uint32_t e) {
-    uint64_t r = 1;
-    for (int b = 0; e; ++b, e >>= 1) {
-      if (e & 1) r = mul(r, sq[b]);
-    }
-    return r;
-  }
 };

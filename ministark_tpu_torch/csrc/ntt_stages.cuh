@@ -1,13 +1,15 @@
-// What the shared-memory NTT passes share (csrc/ntt.cu and
-// csrc/ntt_four_step.cu): the tile's padded rows, the coset power from two
+// What the shared-memory NTT passes share (csrc/ntt.cu, csrc/ntt_four_step.cu
+// and csrc/ntt_pipe.cu): the tile's padded rows, the coset power from two
 // tables, and the radix-8 stages a thread runs in registers.
 //
-// A tile holds 2^L positions of 2^log_c adjacent columns; position m of
-// column c lives at s[(rows(m) << log_c) + c]. PadRows adds one padding row
-// every 8, so that a warp whose lanes take C columns of 32 / C consecutive
-// positions, or the 8 groups of a stage round, meets no bank conflict.
+// A tile holds 2^L positions of 2^log_c adjacent columns; an address map
+// gives the word of position m, column c. RowMajor puts it at
+// s[(rows(m) << log_c) + c]: PadRows adds one padding row every 8, so that a
+// warp whose lanes take C columns of 32 / C consecutive positions, or the 8
+// groups of a stage round, meets no bank conflict.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 
 #include "ntt_common.cuh"
 
@@ -20,6 +22,16 @@ struct PadRows {
   }
 };
 
+// the word of position m, column c: row rows(m) of 2^log_c words
+template <class Rows>
+struct RowMajor {
+  Rows rows;
+  int log_c;
+  __device__ __forceinline__ uint32_t operator()(uint32_t m, uint32_t c) const {
+    return (rows(m) << log_c) + c;
+  }
+};
+
 // s^i = lo[i mod 2^h] * hi[i >> h] (ops/ntt.py::coset_tables): one product
 template <class F>
 __device__ __forceinline__ uint64_t coset_pow(const uint64_t* lo,
@@ -28,13 +40,21 @@ __device__ __forceinline__ uint64_t coset_pow(const uint64_t* lo,
   return F::mul(lo[i & ((1u << h) - 1)], hi[i >> h]);
 }
 
+// the values as the tile holds them: no product before the first stage
+struct NoPre {
+  __device__ __forceinline__ uint64_t operator()(uint64_t v, uint32_t, uint32_t) const {
+    return v;
+  }
+};
+
 // Stages t0 + 1 .. t0 + R of the tile's columns: a group is the 2^R
 // positions base + k 2^t0 of one column, in registers. tws holds the
-// 2^(L-1) stage roots of a 2^L-point transform.
-template <class F, int R, class Rows = PadRows>
+// 2^(L-1) stage roots of a 2^L-point transform; addr(m, c) is the word of
+// position m, column c; each value is taken as pre(v, m, c) as it is read.
+template <class F, int R, class Addr, class Pre = NoPre>
 __device__ __forceinline__ void stages(uint64_t* s, const uint64_t* tws,
-                                       int L, int log_c, int t0,
-                                       Rows rows = Rows()) {
+                                       int L, int log_c, int t0, Addr addr,
+                                       Pre pre = Pre()) {
   const uint32_t groups = (1u << (L + log_c)) >> R;
   const uint32_t cmask = (1u << log_c) - 1;
   for (uint32_t g = threadIdx.x; g < groups; g += blockDim.x) {
@@ -44,7 +64,7 @@ __device__ __forceinline__ void stages(uint64_t* s, const uint64_t* tws,
     uint64_t v[1 << R];
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k) {
-      v[k] = s[(rows(base + (k << t0)) << log_c) + c];
+      v[k] = pre(s[addr(base + (k << t0), c)], base + (k << t0), c);
     }
 #pragma unroll
     for (int q = 0; q < R; ++q) {
@@ -63,27 +83,41 @@ __device__ __forceinline__ void stages(uint64_t* s, const uint64_t* tws,
     }
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k) {
-      s[(rows(base + (k << t0)) << log_c) + c] = v[k];
+      s[addr(base + (k << t0), c)] = v[k];
     }
   }
 }
 
 // All L stages of the tile: rounds of 3 in registers, the last round 2 or
-// 1, with a barrier after each
+// 1, with a barrier after each. With a Pre other than NoPre (L >= 3), the
+// first round takes the values through it.
+template <class F, class Addr, class Pre = NoPre>
+__device__ __forceinline__ void all_stages_at(uint64_t* s, const uint64_t* tws,
+                                              int L, int log_c, Addr addr,
+                                              Pre pre = Pre()) {
+  int t0 = 0;
+  if constexpr (!std::is_same<Pre, NoPre>::value) {
+    stages<F, 3>(s, tws, L, log_c, 0, addr, pre);
+    __syncthreads();
+    t0 = 3;
+  }
+  for (; t0 + 3 <= L; t0 += 3) {
+    stages<F, 3>(s, tws, L, log_c, t0, addr);
+    __syncthreads();
+  }
+  if (L - t0 == 2) {
+    stages<F, 2>(s, tws, L, log_c, t0, addr);
+    __syncthreads();
+  } else if (L - t0 == 1) {
+    stages<F, 1>(s, tws, L, log_c, t0, addr);
+    __syncthreads();
+  }
+}
+
+// all_stages_at on a tile of rows(m) rows of 2^log_c words
 template <class F, class Rows = PadRows>
 __device__ __forceinline__ void all_stages(uint64_t* s, const uint64_t* tws,
                                            int L, int log_c,
                                            Rows rows = Rows()) {
-  int t0 = 0;
-  for (; t0 + 3 <= L; t0 += 3) {
-    stages<F, 3>(s, tws, L, log_c, t0, rows);
-    __syncthreads();
-  }
-  if (L - t0 == 2) {
-    stages<F, 2>(s, tws, L, log_c, t0, rows);
-    __syncthreads();
-  } else if (L - t0 == 1) {
-    stages<F, 1>(s, tws, L, log_c, t0, rows);
-    __syncthreads();
-  }
+  all_stages_at<F>(s, tws, L, log_c, RowMajor<Rows>{rows, log_c});
 }

@@ -42,7 +42,7 @@ _I64P = ctypes.POINTER(ctypes.c_int64)   # a host int64 array
 _NTT = [_P, _P, _I, _I, _I64P, _P, _P, _P, _P, _P, _P, _U64, _I64P, _P]
 _PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
 _PASS2 = [_P, _P, _I, _I, _I, _P, _P, _P, _U64, _P]
-_LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _U64, _P]
+_LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _U64, _P]
 # name -> argtypes; every function returns int (a cudaError_t). The NTT
 # kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
 # (BabyBear), with the same arguments.
@@ -66,7 +66,9 @@ _SIGNATURES = {
     # c, y, batch, log_n1, log_n2, w1 stage roots, post lo / hi (1/n folded
     # into hi), scale, stream
     "ms_ntt_four_step_pass2_gl": _PASS2, "ms_ntt_four_step_pass2_bb": _PASS2,
-    # x, y, batch, log_f, log_r, tw, pre, W, log_kprod, scale, stream
+    # x, y, batch, log_f, log_r, stage roots, pre lo / hi
+    # (ops/ntt.py::coset_tables), W, W's split lo / hi (or null), log_kprod,
+    # scale, stream
     "ms_ntt_pipe_level_gl": _LEVEL, "ms_ntt_pipe_level_bb": _LEVEL,
     # x, d, batch, F, R, stream
     "ms_digitize_gl": [_P, _P, _I, _I, _I, _P],

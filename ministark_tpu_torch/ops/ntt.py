@@ -206,16 +206,6 @@ def _bitrev_cpu(n: int) -> torch.Tensor:
     return rev
 
 
-def offset_square_table(field, offset: int, log_n: int, device) -> torch.Tensor:
-    """[s^(2^0), s^(2^1), .., s^(2^(log_n - 1))]: the kernel forms s^i from
-    the bits of i."""
-    out, s = [], field.from_int(offset)
-    for _ in range(max(log_n, 1)):
-        out.append(s)
-        s = field.mul(s, s)
-    return pack_u64(out, device)
-
-
 MAX_PASS_LOG = 11  # P: the most stages a pass of the CUDA kernel runs
 RADIX_LOG = 3      # stages a thread runs in registers between exchanges
 
@@ -313,6 +303,46 @@ def _coset_powers(tables, idx: torch.Tensor, log_n: int, mul) -> torch.Tensor:
     lo, hi = tables
     h = coset_split(log_n)
     return mul(lo[idx & ((1 << h) - 1)], hi[idx >> h])
+
+
+def stages_replay(s: torch.Tensor, tws: torch.Tensor, L: int, log_c: int, addr,
+                  F, pre=None) -> torch.Tensor:
+    """csrc/ntt_stages.cuh's ``all_stages_at`` on flat tiles ``s`` (...,
+    words) of 2^L positions by 2^log_c columns: rounds of 3 stages (the last
+    2 or 1), each on groups of 2^R positions base + k 2^t0 of one column,
+    read, transformed and written back as a thread holds them in registers,
+    with the stage roots ``tws`` (2^(L-1)) read at j << (L - u).
+    ``addr(pos, cols)`` gives the words of positions ``pos`` at columns
+    ``cols``, shaped pos.shape + cols.shape; the first round takes the
+    values as ``pre(v, pos, cols)`` (the kernel's ``Pre``), if given."""
+    dev = s.device
+    cols = torch.arange(1 << log_c, device=dev)
+    t0 = 0
+    while t0 < L:
+        R = min(3, L - t0)
+        g = torch.arange((1 << L) >> R, device=dev)       # one column's groups
+        jlo = g & ((1 << t0) - 1)
+        base = jlo | ((g >> t0) << (t0 + R))
+        pos = base[:, None] + (torch.arange(1 << R, device=dev) << t0)
+        words = addr(pos, cols)                           # (groups, 2^R, C)
+        v = s[..., words]                                 # (..., groups, 2^R, C)
+        if pre is not None and t0 == 0:
+            v = pre(v, pos[..., None], cols)
+        v = list(v.unbind(-2))                            # 2^R x (..., groups, C)
+        for q in range(R):
+            u, half = t0 + 1 + q, 1 << q
+            for k in range(1 << R):
+                if k & half:
+                    continue
+                a, b = v[k], v[k + half]
+                if u > 1:   # the tile's first stage has only w^0 = 1
+                    j = jlo + ((k & (half - 1)) << t0)
+                    b = F.mul(b, tws[j << (L - u)][:, None])
+                v[k], v[k + half] = F.add(a, b), F.sub(a, b)
+        s = s.clone()
+        s[..., words] = torch.stack(v, -2)
+        t0 += R
+    return s
 
 
 def transform_passes_plain(x: torch.Tensor, inverse: bool = False, pre=None,

@@ -46,6 +46,7 @@ from .ntt import (
     ntt_field,
     powers_plain,
     stage_table,
+    stages_replay,
     transform_fns,
     twiddles,
 )
@@ -204,36 +205,11 @@ def _tile_rows(m: torch.Tensor, L: int, quarter: bool) -> torch.Tensor:
 
 def _stages_replay(s: torch.Tensor, tws: torch.Tensor, L: int, quarter: bool,
                    F) -> torch.Tensor:
-    """``all_stages`` (csrc/ntt_stages.cuh) on flat tiles ``s`` (..., words):
-    rounds of 3 stages (the last 2 or 1), each on groups of 2^R positions
-    base + k 2^t0 of one column, read, transformed and written back as a
-    thread holds them in registers, with the stage roots ``tws`` (2^(L-1))
-    read at j << (L - u)."""
-    dev = s.device
-    cols = torch.arange(1 << LOG_COLS, device=dev)
-    t0 = 0
-    while t0 < L:
-        R = min(3, L - t0)
-        g = torch.arange((1 << L) >> R, device=dev)       # one column's groups
-        jlo = g & ((1 << t0) - 1)
-        base = jlo | ((g >> t0) << (t0 + R))
-        pos = base[:, None] + (torch.arange(1 << R, device=dev) << t0)
-        addr = (_tile_rows(pos, L, quarter) << LOG_COLS)[..., None] + cols
-        v = list(s[..., addr].unbind(-2))                 # 2^R x (..., groups, 4)
-        for q in range(R):
-            u, half = t0 + 1 + q, 1 << q
-            for k in range(1 << R):
-                if k & half:
-                    continue
-                a, b = v[k], v[k + half]
-                if u > 1:   # the tile's first stage has only w^0 = 1
-                    j = jlo + ((k & (half - 1)) << t0)
-                    b = F.mul(b, tws[j << (L - u)][:, None])
-                v[k], v[k + half] = F.add(a, b), F.sub(a, b)
-        s = s.clone()
-        s[..., addr] = torch.stack(v, -2)
-        t0 += R
-    return s
+    """``ntt.stages_replay`` on the 4-column tiles of padded rows."""
+    def addr(pos, cols):
+        return (_tile_rows(pos, L, quarter) << LOG_COLS)[..., None] + cols
+
+    return stages_replay(s, tws, L, LOG_COLS, addr, F)
 
 
 def _split_twiddle(e: torch.Tensor, wpow: torch.Tensor, roots2: torch.Tensor,

@@ -17,8 +17,14 @@ from . import cuda
 # Incremented once per call that launches the kernel.
 launches = 0
 
-THREADS = 256        # threads per block
-PER_THREAD = 4       # 16-byte vectors each thread moves
+# The default launch shape, from the paired sweep of
+# scripts/torch_stream_probe.py --sweep-pairs 15 on an H100 80GB HBM3 at
+# 700 W ((16384, 4096) words, medians of 15 pairs): 512 or 1024 threads x 1
+# vector, one group a block, 0.1783 ms against torch.add's 0.1797; 128 or
+# 256 x 1 0.1786-0.1788, x 2 0.1791, x 4 0.1798-0.1800, whole waves of
+# resident blocks walking the groups 0.1849-0.1887 (a grid since removed).
+THREADS = 512        # threads per block
+PER_THREAD = 1       # 16-byte vectors each thread keeps in flight
 
 
 def stream_add1_plain(x: torch.Tensor) -> torch.Tensor:
@@ -30,8 +36,9 @@ def stream_add1_plain(x: torch.Tensor) -> torch.Tensor:
 def stream_add1_cuda(x: torch.Tensor, threads: int = THREADS,
                      per_thread: int = PER_THREAD) -> torch.Tensor:
     """CUDA kernel ``ms_stream_add1``, same contract as
-    ``stream_add1_plain``; ``threads`` per block and 16-byte vectors
-    ``per_thread`` set the launch shape."""
+    ``stream_add1_plain``; ``threads`` per block and the 16-byte vectors
+    ``per_thread`` keeps in flight (1, 2, 4 or 8) set the launch shape,
+    one group of threads x per_thread vectors a block."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"stream_add1: expected a CUDA tensor, got {x.device}")

@@ -4,12 +4,15 @@ The port's twin of scripts/pallas_stream_probe.py: out = x + 1 over a
 (16384, 4096) array of 32-bit words (256 MB read, 256 MB written) with the
 ``stream_add1`` kernel (csrc/stream.cu) at a few launch shapes, beside
 ``torch.add(x, 1)`` on the same tensor. Times are CUDA events around
-``--reps`` launches after a warm-up. With ``--pairs N`` the kernel at the
-wrapper's own launch shape and ``torch.add`` are then timed in N pairs of
-interleaved turns (kernel first in even pairs, ``torch.add`` first in odd
-ones), with the median of each and of the differences. Prints one line per
-shape and, last, one JSON line with every reading in GB/s (2 x 4 bytes per
-word).
+``--reps`` launches after a warm-up. Each launch shape (threads per block,
+16-byte vectors in flight per thread; one group of them a block) is
+timed against ``torch.add`` in ``--sweep-pairs`` pairs of interleaved turns
+(kernel first in even pairs, ``torch.add`` first in odd ones), medians of
+each: the sweep that sets ``ops/stream.py``'s default shape. With ``--pairs
+N`` the kernel at the wrapper's own launch shape and ``torch.add`` are then
+timed in N pairs the same way, with the median of each and of the
+differences. Prints one line per shape and, last, one JSON line with every
+reading in GB/s (2 x 4 bytes per word).
 
     python3 scripts/torch_stream_probe.py [--pairs 15]   # on the GPU host
     python3 scripts/torch_stream_probe.py --device cpu --rows 64   # dry run
@@ -30,7 +33,8 @@ from ministark_tpu_torch.ops import stream
 from ministark_tpu_torch.utils.roofline import time_ms
 
 # (threads per block, 16-byte vectors per thread)
-LAUNCH_SHAPES = ((128, 1), (256, 1), (256, 4), (512, 4), (1024, 4), (256, 16))
+LAUNCH_SHAPES = ((128, 1), (256, 1), (256, 2), (256, 4), (256, 8), (512, 1), (512, 2),
+                 (512, 4), (1024, 1), (1024, 2), (1024, 4))
 
 
 def paired(kernel, library, pairs, reps, device):
@@ -50,7 +54,8 @@ def paired(kernel, library, pairs, reps, device):
             "diff_median_ms": statistics.median(a - b for a, b in zip(k_ms, l_ms))}
 
 
-def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0, pairs=0):
+def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0, pairs=0,
+        sweep_pairs=3):
     """The probe's readings as a dict; raises if the kernel and the plain
     version disagree."""
     rng = np.random.default_rng(seed)
@@ -65,20 +70,25 @@ def run(rows=16384, cols=4096, reps=20, device="cuda", seed=0, pairs=0):
     want = stream.stream_add1_plain(x[:256])
     if not torch.equal(stream.stream_add1(x)[:256], want):
         raise AssertionError("stream_add1 differs from its plain version")
-    shapes = LAUNCH_SHAPES if on_card else ((stream.THREADS, stream.PER_THREAD),)
+    shapes = (LAUNCH_SHAPES if on_card
+              else ((stream.THREADS, stream.PER_THREAD),))
+    library = lambda: torch.add(x, 1)  # noqa: E731
     for threads, per_thread in shapes:
         if on_card:
             fn = lambda: stream.stream_add1_cuda(x, threads, per_thread)  # noqa: E731
         else:
             fn = lambda: stream.stream_add1(x)  # noqa: E731
-        ms = time_ms(fn, reps, device)
+        pr = paired(fn, library, sweep_pairs, reps, device)
+        ms, lms = pr["kernel_median_ms"], pr["torch_add_median_ms"]
         out["kernel"].append({"threads": threads, "per_thread": per_thread,
-                              "ms": ms, "gb_per_s": gb / ms * 1e3})
-        print(f"stream_add1 threads {threads:4d} x {per_thread:2d} vectors: "
-              f"{ms:8.3f} ms  {gb / ms * 1e3:7.1f} GB/s", flush=True)
-    ms = time_ms(lambda: torch.add(x, 1), reps, device)
+                              "ms": ms, "gb_per_s": gb / ms * 1e3,
+                              "torch_add_ms": lms})
+        print(f"stream_add1 threads {threads:4d} x {per_thread} vectors: "
+              f"{ms:8.4f} ms  {gb / ms * 1e3:7.1f} GB/s (median of "
+              f"{sweep_pairs}; torch.add {lms:.4f} ms)", flush=True)
+    ms = time_ms(library, reps, device)
     out["torch_add"] = {"ms": ms, "gb_per_s": gb / ms * 1e3}
-    print(f"torch.add(x, 1):                      {ms:8.3f} ms  "
+    print(f"torch.add(x, 1):                      {ms:8.4f} ms  "
           f"{gb / ms * 1e3:7.1f} GB/s", flush=True)
     out["best_gb_per_s"] = max(k["gb_per_s"] for k in out["kernel"])
     if pairs:
@@ -99,9 +109,10 @@ def main(argv=None):
     ap.add_argument("--cols", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--pairs", type=int, default=0)
+    ap.add_argument("--sweep-pairs", type=int, default=3)
     args = ap.parse_args(argv)
     print(json.dumps(run(args.rows, args.cols, args.reps, args.device,
-                         pairs=args.pairs)), flush=True)
+                         pairs=args.pairs, sweep_pairs=args.sweep_pairs)), flush=True)
     return 0
 
 

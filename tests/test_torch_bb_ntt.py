@@ -32,6 +32,7 @@ from ministark_tpu_torch.ops import ntt_pipe as pp
 
 
 import torch_four_step_checks as checks  # tests/, shared with the Goldilocks file
+import torch_pipe_checks as pipe_checks  # tests/, shared with the Goldilocks file
 
 F = BABYBEAR_FP
 P = F.p
@@ -206,6 +207,21 @@ def test_pipe_matches_pipelined_mxu_levels(monkeypatch):
 def test_pipe_matches_radix2(log_n):
     """2^17 has an F = 32 level, 2^18's middle level K_prod > 1."""
     _compare_with_radix2(pp.make_pipe_ntt_fns(F, 1 << log_n), 1 << log_n, log_n)
+
+
+@pytest.mark.parametrize("log_f,log_r,log_k", pipe_checks.LEVEL_SHAPES)
+def test_pipe_level_replay_matches_plain(log_f, log_r, log_k):
+    """As the Goldilocks test (tests/torch_pipe_checks.py), over BabyBear."""
+    pipe_checks.replay_matches_plain(log_f, log_r, log_k, SHIFT, F)
+
+
+def test_pipe_transform_replay_matches_radix2(monkeypatch):
+    pipe_checks.transform_replay_matches_radix2(17, SHIFT, F, monkeypatch)
+
+
+@pytest.mark.parametrize("log_n", [14, 17])
+def test_pipe_kernel_tables_match_pow(log_n):
+    pipe_checks.kernel_tables_match_pow(log_n, SHIFT, F)
 
 
 # ------------------------------------------------------- tables, dispatch

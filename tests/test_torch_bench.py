@@ -236,6 +236,12 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
      {"LVL_N": "16384", "LVL_IDX": "1"}, '"probe": "digit_stage"'),
     ("scripts/torch_ntt_probe.py", ["--device", "cpu", "--max-log-n", "12", "--reps", "1"],
      {}, '"probe": "ntt_radix2"'),
+    ("scripts/torch_ntt_probe.py", ["--backend", "pipe", "--device", "cpu",
+                                    "--max-log-n", "14", "--reps", "1"],
+     {}, '"probe": "ntt_pipe"'),
+    ("scripts/torch_ntt_probe.py", ["--backend", "pipe", "--variants", "--device", "cpu",
+                                    "--reps", "1"],
+     {}, '"probe": "ntt_pipe_variants"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "2"],
      {}, '"probe": "query_split_ab"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",

@@ -151,6 +151,23 @@ def test_pipe_levels_match_plain(dev, log_n):
                            ntt.transform_plain(x, inverse, pre, post))
 
 
+@pytest.mark.parametrize("field", [Goldilocks.base, BABYBEAR_FP], ids=["gl", "bb"])
+def test_pipe_level_options_match_plain(dev, field):
+    """W's rows and its two-table split, at a level with the coset and W
+    (level 0 of 2^21) and at one with K_prod > 1 and the scale."""
+    n = 1 << 21
+    x = (_rand if field is Goldilocks.base else _rand_bb)((2, n), 5).to(dev)
+    levels = pp._tables(n, False, dev, field)
+    splits = pp.w_split_tables(n, False, dev, field)
+    (F0, tw0, W0, k0), (F1, tw1, W1, k1) = levels[:2]
+    cases = [((x.reshape(2, F0, n // F0), tw0, 7, W0, k0, None, field), splits[0]),
+             ((x.reshape(2, F1, n // F1), tw1, None, W1, k1, 12345, field), splits[1])]
+    for args, split in cases:
+        want = pp.level_plain(*args)
+        for w_split in (None, split):
+            assert torch.equal(pp.level_cuda(*args, w_split=w_split), want)
+
+
 @pytest.mark.parametrize("fmt,k", [(0, 6), (1, 2)])
 def test_leaf_hash_kernel_matches_plain(dev, fmt, k):
     c = _rand((4096 * k, fmt + 1), fmt).to(dev)
@@ -424,9 +441,23 @@ def test_stream_kernel_matches_plain(dev, n):
     v[-1:] = 0x7FFFFFFF
     x = torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev)
     want = stream.stream_add1_plain(x)
-    for threads, per in ((256, 4), (128, 1), (1024, 16)):
+    for threads, per in ((256, 4), (128, 1), (1024, 8), (512, 2)):
         assert torch.equal(stream.stream_add1_cuda(x, threads, per), want)
     assert torch.equal(torch.add(x, 1), want)
+
+
+def test_stream_kernel_default_shape_takes_a_partial_group(dev):
+    """The wrapper's default launch shape where the last group of a block
+    is partial (some of its threads past the end, some with fewer vectors)
+    and n % 4 words trail the last vector."""
+    group = 4 * stream.THREADS * stream.PER_THREAD      # words a full group
+    n = 3 * group + 4 * (stream.THREADS + 5) + 3
+    v = np.random.default_rng(n).integers(0, 1 << 32, size=n, dtype=np.uint64)
+    v[-3:] = 0xFFFFFFFF
+    x = torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev)
+    before = stream.launches
+    assert torch.equal(stream.stream_add1(x), stream.stream_add1_plain(x))
+    assert stream.launches == before + 1
 
 
 def test_digit_and_stream_wrappers_refuse_cpu_tensors(dev):

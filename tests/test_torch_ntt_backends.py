@@ -38,6 +38,7 @@ from ministark_tpu_torch.stark.proof_io import (
 )
 
 import torch_four_step_checks as checks  # tests/, shared with the BabyBear file
+import torch_pipe_checks as pipe_checks  # tests/, shared with the BabyBear file
 
 P = GOLDILOCKS_FP.p
 SHIFT = 0x9E3779B97F4A7C15 % P
@@ -244,10 +245,11 @@ def test_pipe_matches_radix2(log_n, factors):
                          1 << log_n, log_n)
 
 
-def test_pipe_level_matches_fused_level_pipe():
-    """One level_plain call against _fused_level_pipe in interpret mode: the
-    first level of 2^14 ([7, 7]), with the coset pre-multiply and the
-    inter-level twiddle."""
+@lru_cache(maxsize=None)
+def _fused_level_pipe_case():
+    """The first level of 2^14 ([7, 7]) with the coset pre-multiply and the
+    inter-level twiddle: a seeded (2, F, R) input, ``_fused_level_pipe``'s
+    output in interpret mode, and the port's level tables."""
     n, B = 1 << 14, 2
     root = int(J_FP.get_root_of_unity(n))
     factors, _, _, tws_flat, v_pads = jmxu._build_tables(J_FP, n, root)
@@ -271,10 +273,50 @@ def test_pipe_level_matches_fused_level_pipe():
 
     (f0, tw, W, k_prod), _ = pp._tables(n, False, "cpu")
     assert f0 == Fi and W.shape == (R, Fi) and k_prod == 1
-    got = pp.level_plain(_tensor(x).reshape(B, Fi, R), tw, pre=SHIFT, W=W,
-                         k_prod=k_prod)
-    assert got.shape == (B, R, Fi)
+    return _tensor(x).reshape(B, Fi, R), want, (tw, W, k_prod)
+
+
+def test_pipe_level_matches_fused_level_pipe():
+    """One level_plain call against _fused_level_pipe in interpret mode: the
+    first level of 2^14 ([7, 7]), with the coset pre-multiply and the
+    inter-level twiddle."""
+    x, want, (tw, W, k_prod) = _fused_level_pipe_case()
+    got = pp.level_plain(x, tw, pre=SHIFT, W=W, k_prod=k_prod)
+    assert got.shape == (x.shape[0], x.shape[2], x.shape[1])
     assert np.array_equal(got.numpy().view(np.uint64), want)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["w_rows", "w_split"])
+def test_pipe_level_replay_matches_fused_level_pipe(split):
+    """The kernel's route replayed in torch ops (the swizzled 16-column
+    tile, copy units, the (lo, hi) coset product at the load, the radix-8
+    stage rounds, the store's lanes times W's row or its two-table split)
+    against _fused_level_pipe in interpret mode, at the same level."""
+    x, want, (tw, W, k_prod) = _fused_level_pipe_case()
+    w_split = pp.w_split_tables(1 << 14, False, "cpu")[0] if split else None
+    got = pp.level_replay(x, tw, SHIFT, W, k_prod, w_split=w_split)
+    assert np.array_equal(got.numpy().view(np.uint64), want)
+
+
+@pytest.mark.parametrize("log_f,log_r,log_k", pipe_checks.LEVEL_SHAPES)
+def test_pipe_level_replay_matches_plain(log_f, log_r, log_k):
+    pipe_checks.replay_matches_plain(log_f, log_r, log_k, SHIFT, GOLDILOCKS_FP)
+
+
+def test_pipe_transform_replay_matches_radix2(monkeypatch):
+    """2^17 ([6, 6, 5]): an F = 32 level and K_prod > 1."""
+    pipe_checks.transform_replay_matches_radix2(17, SHIFT, GOLDILOCKS_FP, monkeypatch)
+
+
+@pytest.mark.parametrize("log_n", [14, 17])
+def test_pipe_kernel_tables_match_pow(log_n):
+    pipe_checks.kernel_tables_match_pow(log_n, SHIFT, GOLDILOCKS_FP)
+
+
+@pytest.mark.parametrize("log_f", range(5, 10))
+def test_pipe_lane_maps_meet_no_bank_conflict(log_f):
+    """At every F, with R wide enough for the tile's full width."""
+    pipe_checks.lane_maps_meet_no_bank_conflict(log_f, 14)
 
 
 def test_pipe_tables_follow_the_factor_walk():
