@@ -7,8 +7,10 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
-               leaf_hash, ntt, ntt_four_step, ntt_pipe and stream
-               instantiation has a 0-byte stack frame and no spill
+               leaf_hash, ntt, ntt_four_step, ntt_pipe, stream, digit level
+               and digit dot instantiation has a 0-byte stack frame and no
+               spill, and the digit kernels' SASS holds the warpgroup MMA
+               (IGMMA) and no mma.sync (IMMA)
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
                equality, times in ms beside the least time the card could
@@ -94,10 +96,12 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
-the probes' shapes and the dot at the kernel bench's 4096^3, the fused level
-against the butterfly level, and times
-torch.add and torch._int_mm beside them (library_ms); the stream kernel and
-torch.add also in 15 pairs of interleaved turns (paired medians).
+the probes' shapes and the dot at the kernel bench's 4096^3, with their
+device ms and bound_frac, the fused level against the stage chain and the
+butterfly level there and at the three levels of fft (12, 2^21), and times
+torch.add and torch._int_mm beside them (library_ms; _int_mm also with its
+matrix column-major, library_col_ms); the stream kernel and torch.add also
+in 15 pairs of interleaved turns (paired medians).
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -291,13 +295,26 @@ def phase_build():
     # stream_add1_kernel<1, 2, 4, 8>
     for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
                          ("ntt_four_step", "four_step_pass"),
-                         ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel")):
+                         ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel"),
+                         ("digit_level", "digit_level_kernel"),
+                         ("digit_dot", "digit_dot_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
                  f"spill loads in bytes): {frames}")
         say("build", f"{name}: {len(frames)} instantiations, 0 bytes stack frame, "
                      "0 bytes spill stores and loads")
+    # the digit kernels run Hopper's warpgroup MMA (IGMMA in SASS for
+    # wgmma ... .s8), and no mma.sync (IMMA)
+    mixes = _load_script("torch_sass_mix").sass_mix(path, "digit_")
+    for symbol in ("digit_level_kernel", "digit_dot_kernel"):
+        found = {fn: mix for fn, mix in mixes.items() if symbol in fn}
+        if not found or any(not mix["IGMMA"] or mix["IMMA"] for mix in found.values()):
+            fail(f"build: {symbol}'s SASS lacks IGMMA or holds IMMA: "
+                 + json.dumps({fn: {k: mix[k] for k in ("IGMMA", "IMMA")}
+                               for fn, mix in found.items()}))
+        say("build", f"{symbol}: {len(found)} instantiations, IGMMA "
+                     f"{[mix['IGMMA'] for mix in found.values()]} a kernel, no IMMA")
 
 
 def _stack_frames(log, name):
@@ -666,13 +683,17 @@ def phase_kernels_digit(results):
     """Phase 3 for the stream kernel and the digit level: the probes'
     shapes ((16384, 4096) words; B 2, F 32, R 4096, PF 128; the three levels
     of ifft 2^20 with B 2; the kernel bench's 4096^3 product for the dot),
-    each kernel against its plain version, the fused
-    level also against the butterfly level (two independent kernels), and
-    torch.add / torch._int_mm timed beside the stream and the dot."""
+    each kernel against its plain version with its device ms and
+    bound_frac, the fused level also against the stage chain and the
+    butterfly level (independent kernels), there and at the three levels
+    of fft (12, 2^21), with both levels' device ms; torch.add /
+    torch._int_mm timed beside the stream and the dot, _int_mm with its
+    matrix row-major (library_ms) and column-major (library_col_ms)."""
     import numpy as np
     import torch
 
     from ministark_tpu_torch.fields import GOLDILOCKS_FP as F
+    from ministark_tpu_torch.ops import ntt
     from ministark_tpu_torch.ops import ntt_digit as nd
     from ministark_tpu_torch.ops import ntt_pipe as pp
     from ministark_tpu_torch.ops import stream
@@ -704,12 +725,32 @@ def phase_kernels_digit(results):
     def level_shapes():
         root32 = F.get_root_of_unity(32)
         yield ("F 32, R 4096, PF 128", 32, 4096,
-               nd.digit_matrix(root32, 32, "cuda", 128), None, None, 1)
+               nd.digit_matrix(root32, 32, "cuda", 128),
+               ntt.stage_table(F, root32, 32, "cuda"), None, 1)
         n = 1 << 20
         tables = zip(nd.level_tables(n, True, "cuda"),
                      pp._tables(n, True, torch.device("cuda")))
         for i, ((Fi, vd, W, k_prod), (_, tw, _, _)) in enumerate(tables):
             yield (f"ifft 2^20 level {i} (F {Fi})", Fi, n // Fi, vd, tw, W, k_prod)
+
+    def int_mm_col(rec, fn):
+        """torch._int_mm with its matrix column-major (the layout cuBLAS's
+        int8 product is fast in), beside today's row-major reading."""
+        rec["library_col_ms"] = timed(fn, 10)
+        say("kernels", f"digit_dot_s8 {rec['shape']}: torch._int_mm row-major matrix "
+                       f"{rec['library_ms']:.4f} ms, column-major "
+                       f"{rec['library_col_ms']:.4f} ms")
+
+    def butterfly(label, x, vd, tw, W, k_prod, fused):
+        """The fused level against the butterfly level on the same input,
+        both timed on the card alone (device ms)."""
+        if not torch.equal(fused, pp.level_cuda(x, tw, None, W, k_prod)):
+            fail(f"digit_level_gl {label}: differs from the butterfly level")
+        bdms = rf.device_ms(lambda: pp.level_cuda(x, tw, None, W, k_prod), 10)
+        fdms = rf.device_ms(lambda: nd.level_cuda(x, vd, W, k_prod), 10)
+        say("kernels", f"digit_level_gl {label}: equal to the butterfly level; device "
+                       f"ms digit {fdms:.4f}, butterfly (ntt_pipe_level) {bdms:.4f}, "
+                       f"butterfly / digit {bdms / fdms:.3f}")
 
     B = 2
     for label, Fi, R, vd, tw, W, k_prod in level_shapes():
@@ -720,43 +761,56 @@ def phase_kernels_digit(results):
         rows = 0 if W is None else W.shape[0]
         K, N = vd.shape
         compare("digitize_gl", label, lambda: nd.digitize_cuda(x),
-                lambda: nd.digitize_plain(x), rf.digitize_work(B, Fi, R), reps=10)
+                lambda: nd.digitize_plain(x), rf.digitize_work(B, Fi, R), reps=10,
+                device=True)
         d = nd.digitize_cuda(x)
 
         # the library's product beside the kernel's: torch._int_mm wants
         # row-major (R, K) digits, so the K-major stack is transposed once,
         # outside the timed call (library_ms is the B products alone)
         d_rows = d.transpose(1, 2).contiguous()
+        vd_col = vd.t().contiguous().t()
         if not torch.equal(torch.stack([torch._int_mm(d_rows[b], vd) for b in range(B)]),
                            nd.digit_dot_cuda(d, vd)):
             fail(f"digit_dot_s8 {label}: differs from torch._int_mm")
-        compare("digit_dot_s8", label, lambda: nd.digit_dot_cuda(d, vd),
-                lambda: nd.digit_dot_plain(d, vd), rf.digit_dot_work(B, K, R, N),
-                reps=10, library=lambda: [torch._int_mm(d_rows[b], vd)
-                                          for b in range(B)])
-        del d_rows
+        rec = compare("digit_dot_s8", label, lambda: nd.digit_dot_cuda(d, vd),
+                      lambda: nd.digit_dot_plain(d, vd), rf.digit_dot_work(B, K, R, N),
+                      reps=10, library=lambda: [torch._int_mm(d_rows[b], vd)
+                                                for b in range(B)], device=True)
+        int_mm_col(rec, lambda: [torch._int_mm(d_rows[b], vd_col) for b in range(B)])
+        del d_rows, vd_col
         Rm = nd.digit_dot_cuda(d, vd)
         compare("recombine_gl", label + ", no twiddle",
                 lambda: nd.recombine_cuda(Rm, Fi), lambda: nd.recombine_plain(Rm, Fi),
-                rf.recombine_work(B, R, Fi), reps=10)
+                rf.recombine_work(B, R, Fi), reps=10, device=True)
         if W is not None:
             compare("recombine_gl", label + ", twiddle",
                     lambda: nd.recombine_cuda(Rm, Fi, W, k_prod),
                     lambda: nd.recombine_plain(Rm, Fi, W, k_prod),
-                    rf.recombine_work(B, R, Fi, rows), reps=10)
+                    rf.recombine_work(B, R, Fi, rows), reps=10, device=True)
         compare("digit_level_gl", label, lambda: nd.level_cuda(x, vd, W, k_prod),
                 lambda: nd.level_plain(x, vd, W, k_prod),
-                rf.digit_level_work(B, Fi, R, rows), reps=10)
-        if tw is not None:
-            fused = nd.level_cuda(x, vd, W, k_prod)
-            if not torch.equal(fused, pp.level_cuda(x, tw, None, W, k_prod)):
-                fail(f"digit_level_gl {label}: differs from the butterfly level")
-            if not torch.equal(fused, nd.recombine_cuda(Rm, Fi, W, k_prod)):
-                fail(f"digit_level_gl {label}: differs from the stage chain")
-            bms = timed(lambda: pp.level_cuda(x, tw, None, W, k_prod), 10)
-            say("kernels", f"digit_level_gl {label}: equal to the butterfly level "
-                           f"(ntt_pipe_level, {bms:.3f} ms) and to the stage chain")
-        del x, d, Rm
+                rf.digit_level_work(B, Fi, R, rows), reps=10, device=True)
+        fused = nd.level_cuda(x, vd, W, k_prod)
+        if not torch.equal(fused, nd.recombine_cuda(Rm, Fi, W, k_prod)):
+            fail(f"digit_level_gl {label}: differs from the stage chain")
+        butterfly(label, x, vd, tw, W, k_prod, fused)
+        del x, d, Rm, fused
+
+    # the fused level where a prover would use it: fft (12, 2^21), the fast
+    # prover's LDE size, every level (no coset), against the butterfly level
+    n, B = 1 << 21, 12
+    tables = zip(nd.level_tables(n, False, "cuda"),
+                 pp._tables(n, False, torch.device("cuda")))
+    for i, ((Fi, vd, W, k_prod), (_, tw, _, _)) in enumerate(tables):
+        label = f"fft (12, 2^21) level {i} (F {Fi})"
+        x = _rand_u64(rng, (B, Fi, n // Fi), F.p)
+        compare("digit_level_gl", label, lambda: nd.level_cuda(x, vd, W, k_prod),
+                lambda: nd.level_plain(x, vd, W, k_prod),
+                rf.digit_level_work(B, Fi, n // Fi, 0 if W is None else W.shape[0]),
+                reps=10, plain_reps=1, device=True)
+        butterfly(label, x, vd, tw, W, k_prod, nd.level_cuda(x, vd, W, k_prod))
+        del x
 
     # the kernel bench's product (digit_dot_4096): one K-major (4096, 4096)
     # operand against a (4096, 4096) matrix, random int8 over the full range
@@ -766,10 +820,14 @@ def phase_kernels_digit(results):
     b8 = torch.from_numpy(rng.integers(-128, 128, size=(dm, dm), dtype=np.int64)
                           .astype(np.int8)).cuda()
     a8_rows = a8[0].T.contiguous()
-    compare("digit_dot_s8", "(1, 4096, 4096) x (4096, 4096)",
-            lambda: nd.digit_dot_cuda(a8, b8), lambda: nd.digit_dot_plain(a8, b8),
-            rf.digit_dot_work(1, dm, dm, dm), reps=10,
-            library=lambda: torch._int_mm(a8_rows, b8))
+    b8_col = b8.t().contiguous().t()
+    if not torch.equal(torch._int_mm(a8_rows, b8_col), nd.digit_dot_cuda(a8, b8)[0]):
+        fail("digit_dot_s8 4096^3: differs from torch._int_mm")
+    rec = compare("digit_dot_s8", "(1, 4096, 4096) x (4096, 4096)",
+                  lambda: nd.digit_dot_cuda(a8, b8), lambda: nd.digit_dot_plain(a8, b8),
+                  rf.digit_dot_work(1, dm, dm, dm), reps=10,
+                  library=lambda: torch._int_mm(a8_rows, b8), device=True)
+    int_mm_col(rec, lambda: torch._int_mm(a8_rows, b8_col))
 
 
 def _host_proof(sf, steps):
@@ -1913,7 +1971,8 @@ def main():
                         "shape": main_shape["shape"],
                         **{k: main_shape[k] for k in SPLIT_KEYS
                            + ("bound_frac", "launches_per_call", "paired_ms",
-                              "paired_library_ms") if k in main_shape}})
+                              "paired_library_ms", "library_col_ms")
+                           if k in main_shape}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu")
 HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "ntt_stages.cuh",
-           "sha256.cuh")
+           "sha256.cuh", "wgmma_s8.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -76,8 +76,9 @@ _SIGNATURES = {
     "ms_digit_dot_s8": [_P, _P, _P, _I, _I, _I, _I, _P],
     # Rm, y, batch, R, F, PF, W, log_kprod, scale, kc, stream
     "ms_recombine_gl": [_P, _P, _I, _I, _I, _I, _P, _I, _U64, _U64, _P],
-    # x, V, y, batch, F, R, PF, W, log_kprod, scale, kc, stream
-    "ms_digit_level_gl": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _U64, _U64, _P],
+    # x, V (the kernel table, ops/ntt_digit.py::kernel_table), y, batch, F,
+    # R, W, log_kprod, scale, kc, stream
+    "ms_digit_level_gl": [_P, _P, _P, _I, _I, _I, _P, _I, _U64, _U64, _P],
     # x, out, n, threads, per_thread, stream
     "ms_stream_add1": [_P, _P, _I64, _I, _I, _P],
 }

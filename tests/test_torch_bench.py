@@ -234,6 +234,9 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
     ("scripts/torch_f32_pad_probe.py", ["--device", "cpu", "--rows", "16"], {}, "PASS"),
     ("scripts/torch_digit_stage_probe.py", ["--device", "cpu", "--reps", "1"],
      {"LVL_N": "16384", "LVL_IDX": "1"}, '"probe": "digit_stage"'),
+    ("scripts/torch_digit_stage_probe.py", ["--device", "cpu", "--reps", "1",
+                                            "--shapes", "f32,dot4096"],
+     {}, '"probe": "digit_stage"'),
     ("scripts/torch_ntt_probe.py", ["--device", "cpu", "--max-log-n", "12", "--reps", "1"],
      {}, '"probe": "ntt_radix2"'),
     ("scripts/torch_ntt_probe.py", ["--backend", "pipe", "--device", "cpu",

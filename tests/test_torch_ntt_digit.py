@@ -1,13 +1,15 @@
 """The digit-matmul NTT level of the port (ops/ntt_digit.py) and the stream
 probe (ops/stream.py) on the CPU against ministark_tpu/ops/ntt_mxu.py: the
-host tables, each stage's plain version, and the fused level against the
-Pallas kernel in interpret mode. Same inputs, made from a seed with numpy;
-tolerance 0 (field arithmetic is exact)."""
+host tables, each stage's plain version, the fused level against the
+Pallas kernel in interpret mode, and the wgmma kernels' table, routes and
+lane maps (tests/torch_digit_checks.py). Same inputs, made from a seed with
+numpy; tolerance 0 (field arithmetic is exact)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_digit_checks as digit_checks  # tests/, the wgmma kernels' checks
 
 from ministark_tpu.fields import GOLDILOCKS_FP as J_FP
 from ministark_tpu.ops import gl as jgl
@@ -159,6 +161,26 @@ def test_unpadded_and_padded_f32_levels_agree():
     x = _values((1, 32, 9), 2)
     a = nd.level_plain(x, nd.digit_matrix(root, 32, "cpu", 32))
     assert torch.equal(a, nd.level_plain(x, nd.digit_matrix(root, 32, "cpu", 128)))
+
+
+@pytest.mark.parametrize("F", [32, 64, 128])
+def test_kernel_table_equals_jax_digit_matrix(F):
+    digit_checks.kernel_table_matches_jax(F)
+
+
+@pytest.mark.parametrize("F,R,twiddle", digit_checks.LEVEL_CASES)
+def test_level_replay_matches_plain_and_jax(F, R, twiddle):
+    digit_checks.level_replay_matches(F, R, twiddle)
+
+
+@pytest.mark.parametrize("B,K,R,N", digit_checks.DOT_CASES)
+def test_digit_dot_replay_matches_plain(B, K, R, N):
+    digit_checks.digit_dot_replay_matches(B, K, R, N)
+
+
+@pytest.mark.parametrize("F", [32, 64, 128, 256, 512])
+def test_digit_lane_maps_meet_no_bank_conflict(F):
+    digit_checks.lane_maps_meet_no_bank_conflict(F)
 
 
 def test_stream_add1_wraps():
