@@ -71,7 +71,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                sharded_fast, per rank); the sharded coset LDE (6, 2^21),
                constrain tree (6 x 2^21 elements) and index tree (2^19, 48)
                equal to one device's, both timed (a time of the code path:
-               the ranks share the card); then four ranks prove the 2^14 - 1
+               the ranks share the card); the sharded prove core
+               (make_sharded_prove_core) at 2^18 equal to the single core with
+               shift 1, with its launches (path sharded_core); then four ranks prove the 2^14 - 1
                pins (PINS, FAST_PINS x 1 and x 4, STIR_PINS, WHIR_PINS, one
                BB_PINS and one BB_FAST_PINS entry, MiMC's MODEL_PINS)
  11. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
@@ -79,20 +81,34 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                over both fields, the 2^14 - 1 pins of the JAX package
                (parity for all three, fast for MiMC and LFSR), MiMC at
                2^20 - 1 cold and warm, verified
- 12. probes    the three probe scripts in-process (scripts/torch_stream_probe,
+ 12. core      the driver entry and the prove core (ministark_tpu_torch/
+               entry.py, stark/core.py): entry()'s core on the card equal to
+               the CPU's; make_prove_core for Fibonacci and MiMC over both
+               fields at 2^14 against CORE_PINS; the Fibonacci core over
+               Goldilocks at the bench's n = 2^20 (a 3 x 2^20 iFFT, a 6 x 2^21
+               coset LDE) equal to its plain versions on the card, with its
+               host ms, device ms and launches by kernel;
+               dryrun_multichip(2) on two ranks sharing the card (gloo), every
+               rank byte-equal to one device; the native Merkle engine
+               (commit/native.py) against hashlib at the host tail's sizes,
+               both timed, and warm 2^20 - 1 proves with either tail in
+               turns (scripts/torch_ab_prove.py --tail); batch_inverse_full
+               at 2^20 Goldilocks elements, 64 entries against field.inv
+ 13. probes    the three probe scripts in-process (scripts/torch_stream_probe,
                torch_f32_pad_probe, torch_digit_stage_probe at the three
                levels of ifft 2^20)
- 13. bench     bench_kernels_torch.kernel_rooflines() at full size (every
+ 14. bench     bench_kernels_torch.kernel_rooflines() at full size (every
                entry present, bound_frac <= 1) and bench_torch's device_prove,
                fast_prove (with lde_backend "fri", then the stir_e2e_prove and
                whir_e2e_prove entries) and host_prove in-process
- 14. launches  every kernel was launched by the paths it is on (counts set to
+ 15. launches  every kernel was launched by the paths it is on (counts set to
                0 just before each path runs, read just after): the 2^20 - 1
                proves of each prover, backend and field (the STIR and WHIR
                paths stir, whir, stir_bb, whir_bb; the sharded paths
                sharded_parity and sharded_fast, rank 0's, every rank
-               checked), the MiMC prove, the probes, the kernel bench and the
-               bench's proves
+               checked), the MiMC prove, the prove core at 2^20 (core) and
+               sharded over two ranks (sharded_core, rank 0's), the probes,
+               the kernel bench and the bench's proves
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
@@ -217,6 +233,19 @@ MODEL_FAST_PINS = {
 BB_FAST_PINS = {
     (16383, 1): "6dd4dc47941ca20f4250b21b6f194a051157f80e7f0180c8d0ac07600c8b4dcc",
     (16383, 4): "d5052f1b32446e049d392ad13c64d3b0f42e2397ccaabf36d93af9a821c73570",
+}
+
+# sha256 of the three outputs (lde, mixed, folded), each as little-endian
+# u64 (ministark_tpu_torch/convert.py's from_jax_packed, then unpack_u64),
+# of ministark_tpu.stark.core.make_prove_core(sf, 2^14, builder)'s core on
+# its example_args() (shift 7, weights 5^i), JAX on the CPU; builder None
+# (Fibonacci) or ministark_tpu.models.mimc.mimc_device_trace
+CORE_PIN_N = 1 << 14
+CORE_PINS = {
+    ("gl", "fibonacci"): "f07c289c723f1806205da48e9edb7532953271e8fc0e376596e872f8a170e96a",
+    ("gl", "mimc"): "714dcbc2f5e7f560ef35c4461206fad3f4b5ab0f7e231263915257c6229216b2",
+    ("bb", "fibonacci"): "2445d4805baa6ae921bbdb365f8c7544e425ab78fd02343cb175e9b41fda7d48",
+    ("bb", "mimc"): "78f1de2ecda5a6a7d9a05d1cd279b50a4bed62f66b6bfc9e5f70f720a4b476f8",
 }
 
 # the bound model and the timing helper (ministark_tpu_torch/utils/roofline.py),
@@ -1443,6 +1472,7 @@ SHARDED_LDE = (6, 1 << 21)
 SHARDED_TREE = 6 << 21
 SHARDED_ROWS = (1 << 19, 48)
 SHARDED_PIN_STEPS = MODEL_PIN_STEPS
+SHARDED_CORE_N = 1 << 18                 # the sharded prove core's trace domain
 
 
 def _sync(device):
@@ -1546,6 +1576,24 @@ def _sharded_full(mesh):
     a, ms = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"], mesh), dev)
     b, ms1 = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"]), dev)
     out["index_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
+
+    # the sharded prove core (path sharded_core) against the single core
+    # with shift 1 (its LDE is over H), the counts around the sharded call
+    from ministark_tpu_torch.stark.core import make_prove_core, make_sharded_prove_core
+
+    single, example = make_prove_core(sf, SHARDED_CORE_N, device=dev)
+    core = make_sharded_prove_core(sf, SHARDED_CORE_N, mesh)
+    cols, _, weights = example()
+    want = single(cols, 1, weights)
+    dist.barrier()
+    _sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = core(cols, weights)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches, _ = read_counts()
+    out["core"] = (all(torch.equal(a, b) for a, b in zip(got, want)), secs, launches)
     return out
 
 
@@ -1630,6 +1678,20 @@ def phase_sharded(results, parity_digests, fast_sha):
                      "one device's")
             say(label, f"{what} {shape}, rank {r['rank']} of 2: equal to one "
                        f"device; sharded {ms:.3f} ms, one device {ms1:.3f} ms")
+    for r in ranks:
+        equal, secs, launches = r["core"]
+        if not equal:
+            fail(f"sharded: rank {r['rank']}'s sharded prove core at n "
+                 f"{SHARDED_CORE_N} differs from the single core with shift 1")
+        say(label, f"make_sharded_prove_core n {SHARDED_CORE_N}, rank {r['rank']} "
+                   f"of 2: equal to the single core with shift 1; {secs:.3f} s "
+                   "(first call); launches "
+                   + json.dumps({k: v for k, v in launches.items() if v}))
+        for name, (_, _, paths) in KERNELS.items():
+            if "sharded_core" in paths and launches.get(name, 0) <= 0:
+                fail(f"{name} was not launched by rank {r['rank']} of the "
+                     "sharded_core path")
+    record(results, "sharded_core", ranks[0]["core"][2])
 
     t0 = time.time()
     ranks = launch.run(_sharded_pins, 4, "gloo", "cuda:0", SHARDED_TIMEOUT_S)
@@ -1757,6 +1819,184 @@ def phase_models(results):
     record(results, "mimc", launches)
 
 
+CORE_N = 1 << 20                   # the bench's trace domain (2^20 - 1 steps)
+CORE_AB_PAIRS = 4                  # warm proves with either tail, in turns
+TAIL_LOG_SIZES = range(8, 13)      # the host tail's FRI codewords, Fp2 leaves
+INV_N = 1 << 20                    # batch_inverse_full's elements
+
+
+def _core_digest(out):
+    """sha256 of the core's outputs, each as little-endian u64 (CORE_PINS)."""
+    import numpy as np
+
+    from ministark_tpu_torch.ops.field import unpack_u64
+
+    h = hashlib.sha256()
+    for t in out:
+        h.update(np.ascontiguousarray(unpack_u64(t)).tobytes())
+    return h.hexdigest()
+
+
+def _core_plain(cols, shift, weights):
+    """The Goldilocks Fibonacci core with every kernel's plain version:
+    ntt.transform_plain for the iFFT and the coset LDE, the transitions,
+    mix and fold with the plain product (torch ops, no kernel)."""
+    import dataclasses
+
+    import torch
+
+    from ministark_tpu_torch.fields import GOLDILOCKS_FP
+    from ministark_tpu_torch.models.fibonacci_device import _fib_transitions
+    from ministark_tpu_torch.ops import field as gl
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops.field import get_ops
+    from ministark_tpu_torch.ops.poly import fold_even_odd, mix_columns
+    from ministark_tpu_torch.poly import Radix2EvaluationDomain
+
+    F = GOLDILOCKS_FP
+    kp = dataclasses.replace(get_ops(F), mul=gl.mul_plain, scale_base=gl.mul_plain)
+    n = cols.shape[1]
+    tp = ntt.transform_plain(cols, inverse=True, field=F)
+    trans = _fib_transitions(kp, Radix2EvaluationDomain(F, n).group_gen)
+    allc = torch.cat([tp] + [f(tp)[None] for f in trans], 0)
+    lde = ntt.transform_plain(torch.cat([allc, torch.zeros_like(allc)], 1),
+                              pre=int(shift), field=F)
+    mixed = mix_columns(kp, allc, weights)
+    return lde, mixed, fold_even_odd(kp, mixed, weights[1])
+
+
+def phase_core(results, smi):
+    """The driver entry and the prove core on the card (entry.py,
+    stark/core.py), the two-rank dry run, the native Merkle engine and
+    batch_inverse_full."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ministark_tpu_torch.commit import native
+    from ministark_tpu_torch.commit.merkle import MerkleTree, MerkleTreeConfig
+    from ministark_tpu_torch.entry import dryrun_multichip, entry
+    from ministark_tpu_torch.fields import GOLDILOCKS_FP, GOLDILOCKS_FP2
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+    from ministark_tpu_torch.models.mimc import mimc_device_trace
+    from ministark_tpu_torch.ops.field import get_ops
+    from ministark_tpu_torch.ops.poly import batch_inverse_full
+    from ministark_tpu_torch.stark.core import make_prove_core
+
+    label = "core"
+    t_phase = time.time()
+    core, args = entry()
+    out = core(*args)
+    cpu_core, cpu_args = entry(device="cpu")
+    want = cpu_core(*cpu_args)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(out, want)):
+        fail("core: entry()'s core on the card differs from the CPU's")
+    say(label, "entry(): the Goldilocks core at n 256 on the card, outputs "
+               f"{[tuple(o.shape) for o in out]}, equal to the CPU's (plain versions)")
+
+    builders = {"fibonacci": None, "mimc": mimc_device_trace}
+    for (field, model), pin in CORE_PINS.items():
+        sf = _stark_field(field)
+        c, a = make_prove_core(sf, CORE_PIN_N, builders[model], device="cuda")
+        got = _core_digest(c(*a()))
+        if got != pin:
+            fail(f"core: {model} over {sf.name} at n {CORE_PIN_N}: sha256 {got} "
+                 "differs from the JAX pin")
+        say(label, f"{model} over {sf.name} at n {CORE_PIN_N}: equal to the JAX "
+                   "package's make_prove_core (pinned sha256)")
+
+    # full width: the bench's domain, the witness built on the card
+    sf = _stark_field("gl")
+    t0 = time.time()
+    c, a = make_prove_core(sf, CORE_N, functools.partial(
+        fibonacci_device_trace, on_device=True), device="cuda")
+    cols, shift, weights = a()
+    torch.cuda.synchronize()
+    say(label, f"make_prove_core Fibonacci over Goldilocks at n {CORE_N}: trace "
+               f"{tuple(cols.shape)} on the card in {time.time() - t0:.3f} s")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = c(cols, shift, weights)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches, _ = read_counts()
+    record(results, "core", launches)
+    plain = _core_plain(cols, 7, weights)
+    for name, got, want in zip(("lde", "mixed", "folded"), out, plain):
+        err = max_abs_err(got, want)
+        if err != 0:
+            fail(f"core: the {name} output at n {CORE_N} differs from its plain "
+                 f"version (max_abs_err {err})")
+    # timed with an int shift: the packed one's pull to the host waits for
+    # the card in every call
+    if _core_digest(out) != _core_digest(c(cols, 7, weights)):
+        fail("core: the core with the int shift 7 differs from the packed one")
+    call = functools.partial(c, cols, 7, weights)
+    reset_counts()
+    call()
+    torch.cuda.synchronize()
+    warm_launches, _ = read_counts()
+    host = rf.time_ms(call, 5, "cuda")
+    dev_ms, kernels = rf.profiler_ms(call, 5)
+    say(label, f"n {CORE_N} (ifft (3, 2^20), coset LDE (6, 2^21)): lde, mixed, "
+               "folded equal to the plain versions on the card (tolerance 0); "
+               f"first call {first * 1e3:.1f} ms, warm {host:.3f} ms a call "
+               f"(host clock, CUDA events), device {dev_ms:.3f} ms "
+               f"(torch.profiler kernel time, {kernels:.0f} kernels a call); "
+               "launches, first call (its tables built) "
+               + json.dumps({k: v for k, v in launches.items() if v}) + ", warm call "
+               + json.dumps({k: v for k, v in warm_launches.items() if v}) + f"; {smi}")
+    del out, plain, cols, c
+
+    t0 = time.time()
+    collectives = dryrun_multichip(2, device="cuda:0", backend="gloo")
+    say(label, f"{time.time() - t_phase:.1f} s into the phase")
+    say(label, f"dryrun_multichip(2) on cuda:0 (gloo, ranks sharing the card): "
+               f"every rank byte-equal to one device in {time.time() - t0:.1f} s; "
+               f"collectives {json.dumps(collectives)}")
+
+    # the native engine at the host tail's sizes against hashlib
+    ext = GOLDILOCKS_FP2
+    cfg = MerkleTreeConfig(leafs_per_node=2, inner_children=2)
+    rng = np.random.default_rng(SEED + 14)
+    for log_n in TAIL_LOG_SIZES:
+        v = rng.integers(0, ext.p, size=(1 << log_n, 2), dtype=np.uint64)
+        vals = [ext.from_base_coeffs((int(a0), int(a1))) for a0, a1 in v]
+        ta, tb = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a_tree = native.merkle_tree(ext, vals, cfg)
+            ta.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            b_tree = MerkleTree(ext, vals, cfg)
+            tb.append(time.perf_counter() - t0)
+        if a_tree.nodes != b_tree.nodes:
+            fail(f"core: the native tree over 2^{log_n} Fp2 leaves differs from hashlib's")
+        say(label, f"native tree 2^{log_n} Fp2 leaves (fmt 1): equal to hashlib's; "
+                   f"median of 3 native {sorted(ta)[1] * 1e3:.3f} ms, hashlib "
+                   f"{sorted(tb)[1] * 1e3:.3f} ms (host)")
+    ab = _load_script("torch_ab_prove").run(MAIN_STEPS, CORE_AB_PAIRS, tail=True)
+    say(label, f"warm GL parity proves at {MAIN_STEPS} steps, hashlib tail against "
+               "native tail in turns: " + json.dumps(ab))
+
+    # batch_inverse_full at 2^20 Goldilocks elements on the card
+    F = GOLDILOCKS_FP
+    k = get_ops(F)
+    x = _rand_u64(rng, (INV_N,), F.p)
+    x[x == 0] = 1
+    inv = batch_inverse_full(F, k, x)
+    torch.cuda.synchronize()
+    idx = rng.choice(INV_N, size=64, replace=False)
+    xs, ys = k.unpack(x[idx]), k.unpack(inv[idx])
+    if any(y != F.inv(v) for v, y in zip(xs, ys)):
+        fail("core: batch_inverse_full differs from field.inv")
+    ms = rf.time_ms(lambda: batch_inverse_full(F, k, x), 3, "cuda")
+    say(label, f"batch_inverse_full at {INV_N} Goldilocks elements: 64 sampled "
+               f"entries equal to field.inv; {ms:.3f} ms a call (CUDA events)")
+    say(label, f"phase ran in {time.time() - t_phase:.1f} s")
+
+
 def _merge_query_phases(phases):
     """phase_seconds rounded, the per-round query labels summed by kind."""
     from ministark_tpu_torch.stark.engine import merge_query_phases
@@ -1859,13 +2099,17 @@ _LDT_BB_PATHS = ("stir_bb", "whir_bb")
 _BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
 # the 2^20 - 1 proves of phase sharded, per rank (of two)
 _SHARDED_PATHS = ("sharded_parity", "sharded_fast")
+# the prove core on one device at 2^20 (phase core) and sharded over two
+# ranks (phase sharded, per rank)
+_CORE_PATHS = ("core", "sharded_core")
 # name -> (source, the TPU kernel it replaces, the paths whose 2^20 - 1 prove
 # must launch it). The BabyBear entries are the same sources' bb
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
 KERNELS = {
     "ntt": ("ministark_tpu_torch/csrc/ntt.cu",
             "ministark_tpu/ops/ntt_mxu.py:370",
-            ("parity", "fast") + _LDT_PATHS + _BENCH_PATHS + _SHARDED_PATHS),
+            ("parity", "fast") + _LDT_PATHS + _BENCH_PATHS + _SHARDED_PATHS
+            + _CORE_PATHS),
     "sha256_inner_level": ("ministark_tpu_torch/csrc/sha256.cu",
                            "ministark_tpu/ops/sha256_pallas.py:113",
                            ("parity", "fast") + _BB_PATHS + _LDT_PATHS
@@ -1880,7 +2124,7 @@ KERNELS = {
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
                ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS
-               + _SHARDED_PATHS),
+               + _SHARDED_PATHS + _CORE_PATHS),
     "gl_ext_mul": ("ministark_tpu_torch/csrc/gl_mul.cu", "ministark_tpu/ops/gl.py:215",
                    ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS
                    + _SHARDED_PATHS),
@@ -1942,6 +2186,7 @@ def main():
     phase_stir_whir(results)
     phase_sharded(results, parity_digests, hashlib.sha256(fast_blob).hexdigest())
     phase_models(results)
+    phase_core(results, smi)
     phase_probes(results)
     phase_bench(results)
 

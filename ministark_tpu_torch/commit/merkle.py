@@ -76,7 +76,10 @@ class MerkleTree:
         inputs: Sequence,
         config: MerkleTreeConfig,
         leaf_hashes: Optional[List[bytes]] = None,
+        nodes: Optional[List[bytes]] = None,
     ):
+        """``leaf_hashes``: the leaf groups' digests, hashed elsewhere;
+        ``nodes``: every node digest, hashed elsewhere (commit/native.py)."""
         leafs_per_node = config.leafs_per_node
         inner_children = config.inner_children
 
@@ -99,6 +102,21 @@ class MerkleTree:
         self.config = config
         self.leafs = list(inputs)
 
+        if nodes is not None:
+            nodes = list(nodes)
+        else:
+            nodes = self._build_nodes(field, group_num, config, leaf_hashes)
+        assert len(nodes) == node_num
+        self.nodes = nodes
+        # value -> first leaf index (preserves the reference's first-match
+        # linear-scan semantics, src/merkle.rs:216-225, without the O(n) scan)
+        self._index = {}
+        for i, v in enumerate(self.leafs):
+            self._index.setdefault(self._key(v), i)
+
+    def _build_nodes(self, field, group_num, config, leaf_hashes):
+        leafs_per_node = config.leafs_per_node
+        inner_children = config.inner_children
         nodes: List[bytes] = []
         # First pass: hash leaf groups (optionally precomputed by a fast backend)
         if leaf_hashes is not None:
@@ -118,14 +136,7 @@ class MerkleTree:
                 nodes.append(self.calculate_from_nodes(nodes[i : i + inner_children]))
             level_start += level_size
             level_size //= inner_children
-
-        assert len(nodes) == node_num
-        self.nodes = nodes
-        # value -> first leaf index (preserves the reference's first-match
-        # linear-scan semantics, src/merkle.rs:216-225, without the O(n) scan)
-        self._index = {}
-        for i, v in enumerate(self.leafs):
-            self._index.setdefault(self._key(v), i)
+        return nodes
 
     # --- hashing (src/merkle.rs:162-177) ---
     @staticmethod

@@ -14,6 +14,7 @@ Every entry point takes device pointers and the CUDA stream as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -111,14 +112,23 @@ def _run_all(cmds):
     return [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(cmds, procs)]
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold ``_build/build.lock`` (an exclusive file lock): every build
+    into ``_build/`` (these kernels, commit/native.py's library) runs
+    under it, so concurrent first uses build once."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def build() -> str:
     """Compile the library if it is not built yet; returns its path. The
     compiler's output (ptxas register and spill counts) goes to
     ``_build/build.log``."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libministark_kernels_{_source_hash()}.so")
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock():
         if not os.path.exists(so):
             nvcc = _nvcc()
             tmp = f"{so}.tmp{os.getpid()}"

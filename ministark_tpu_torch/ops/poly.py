@@ -1,5 +1,5 @@
 """Polynomial primitives on coefficient tensors: powers, sums, evaluation,
-folding and division by (x - z).
+folding, division by (x - z), prefix products and batch inversion.
 
 Port of ``ministark_tpu/ops/poly_device.py``. Every function takes the
 ``FieldOps`` of its field (ops/field.py) and works on tensors of shape
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .field import FieldOps
+from .field import FieldOps, lift_base_array
 
 
 def _elem_nd(k: FieldOps) -> int:
@@ -54,6 +54,17 @@ def powers(k: FieldOps, x, n: int):
         pw = torch.cat([pw, k.mul(pw, step)], ax)
         step = k.mul(step, step)
     return pw.narrow(ax, 0, n)
+
+
+def eval_poly(k: FieldOps, coeffs, x):
+    """sum_i coeffs[i] * x^i: (n, *elem), (*elem) -> (*elem)."""
+    return field_sum(k, k.mul(coeffs, powers(k, x, coeffs.shape[0])), axis=0)
+
+
+def eval_poly_base_coeffs_ext_point(k_ext: FieldOps, base_coeffs, x):
+    """A base-field polynomial (n,) evaluated at an extension point x
+    (*elem): its coefficients lifted into the extension's layout."""
+    return eval_poly(k_ext, lift_base_array(k_ext, base_coeffs), x)
 
 
 def eval_many(k: FieldOps, coeffs_batch, x):
@@ -127,6 +138,67 @@ def synth_div_suffix(k: FieldOps, coeffs, zp, zinvp):
     ipw = powers(k, zinvp, n - 1)                # zinv^0 .. zinv^(n-2)
     inv_pw = k.mul(ipw, zinvp.unsqueeze(ax).expand_as(ipw))
     return k.mul(suf.narrow(ax, 1, n - 1), inv_pw)
+
+
+def synth_div(k: FieldOps, coeffs, z):
+    """Exact division by (x - z): (n, *elem) coefficients, z (*elem) ->
+    the (n - 1, *elem) quotient, the remainder f(z) dropped. Any z, zero
+    included. The recurrence q_(i-1) = c_i + z q_i, read from the top,
+    gives B_j = sum_(i <= j) z^(j - i) b_i over b = c_(n-1), ..., c_1
+    (q_(n-2-j) = B_j), computed as a log-step scan: after the step of
+    shift s, B_j holds the window (j - 2s, j], and one step adds
+    z^s * B_(j-s)."""
+    n = coeffs.shape[0]
+    if n <= 1:
+        return coeffs[:0]
+    b = torch.flip(coeffs[1:], [0])              # c_(n-1), ..., c_1
+    zs = z                                       # z^s
+    s = 1
+    while s < n - 1:
+        shifted = k.mul(b[:-s], zs.expand_as(b[:-s]))
+        b = torch.cat([b[:s], k.add(b[s:], shifted)], 0)
+        zs = k.mul(zs, zs)
+        s *= 2
+    return torch.flip(b, [0])
+
+
+def prefix_products(k: FieldOps, arr):
+    """P_i = prod_(j <= i) arr[j] along axis 0 (Hillis-Steele)."""
+    n = arr.shape[0]
+    s = 1
+    while s < n:
+        arr = torch.cat([arr[:s], k.mul(arr[s:], arr[:-s])], 0)
+        s *= 2
+    return arr
+
+
+def _one_like(k: FieldOps, a):
+    one = torch.zeros_like(a)
+    if k.elem_axes:
+        one[..., 0] = 1
+    else:
+        one.fill_(1)
+    return one
+
+
+def batch_inverse(k: FieldOps, arr, total_inv):
+    """Montgomery batch inversion of (n, *elem) nonzero values, given
+    ``total_inv`` = 1 / prod(arr) (*elem): inv(a_i) = P_(i-1) S_(i+1)
+    total_inv, with prefix products P and suffix products S (P_(-1) =
+    S_n = 1)."""
+    pre = prefix_products(k, arr)
+    suf = torch.flip(prefix_products(k, torch.flip(arr, [0])), [0])
+    one = _one_like(k, arr[:1])
+    p_prev = torch.cat([one, pre[:-1]], 0)
+    s_next = torch.cat([suf[1:], one], 0)
+    return k.mul(k.mul(p_prev, s_next), total_inv.expand_as(arr))
+
+
+def batch_inverse_full(field, k: FieldOps, arr):
+    """``batch_inverse`` with the total product pulled to the host (one
+    element), inverted there and sent back."""
+    total = k.unpack(prefix_products(k, arr)[-1:])[0]
+    return batch_inverse(k, arr, k.pack_scalar(field.inv(total), arr.device))
 
 
 def effective_len(t) -> int:

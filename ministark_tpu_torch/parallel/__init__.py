@@ -36,7 +36,7 @@ mesh=mesh)`` or ``FastStark(config, device=mesh.device, mesh=mesh)``; the
 ``PackedMerkleTree`` and ``IndexMerkleTree``.
 """
 
-from .fri_sharded import get_sharded_fri_fns, make_sharded_fri_fns
+from .fri_sharded import get_sharded_fri_fns, make_sharded_fold_fns, make_sharded_fri_fns
 from .mesh import Mesh, default_axis, make_mesh
 from .merkle_sharded import can_shard_tree, sharded_tree_digests
 from .ntt_sharded import (
@@ -50,5 +50,5 @@ from .ntt_sharded import (
 __all__ = [
     "Mesh", "make_mesh", "default_axis", "make_sharded_ntt_fns", "sharded_lde",
     "can_shard", "get_sharded_ntt_fns", "select_ntt_fns", "get_sharded_fri_fns",
-    "make_sharded_fri_fns", "can_shard_tree", "sharded_tree_digests",
+    "make_sharded_fri_fns", "make_sharded_fold_fns", "can_shard_tree", "sharded_tree_digests",
 ]

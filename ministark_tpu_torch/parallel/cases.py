@@ -7,13 +7,17 @@ imports without jax. Inputs arrive as numpy uint64 arrays (the u64 bit
 patterns) and results leave as numpy arrays or proof bytes; tensors live
 on ``mesh.device``.
 
-    launch.run(cases.run, 4, "gloo", "cpu", args=([
+    launch.run(cases.run, 4, "gloo", device="cpu", args=([
         ("fft", "ntt", dict(field="gl", n=256, x=x)),
         ("proof", "parity", dict(field="gl", steps=1023)),
     ],))            # -> per rank {"fft": (sharded, single), "proof": ...}
 
-A case that raises fails its rank, and ``launch.run`` then raises: every
-rank must call the same collectives, so no case is skipped on one rank.
+(``launch.run`` puts the ranks on the card unless ``device`` says
+otherwise.) The proves (``parity``, ``fast``, ``ldt``) and ``core`` also
+run on one device when ``mesh`` is None, on ``device`` (the CPU unless
+given): ``entry.py::dryrun_multichip`` holds each rank against them. A case
+that raises fails its rank, and ``launch.run`` then raises: every rank must
+call the same collectives, so no case is skipped on one rank.
 """
 
 from __future__ import annotations
@@ -42,7 +46,11 @@ KINDS = ("fft", "ifft", "coset_fft", "coset_ifft")
 
 
 def _t(mesh, a) -> torch.Tensor:
-    return pack_u64(np.asarray(a, dtype=np.uint64), mesh.device)
+    return _t_on(mesh.device, a)
+
+
+def _t_on(device, a) -> torch.Tensor:
+    return pack_u64(np.asarray(a, dtype=np.uint64), device)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -139,39 +147,113 @@ def _trace(model, sf, steps, device):
     return fibonacci_device_trace(sf, steps, on_device=True, device=device)
 
 
-def _device(mesh):
-    return torch.device("cpu") if mesh is None else mesh.device
+def _device(mesh, device=None):
+    if mesh is not None:
+        return mesh.device
+    return torch.device("cpu" if device is None else device)
 
 
-def parity(mesh, field, steps, model="fibonacci"):
+def _builder(model):
+    """The trace builder of ``stark/core.py`` for a model name."""
+    if model == "mimc":
+        from ..models.mimc import mimc_device_trace
+
+        return mimc_device_trace
+    return None                                  # Fibonacci
+
+
+def core(mesh, field, n, model="fibonacci", cols=None, weights=None, device=None):
+    """The prove core's (lde, mixed, folded) as numpy arrays: sharded
+    (``make_sharded_prove_core``) over ``mesh``, or with ``mesh`` None the
+    single core with shift 1 on ``device``, the sharded core's twin. The
+    columns and weights are u64 arrays, the model's own columns and 5^i
+    unless given."""
+    from ..stark.core import make_prove_core, make_sharded_prove_core
+
+    sf, dev = STARK[field], _device(mesh, device)
+    single, example = make_prove_core(sf, n, _builder(model), device=dev)
+    c0, _, w0 = example()
+    c = c0 if cols is None else _t_on(dev, cols)
+    w = w0 if weights is None else _t_on(dev, weights)
+    if mesh is None:
+        out = single(c, 1, w)
+    else:
+        out = make_sharded_prove_core(sf, n, mesh, _builder(model))(c, w)
+    return tuple(_np(t) for t in out)
+
+
+def fold_deep(mesh, field, coeffs, alpha, z, device=None):
+    """(folded, f_even(z), f_odd(z)) of (n, d) extension coefficients:
+    ``make_sharded_fold_fns`` over ``mesh``, or with ``mesh`` None
+    ``ops/poly.py``'s fold_even_odd and eval_even_odd on ``device``."""
+    from .fri_sharded import make_sharded_fold_fns
+
+    E, dev = EXT[field], _device(mesh, device)
+    k = get_ops(E)
+    c = _t_on(dev, coeffs)
+    ap, zp = k.pack_scalar(alpha, dev), k.pack_scalar(z, dev)
+    if mesh is None:
+        folded, (fe, fo) = fold_even_odd(k, c, ap), eval_even_odd(k, c, zp)
+    else:
+        fold, deep = make_sharded_fold_fns(E, c.shape[0], mesh)
+        folded, (fe, fo) = fold(c, ap), deep(c, zp)
+    return _np(folded), _np(fe), _np(fo)
+
+
+def parity(mesh, field, steps, model="fibonacci", device=None):
     """(proof JSON of the sharded parity prove, collectives it called);
-    ``mesh`` None proves on one device, the CPU."""
+    ``mesh`` None proves on one device, ``device`` (the CPU unless given)."""
     from ..stark import StarkConfig
     from ..stark.engine import DeviceEngine
     from ..stark.proof_io import proof_to_json
 
-    sf = STARK[field]
-    trace = _trace(model, sf, steps, _device(mesh))
+    sf, dev = STARK[field], _device(mesh, device)
+    trace = _trace(model, sf, steps, dev)
     cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
     before = dict(mesh_mod.collectives)
-    proof = DeviceEngine(cfg, device=_device(mesh), mesh=mesh).prove(trace)
+    proof = DeviceEngine(cfg, device=dev, mesh=mesh).prove(trace)
     return proof_to_json(sf, proof), _collectives(before)
 
 
-def fast(mesh, field, steps, cfg, batch=1, model="fibonacci"):
+def fast(mesh, field, steps, cfg, batch=1, model="fibonacci", device=None):
     """(proof bytes of the sharded fast prove of ``batch`` traces,
     collectives it called); ``cfg``: FastStarkConfig's keywords; ``mesh``
-    None proves on one device, the CPU."""
+    None proves on one device, ``device`` (the CPU unless given)."""
     from ..stark.fast import FastStark, FastStarkConfig
     from ..stark.proof_io import fast_proof_to_bytes
 
-    sf = STARK[field]
-    traces = [_trace(model, sf, steps, _device(mesh)) for _ in range(batch)]
-    stark = FastStark(FastStarkConfig(sf, steps, **cfg), device=_device(mesh),
-                      mesh=mesh)
+    sf, dev = STARK[field], _device(mesh, device)
+    traces = [_trace(model, sf, steps, dev) for _ in range(batch)]
+    stark = FastStark(FastStarkConfig(sf, steps, **cfg), device=dev, mesh=mesh)
     before = dict(mesh_mod.collectives)
     proof = stark.prove_many(traces)
     return fast_proof_to_bytes(sf, proof), _collectives(before)
+
+
+def ldt(mesh, backend, n=1 << 10, device=None):
+    """(the proof's fields, collectives it called) of a standalone STIR or
+    WHIR prove (``backend``) over two random Goldilocks Fp2 polynomials of
+    n coefficients from ``ark_test_rng``, in ``__graft_entry__.py:215-260``'s
+    configuration (k 4, blowup 2, security 8, final length 16): sharded
+    over ``mesh``, or on one device, ``device``, when ``mesh`` is None."""
+    from ..fri.stir import Stir, StirConfig
+    from ..fri.whir import Whir, WhirConfig
+    from ..utils.rng import ark_test_rng
+
+    ext, dev = GOLDILOCKS_FP2, _device(mesh, device)
+    rng = ark_test_rng()
+    polys = get_ops(ext).pack([ext.rand(rng) for _ in range(2 * n)], dev)
+    polys = polys.reshape(2, n, 2)
+    cls, cfg = {"stir": (Stir, StirConfig), "whir": (Whir, WhirConfig)}[backend]
+    before = dict(mesh_mod.collectives)
+    proof = cls(cfg(ext, k=4, blowup=2, security_bits=8, final_len=16),
+                mesh=mesh).prove(polys)
+    paths = [p for q in proof.batch_openings for p in q]
+    paths += [p for rnd in proof.round_openings for p in rnd]
+    fields = (proof.group_roots, proof.round_roots, proof.betas,
+              getattr(proof, "sumcheck", None), proof.final_coeffs,
+              [(p.row, tuple(p.groups)) for p in paths])
+    return fields, _collectives(before)
 
 
 def fail_on_rank(mesh, rank, hang=False):

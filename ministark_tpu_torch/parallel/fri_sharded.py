@@ -110,6 +110,13 @@ def make_sharded_fri_fns(field, n: int, mesh: Mesh):
     return {"fold": fold, "deep": deep, "divide": divide}
 
 
+def make_sharded_fold_fns(field, n: int, mesh: Mesh):
+    """(fold, deep) of ``get_sharded_fri_fns``: the pair the dry run
+    (``entry.py``) drives, as ``ministark_tpu/parallel/fri_sharded.py:156``."""
+    fns = get_sharded_fri_fns(field, n, mesh)
+    return fns["fold"], fns["deep"]
+
+
 _FN_CACHE: dict = {}
 
 

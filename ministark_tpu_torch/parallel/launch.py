@@ -17,9 +17,11 @@ or the running script). ``settings`` are (module, attribute, value)
 triples set in every rank before ``fn`` runs: module state a caller
 changed in its own process (``stark.engine.DEVICE_MIN_SIZE``) does not
 reach a spawned process otherwise. Each rank runs torch on one thread.
+``device`` is the card by default: ``device="cuda"`` gives rank r card
+r % (number of cards) (a card each, the nccl case, when there are enough);
 ``device="cuda:0"`` puts every rank on that card (ranks that share one
-card, with gloo); ``device="cuda"`` gives rank r card r (a card each, the
-nccl case). The kernel library is built here, before the ranks start.
+card, with gloo); ``device="cpu"`` runs CPU ranks (gloo). The kernel
+library is built here, before the ranks start.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def _rank_main(fn, rank, world, backend, device, store_path, timeout_s, args,
             setattr(importlib.import_module(module), attr, value)
         dev = torch.device(device)
         if dev.type == "cuda":
-            dev = torch.device("cuda", rank if dev.index is None else dev.index)
+            index = rank % torch.cuda.device_count() if dev.index is None else dev.index
+            dev = torch.device("cuda", index)
             torch.cuda.set_device(dev)
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, world), rank=rank,
@@ -91,7 +94,7 @@ def _collect(procs, results, world, timeout_s):
     return [got[r] for r in range(world)]
 
 
-def run(fn, world: int, backend: str, device="cpu", timeout_s: float = 300.0,
+def run(fn, world: int, backend: str, device="cuda", timeout_s: float = 300.0,
         args=(), settings=()):
     """[fn(mesh, *args) of rank 0, ..., of rank world - 1]."""
     if torch.device(device).type == "cuda":

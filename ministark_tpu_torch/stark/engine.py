@@ -10,7 +10,9 @@ on the engine's device:
                                             ``ntt_backend`` argument picks
                                             radix-2, four-step or pipe)
   codeword Merkle commitments            -> commit/packed_tree.py
-                                            (leaf-hash and SHA-256 kernels)
+                                            (leaf-hash and SHA-256 kernels);
+                                            host-tail FRI rounds ->
+                                            commit/native.py (C++, SHA-NI)
   mixing / folding / division / DEEP     -> ops/poly.py (torch ops)
 
 Only protocol-inherent sequential state (the Fiat-Shamir sponge, challenge
@@ -39,7 +41,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from ..commit.merkle import MerkleTree
+from ..commit import native
 from ..commit.packed_tree import PackedMerkleTree, to_leaf_comps
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
 from ..ops.field import get_ops, lift_base_array, pack_u64
@@ -109,6 +111,13 @@ class DeviceTrace:
 
 
 class DeviceEngine:
+    # the tree of a host-tail FRI round (a codeword under DEVICE_MIN_SIZE):
+    # the native engine, as the JAX engine's PackedMerkleTree.from_scalars
+    # (ministark_tpu/stark/engine.py:694); any builder with MerkleTree's
+    # signature gives the same bytes (scripts/torch_ab_prove.py --tail sets
+    # the hashlib MerkleTree on one engine to time the two)
+    tail_tree = staticmethod(native.merkle_tree)
+
     def __init__(self, config: StarkConfig, device="cuda",
                  ntt_backend: str = "radix2", query_split: bool = False,
                  mesh=None):
@@ -389,7 +398,8 @@ class DeviceEngine:
             codeword = Radix2EvaluationDomain(ext, size).fft(coeffs)
             return _FriRoundRepr(device=False, ke=self.ke, coeffs=coeffs,
                                  codeword=codeword,
-                                 tree=MerkleTree(ext, codeword, mcfg), size=size)
+                                 tree=self.tail_tree(ext, codeword, mcfg),
+                                 size=size)
         codeword = self._ext_fft(coeffs[: min(size, coeffs.shape[0])], size)
         return _FriRoundRepr(device=True, ke=self.ke, coeffs=coeffs,
                              codeword=codeword,
@@ -597,7 +607,7 @@ class _FriRoundRepr:
     ke: object
     coeffs: object        # device: (m, d) tensor; host: scalar list
     codeword: object      # device: (size, d) tensor; host: scalar list
-    tree: object          # device: PackedMerkleTree; host: MerkleTree
+    tree: object          # device: PackedMerkleTree; host: MerkleTree (native)
     size: int
 
     def read_many(self, idxs):

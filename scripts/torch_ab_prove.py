@@ -2,11 +2,14 @@
 """Warm parity proves of the PyTorch/CUDA port (ministark_tpu_torch) on two
 sides in turns, in one process on one card: with ``DeviceEngine(
 query_split=False)`` against ``query_split=True`` (what the split query
-report costs), or with ``--root DIR`` the package of another checkout (a
-parent commit unpacked beside this one) against this checkout's.
+report costs), with ``--tail`` the host-tail FRI trees hashed by hashlib
+(``commit/merkle.py::MerkleTree``) against the native engine
+(``commit/native.py``, the engine's ``tail_tree``), or with ``--root DIR``
+the package of another checkout (a parent commit unpacked beside this one)
+against this checkout's.
 
     python3 scripts/torch_ab_prove.py [--steps N] [--pairs N] [--root DIR]
-                                      [--field goldilocks|babybear]
+                                      [--tail] [--field goldilocks|babybear]
                                       [--device cuda|cpu]
 
 Proves Fibonacci (security 20, blowup 2, witness on the device) once on
@@ -63,11 +66,18 @@ def _side(pkg, field, steps, device, **engine_kw):
     return engine, trace, lambda proof: proof_io.proof_digests(sf, proof)
 
 
-def run(steps, pairs, field="goldilocks", device="cuda", root=None):
+def run(steps, pairs, field="goldilocks", device="cuda", root=None, tail=False):
     import torch
 
     on_card = torch.device(device).type == "cuda"
-    if root is None:
+    if tail:
+        from ministark_tpu_torch.commit.merkle import MerkleTree
+
+        probe, names = "tail_tree_ab", ("hashlib", "native")
+        sides = {name: _side("ministark_tpu_torch", field, steps, device)
+                 for name in names}
+        sides["hashlib"][0].tail_tree = MerkleTree
+    elif root is None:
         probe, names = "query_split_ab", ("off", "on")
         sides = {name: _side("ministark_tpu_torch", field, steps, device,
                              query_split=split)
@@ -79,17 +89,20 @@ def run(steps, pairs, field="goldilocks", device="cuda", root=None):
                  "change": _side("ministark_tpu_torch", field, steps, device)}
 
     def prove(name):
-        engine, trace, digests = sides[name]
+        """(wall seconds, proof); the proof's digests (seconds of Python at
+        2^20 - 1) are taken outside the timed prove, and only here below."""
+        engine, trace, _ = sides[name]
         if on_card:
             torch.cuda.synchronize()
         t0 = time.time()
         proof = engine.prove(trace)
         if on_card:
             torch.cuda.synchronize()
-        return time.time() - t0, digests(proof)
+        return time.time() - t0, proof
 
     # warm-up, and the same bytes from both sides
-    if prove(names[0])[1] != prove(names[1])[1]:
+    if (sides[names[0]][2](prove(names[0])[1])
+            != sides[names[1]][2](prove(names[1])[1])):
         raise AssertionError(f"{names[0]} and {names[1]} give different proofs")
 
     secs = {name: [] for name in names}
@@ -112,11 +125,11 @@ def run(steps, pairs, field="goldilocks", device="cuda", root=None):
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     out = {"probe": probe, "field": field, "steps": steps, "pairs": pairs,
            "gpu": smi, "device": device}
-    if root is None:
+    if root is None and not tail:
         out["query_phase_labels"] = {
             name: sum(k.startswith("fri_query_round_")
                       for k in sides[name][0].phase_seconds) for name in names}
-    else:
+    elif root is not None:
         out["root"] = os.path.abspath(root)
     out.update({name: side(secs[name]) for name in names})
     out["median_diff_s"] = statistics.median(diffs)
@@ -133,6 +146,8 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--root", default=None,
                     help="another checkout, proved against this one")
+    ap.add_argument("--tail", action="store_true",
+                    help="the hashlib host-tail trees against the native ones")
     args = ap.parse_args()
 
     import torch
@@ -140,7 +155,8 @@ def main():
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu for a dry run)", file=sys.stderr)
         sys.exit(1)
-    print(json.dumps(run(args.steps, args.pairs, args.field, args.device, args.root)),
+    print(json.dumps(run(args.steps, args.pairs, args.field, args.device, args.root,
+                         args.tail)),
           flush=True)
 
 

@@ -249,6 +249,8 @@ def test_query_split_is_opt_in_and_changes_no_byte(field):
      {}, '"probe": "query_split_ab"'),
     ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",
                                    "--root", "."], {}, '"probe": "parent_change_ab"'),
+    ("scripts/torch_ab_prove.py", ["--device", "cpu", "--steps", "61", "--pairs", "1",
+                                   "--tail"], {}, '"probe": "tail_tree_ab"'),
     ("scripts/torch_dist_probe.py", ["--device", "cpu", "--log-n", "10", "--reps", "1"],
      {}, '"all_gather_into_tensor": "ok"'),
 ])

@@ -2,7 +2,8 @@
 NTT passes and levels up to the main path's 2^21, in Goldilocks and in
 BabyBear), the engine's proof on the card against the host oracle, and the
 fast mode's proof on the card against its golden fixture and the CPU's
-bytes. Marked ``cuda``: they skip on a host without a
+bytes, the prove core (stark/core.py) and batch_inverse_full on the card
+against the CPU's. Marked ``cuda``: they skip on a host without a
 CUDA device (run them on one with ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``)."""
 
@@ -596,3 +597,33 @@ def test_sharded_index_tree_on_card_matches_plain(sharded, arity):
     want = torch.cat(levels).cpu().numpy()
     for r in ranks:
         assert np.array_equal(r[("index", arity)][0], want)
+
+
+@pytest.mark.parametrize("field,model", [("gl", "fibonacci"), ("gl", "mimc"),
+                                         ("bb", "fibonacci"), ("bb", "mimc")])
+def test_prove_core_on_card_matches_cpu(dev, field, model):
+    """stark/core.py's core at 2^14 on the card (the NTT and product
+    kernels) equals the CPU's (their plain versions)."""
+    from ministark_tpu_torch.models.mimc import mimc_device_trace
+    from ministark_tpu_torch.stark.core import make_prove_core
+
+    sf = {"gl": Goldilocks, "bb": BabyBear}[field]
+    builder = mimc_device_trace if model == "mimc" else None
+    outs = []
+    for device in (dev, "cpu"):
+        core, args = make_prove_core(sf, 1 << 14, builder, device=device)
+        outs.append([o.cpu() for o in core(*args())])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("field", [Goldilocks.base, BABYBEAR_FP])
+def test_batch_inverse_full_on_card(dev, field):
+    from ministark_tpu_torch.ops.field import get_ops
+    from ministark_tpu_torch.ops.poly import batch_inverse_full
+
+    k = get_ops(field)
+    v = np.random.default_rng(14).integers(1, field.p, size=1 << 16, dtype=np.uint64)
+    x = torch.from_numpy(v.view(np.int64))
+    want = batch_inverse_full(field, k, x)
+    assert torch.equal(batch_inverse_full(field, k, x.to(dev)).cpu(), want)
+    assert k.unpack(want[:4]) == [field.inv(int(a)) for a in v[:4]]

@@ -1,6 +1,8 @@
-"""ministark_tpu_torch stands alone: it imports and proves with jax blocked,
-it never falls back from a CUDA device to the CPU, and a kernel wrapper
-given a tensor it cannot take raises instead of running the plain version."""
+"""ministark_tpu_torch stands alone: it imports and proves with jax blocked
+(the provers, the driver entry and its prove core, the native Merkle
+engine), it never falls back from a CUDA device to the CPU, and a kernel
+wrapper given a tensor it cannot take raises instead of running the plain
+version."""
 
 import os
 import pathlib
@@ -13,9 +15,12 @@ import torch
 import ministark_tpu_torch
 from ministark_tpu_torch.fields import BABYBEAR_FP, Goldilocks
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+from ministark_tpu_torch.entry import entry
 from ministark_tpu_torch.ops import field, leaf_hash, ntt, ntt_four_step, ntt_pipe, sha256
+from ministark_tpu_torch.parallel import cases, launch
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine
+from ministark_tpu_torch.stark.core import make_prove_core
 from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
 
 PKG = pathlib.Path(ministark_tpu_torch.__file__).parent
@@ -53,6 +58,19 @@ mtrace = mimc_device_trace(Goldilocks, 12, device="cpu")
 mengine = DeviceEngine(StarkConfig(Goldilocks, 20, 2, 12, mtrace.constrain_number()),
                        device="cpu")
 assert mengine.verify(mengine.constrain_coeffs(mtrace), mengine.prove(mtrace))
+from ministark_tpu_torch.commit import native
+from ministark_tpu_torch.entry import entry
+from ministark_tpu_torch.ops.poly import batch_inverse_full
+from ministark_tpu_torch.ops.field import get_ops
+from ministark_tpu_torch.utils.profiling import annotate, maybe_profile
+assert native.available() and engine.tail_tree is native.merkle_tree
+core, args = entry(device="cpu")
+with maybe_profile("entry"), annotate("core"):
+    lde, mixed, folded = core(*args)
+assert tuple(lde.shape) == (6, 512) and tuple(folded.shape) == (128,)
+k = get_ops(Goldilocks.base)
+assert k.unpack(batch_inverse_full(Goldilocks.base, k, k.pack([2, 3]))) == [
+    Goldilocks.base.inv(2), Goldilocks.base.inv(3)]
 import bench_kernels_torch, bench_torch      # the bench entry points, from the root
 assert bench_torch.device_prove(9, device="cpu")[1] is not None
 assert not any(n == "ministark_tpu" or n.startswith("ministark_tpu.") for n in sys.modules)
@@ -91,7 +109,11 @@ def test_cuda_engine_raises_without_a_card():
     lambda: DeviceEngine(StarkConfig(Goldilocks, 20, 2, 9, 6)),
     lambda: FastStark(FastStarkConfig(Goldilocks, 63)),
     lambda: fibonacci_device_trace(Goldilocks, 9, on_device=True),
-], ids=["DeviceEngine", "FastStark", "fibonacci_device_trace"])
+    lambda: make_prove_core(Goldilocks, 256),
+    lambda: entry(),
+    lambda: launch.run(cases.fail_on_rank, 2, "gloo", timeout_s=60, args=(1,)),
+], ids=["DeviceEngine", "FastStark", "fibonacci_device_trace", "make_prove_core",
+        "entry", "launch.run"])
 def test_entry_points_default_to_the_card(make):
     """With no device argument the entry points use the card, so on a host
     without one they raise instead of carrying on on the CPU."""

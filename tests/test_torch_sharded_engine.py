@@ -6,21 +6,37 @@ tests/test_sharded_engine.py and of ``__graft_entry__.py::dryrun_multichip``:
 the Goldilocks parity prove at 2^10 - 1 with DEVICE_MIN_SIZE 256 (the
 sharded FRI rounds), MiMC, FastStark in the dry run's two configurations,
 STIR and WHIR through ``FastStark(lde_backend=...)``, BabyBear parity and
-fast, and the golden fast fixtures, whose sizes split. Negative cases: a
-size that does not split runs on one device, and a rank that raises or
-hangs makes ``launch.run`` raise within its timeout. One group per world
-size runs every scenario once; the tolerance is 0."""
+fast, and the golden fast fixtures, whose sizes split. The same groups
+run the sharded prove core (``stark/core.py::make_sharded_prove_core``,
+Fibonacci and MiMC over Goldilocks, Fibonacci over BabyBear, at the dry
+run's n = 64 on seeded inputs), held against the JAX package's single core
+with shift 1, and ``make_sharded_fold_fns`` on 16 Goldilocks Fp2
+coefficients, held against the JAX package's fold_even_odd and
+eval_even_odd. Negative cases: a size that does not split runs on one
+device, and a rank that raises or hangs makes ``launch.run`` raise within
+its timeout. One group per world size runs every scenario once; the
+tolerance is 0."""
 
 import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import ministark_tpu_torch.stark.engine as t_eng
+from ministark_tpu.fields import GOLDILOCKS_FP2 as J_GL2
+from ministark_tpu.fields import BabyBear as J_BB
+from ministark_tpu.fields import Goldilocks as J_GL
+from ministark_tpu.models.mimc import mimc_device_trace as j_mimc
+from ministark_tpu.ops.poly_device import eval_even_odd as j_eval_even_odd
+from ministark_tpu.ops.poly_device import fold_even_odd as j_fold_even_odd
+from ministark_tpu.ops.registry import get_kernels
+from ministark_tpu.stark.core import make_prove_core as j_make_prove_core
+from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
 from ministark_tpu_torch.parallel import cases, launch
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -47,6 +63,26 @@ PROVES = {
 GOLDENS = {"fast_fri_fib100.bin": "fri", "fast_stir_fib100.bin": "stir",
            "fast_whir_fib100.bin": "whir"}
 X = np.arange(8 * 256, dtype=np.uint64).reshape(8, 256)
+CORE_N = 64                              # entry.py's dry run at 2 and 4 ranks
+# (field, model) -> (JAX stark field, JAX trace builder, width + transitions)
+CORES = {("gl", "fibonacci"): (J_GL, None, (3, 6)), ("gl", "mimc"): (J_GL, j_mimc, (2, 4)),
+         ("bb", "fibonacci"): (J_BB, None, (3, 6))}
+FOLD_N = 16
+
+
+def _seeded(p, shape, seed):
+    return np.random.default_rng([14, seed]).integers(1, p, size=shape, dtype=np.uint64)
+
+
+def _core_inputs(field, model):
+    """Seeded (cols, weights) u64 arrays of a core scenario."""
+    jsf, _, (w, total) = CORES[(field, model)]
+    seed = list(CORES).index((field, model))
+    return (_seeded(jsf.base.p, (w, CORE_N), seed),
+            _seeded(jsf.base.p, (total,), seed + 10))
+
+
+FOLD_INPUTS = (_seeded(J_GL.base.p, (FOLD_N, 2), 20), (5, 6), (7, 8))
 
 
 def _scenarios():
@@ -56,6 +92,12 @@ def _scenarios():
     # 2^1 does not split over 2 or 4 ranks, 2^8 does
     out += [(("select", n), "select_ntt", dict(field="gl", n=n, x=X[:, :n]))
             for n in (2, 256)]
+    for (field, model) in CORES:
+        cols, weights = _core_inputs(field, model)
+        out.append((("core", field, model), "core", dict(
+            field=field, n=CORE_N, model=model, cols=cols, weights=weights)))
+    coeffs, alpha, z = FOLD_INPUTS
+    out.append(("fold", "fold_deep", dict(field="gl", coeffs=coeffs, alpha=alpha, z=z)))
     return out
 
 
@@ -133,6 +175,45 @@ def test_size_that_does_not_split_runs_on_one_device(groups, world):
         x = torch.from_numpy(X[:, :n].view(np.int64))
         assert np.array_equal(out, transform_plain(x, field=GOLDILOCKS_FP).numpy()
                               .view(np.uint64))
+
+
+def _same_on_every_rank(groups, world, key):
+    res = [r[key] for r in groups[world].result()]
+    for rank, r in enumerate(res):
+        assert all(np.array_equal(a, b) for a, b in zip(r, res[0])), (
+            f"{key}: rank {rank} of {world} differs from rank 0")
+    return res[0]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("field,model", list(CORES))
+def test_sharded_core_equals_jax_single_core_with_shift_1(groups, world, field, model):
+    """make_sharded_prove_core's (lde, mixed, folded): the LDE is over H,
+    so it equals the JAX single core's with the coset offset 1."""
+    jsf, builder, _ = CORES[(field, model)]
+    base = jsf.base
+    cols, weights = _core_inputs(field, model)
+    core, _ = j_make_prove_core(jsf, CORE_N, builder)
+    pack = lambda a: jnp.asarray(to_jax_packed(torch.from_numpy(a.view(np.int64)), base))  # noqa: E731
+    want = core(pack(cols), pack(np.asarray(1, dtype=np.uint64)), pack(weights))
+    got = _same_on_every_rank(groups, world, ("core", field, model))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, from_jax_packed(np.asarray(w), base).numpy().view(np.uint64))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_fold_fns_equal_jax_formulas(groups, world):
+    """make_sharded_fold_fns' (fold, deep) against the JAX package's
+    fold_even_odd and eval_even_odd on the same Fp2 coefficients."""
+    coeffs, alpha, z = FOLD_INPUTS
+    ke = get_kernels(J_GL2)
+    c = jnp.asarray(to_jax_packed(torch.from_numpy(coeffs.view(np.int64)), J_GL2))
+    folded = j_fold_even_odd(ke, c, jnp.asarray(ke.pack_scalar(alpha)))
+    fe, fo = j_eval_even_odd(ke, c, jnp.asarray(ke.pack_scalar(z)))
+    got = _same_on_every_rank(groups, world, "fold")
+    for g, w in zip(got, (folded, fe, fo)):
+        want = from_jax_packed(np.asarray(w), J_GL2).numpy().view(np.uint64)
+        assert np.array_equal(g, want.reshape(g.shape))
 
 
 def test_failing_rank_raises_within_timeout():
