@@ -191,7 +191,7 @@ def kernel_rooflines(device="cuda", shrink: int = 0):
         # keep every round a tensor
         rnd = _FriRoundRepr(device=True, ke=ke, coeffs=c, codeword=None, tree=None,
                             size=max(4 * c.shape[0], 4 * (1 << 13)))
-        return engine._fold_div(rnd, z, alpha, dv)
+        return engine._fold_div(rnd, z, alpha, dv)[0]      # (coefficients, rows)
 
     def fold_work(length):
         # read the (length, 2) coefficients, write half as many; a fold and

@@ -68,7 +68,11 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                two ranks prove GL parity and fast at 2^20 - 1 cold and warm,
                each rank's proof equal to phases main's / fast's and
                verified, with its kernel launches (paths sharded_parity and
-               sharded_fast, per rank); the sharded coset LDE (6, 2^21),
+               sharded_fast, per rank), its bytes received by collective kind
+               and its warm prove's peak allocated memory; a one-rank group
+               proves the same on one device in a process of its own, and
+               a rank's resident parity prove fails above 0.75 of that
+               one's peak; the sharded coset LDE (6, 2^21),
                constrain tree (6 x 2^21 elements) and index tree (2^19, 48)
                equal to one device's, both timed (a time of the code path:
                the ranks share the card); the sharded prove core
@@ -1465,6 +1469,10 @@ def phase_stir_whir(results):
 
 
 SHARDED_TIMEOUT_S = 900
+# a rank of two holds its block of every stage tensor: its peak allocated
+# memory in the warm 2^20 - 1 parity prove stays at most this share of one
+# device's, read alike in a process that proves with no mesh
+SHARDED_PEAK_SHARE = 0.75
 # phase sharded's shapes: the sharded pieces timed against one device (the
 # 2^20 - 1 prove's coset LDE and constrain tree, the fast prove's witness
 # index tree) and the four-rank group's pinned steps
@@ -1496,22 +1504,48 @@ def _sharded_timed(fn, device, reps=3):
 
 def _sharded_prove(prove, digest, device):
     """(the cold proof, its digest, cold s, warm s, the cold prove's kernel
-    launches, its collectives, the warm proof's digest)."""
+    launches, its collectives, the warm proof's digest, the warm prove's
+    peak allocated bytes, the bytes the cold prove received by kind)."""
+    import torch
+
     from ministark_tpu_torch.parallel import mesh as pm
 
     reset_counts()
-    before = sum(pm.collectives.values())
+    before, got = sum(pm.collectives.values()), dict(pm.received)
     t0 = time.time()
     proof = prove()
     _sync(device)
     cold = time.time() - t0
     launches, _ = read_counts()
     collectives = sum(pm.collectives.values()) - before
+    received = {k: v - got[k] for k, v in pm.received.items()}
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
     proof2 = prove()
     _sync(device)
     warm = time.time() - t0
-    return proof, digest(proof), cold, warm, launches, collectives, digest(proof2)
+    peak = torch.cuda.max_memory_allocated(device)
+    return (proof, digest(proof), cold, warm, launches, collectives, digest(proof2),
+            peak, received)
+
+
+def _sharded_one(mesh):
+    """Phase sharded's one-device baseline, in a process of its own as each
+    rank of the two-rank group is: the GL parity prove at 2^20 - 1 with no
+    mesh, cold then warm. (cold and warm proofs' digests, the warm prove's
+    peak allocated bytes.)"""
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+    from ministark_tpu_torch.stark import StarkConfig
+    from ministark_tpu_torch.stark.engine import DeviceEngine
+    from ministark_tpu_torch.stark.proof_io import proof_digests
+
+    sf, dev = _stark_field("gl"), mesh.device
+    trace = fibonacci_device_trace(sf, MAIN_STEPS, on_device=True, device=dev)
+    engine = DeviceEngine(StarkConfig(sf, 20, 2, MAIN_STEPS, trace.constrain_number()),
+                          device=dev)
+    _, cold_digest, _, _, _, _, warm_digest, peak, _ = _sharded_prove(
+        lambda: engine.prove(trace), lambda p: proof_digests(sf, p), dev)
+    return cold_digest, warm_digest, peak
 
 
 def _sharded_full(mesh):
@@ -1633,13 +1667,21 @@ def _sharded_pins(mesh):
 def phase_sharded(results, parity_digests, fast_sha):
     """The sharded paths (ministark_tpu_torch/parallel/) with ranks that
     share the one card: a two-rank group at full width against phases main
-    and fast and the sharded pieces against one device, then a four-rank
-    group at the pinned 2^14 - 1 sizes."""
+    and fast (the parity prove resident, each rank's peak memory against
+    a one-rank group's one-device prove) and the sharded pieces against one
+    device, then a four-rank group at the pinned 2^14 - 1 sizes."""
     import torch
 
     from ministark_tpu_torch.parallel import launch
 
     label = "sharded"
+    one_cold, one_warm, one_peak = launch.run(
+        _sharded_one, 1, "gloo", "cuda:0", SHARDED_TIMEOUT_S)[0]
+    if one_cold != parity_digests or one_warm != parity_digests:
+        fail(f"sharded: the one-rank group's parity proof at {MAIN_STEPS} steps "
+             "differs from phase main's")
+    say(label, f"one device in a process of its own: parity steps {MAIN_STEPS} "
+               f"equal to phase main's proof; warm prove's peak allocated {one_peak} B")
     t0 = time.time()
     ranks = launch.run(_sharded_full, 2, "gloo", "cuda:0", SHARDED_TIMEOUT_S)
     say(label, f"2 ranks on {torch.cuda.get_device_name(0)} (one card shared, "
@@ -1650,8 +1692,8 @@ def phase_sharded(results, parity_digests, fast_sha):
             ("parity", "sharded_parity", "main", parity_digests),
             ("fast", "sharded_fast", "fast", fast_sha)):
         for r in ranks:
-            cold_digest, cold, warm, launches, collectives, warm_digest, ok, phases = \
-                r[path]
+            (cold_digest, cold, warm, launches, collectives, warm_digest, peak,
+             received, ok, phases) = r[path]
             if cold_digest != want or warm_digest != want:
                 fail(f"sharded: rank {r['rank']}'s {path} proof at {MAIN_STEPS} "
                      f"steps differs from phase {phase}'s")
@@ -1661,6 +1703,16 @@ def phase_sharded(results, parity_digests, fast_sha):
                        f"{cold:.3f} s, warm {warm:.3f} s, equal to phase {phase}'s "
                        f"proof, verified; {collectives} collectives; phase_seconds "
                        + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+            share = peak / one_peak
+            say(label, f"{path} rank {r['rank']} of 2: warm prove's peak allocated "
+                       f"{peak} B" + (f", {share:.4f} of one device's ({one_peak} B)"
+                                      if path == "parity" else "")
+                       + "; bytes received by kind in the cold prove "
+                       + json.dumps(received))
+            if path == "parity" and share > SHARDED_PEAK_SHARE:
+                fail(f"sharded: rank {r['rank']}'s resident parity prove peaks at "
+                     f"{share:.3f} of one device's memory, over "
+                     f"{SHARDED_PEAK_SHARE}")
             say(label, f"{what} rank {r['rank']} launches "
                        + json.dumps({k: v for k, v in launches.items() if v}))
             for name, (_, _, paths) in KERNELS.items():

@@ -15,6 +15,10 @@ Component layout per field (fields/host.py Display semantics):
 
 The leaf hash's digit bound comes from the field (``digits_for``: 10 for
 BabyBear, 20 for Goldilocks), never from the values.
+
+``BlockMerkleTree`` is the same commitment on a mesh over each rank's block
+of the values, the resident prove's (``parallel/__init__.py``): no rank
+holds the whole.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ import torch
 from ..ops.field import pack_u64, unpack_u64
 from ..ops.leaf_hash import digits_for, leaf_hash
 from ..ops.sha256 import digests_to_bytes, merkle_inner_levels
-from ..parallel.merkle_sharded import can_shard_tree, sharded_tree_digests
+from ..parallel.merkle_sharded import (
+    block_tree_levels,
+    can_shard_tree,
+    sharded_tree_digests,
+    tree_top,
+)
+from ..parallel.mesh import all_gather_rows, min_over_ranks, owner_select
 from ..utils import LeafNotFound, logarithm_of_two_k
 from .merkle import MerklePath, MerkleTreeConfig
 
@@ -193,3 +203,110 @@ class PackedMerkleTree:
         if any(i >= self.n_leafs for i in idxs):
             raise LeafNotFound()
         return self.proofs_finish(self.proofs_gather_async(idxs))
+
+
+class BlockMerkleTree(PackedMerkleTree):
+    """The commitment of ``PackedMerkleTree`` over this rank's block of the
+    values on ``mesh``: rank r holds the elements [r*n/D, (r+1)*n/D), whole
+    leaf groups, and hashes its subtree; one gather brings the D subtree
+    roots, and the levels above them are built replicated
+    (``ministark_tpu/parallel/merkle_sharded.py:70-84``), so ``root()`` is
+    the one-device tree's. The search and the proofs are collectives:
+    every rank calls them alike."""
+
+    def __init__(self, field, block: torch.Tensor, config: MerkleTreeConfig, mesh):
+        self.field = field
+        self.config = config
+        self.fmt = field_fmt(field)
+        self.mesh = mesh
+        k = config.leafs_per_node
+        if config.inner_children != 2:
+            raise ValueError("only fan-in 2 trees are ported")
+        comps = to_leaf_comps(field, block).contiguous()
+        n_loc = comps.shape[0]
+        n = n_loc * mesh.size
+        if n_loc == 0 or n % k or n // k < 2 or not can_shard_tree(n, k, mesh.size):
+            raise ValueError(f"a tree of {n} leaves, {k} a group, does not split "
+                             f"over {mesh.size} ranks")
+        self.n_leafs = n
+        self.levels = logarithm_of_two_k(n // k, 2) + 1
+        self._comps = comps
+        self._lo = mesh.rank * n_loc
+        local = block_tree_levels(comps, k, self.fmt, digits_for(field))
+        self._g_loc = local[0].shape[0]
+        top = tree_top(all_gather_rows(mesh, local[-1][0]))
+        self._local = torch.cat(local[:-1], 0) if len(local) > 1 else local[0][:0]
+        self._top = torch.cat(top, 0)
+        self._root = None
+
+    def root(self) -> bytes:
+        if self._root is None:
+            self._root = digests_to_bytes(self._top[-1:])[0].tobytes()
+        return self._root
+
+    def get_node_number(self) -> int:
+        return self.n_leafs + 2 * (self.n_leafs // self.config.leafs_per_node) - 1
+
+    def search_rows_async(self, rows: torch.Tensor) -> torch.Tensor:
+        """The global first occurrence (§8.6): each rank's first match in
+        its block plus its offset, or n_leafs, then the least across the
+        ranks (one gather)."""
+        n_loc = self._comps.shape[0]
+        local = _first_match_find(self._comps, rows.reshape(rows.shape[0], -1))
+        found = torch.where(local < n_loc, local + self._lo,
+                            torch.full_like(local, self.n_leafs))
+        return min_over_ranks(self.mesh, found)
+
+    def _locate(self, flat: List[int]):
+        """Digest indices of the one-device layout -> (owner, row in the
+        owner's local levels, row in the replicated top or -1)."""
+        D, g = self.mesh.size, self._g_loc
+        owner, local, top = [], [], []
+        for f in flat:
+            size, off_g, off_l, lvl = g * D, 0, 0, 0
+            while f >= off_g + size:
+                off_g += size
+                off_l += size // D
+                size //= 2
+                lvl += 1
+            i = f - off_g
+            per_rank = size // D
+            if per_rank >= 2:                    # a local level
+                owner.append(i // per_rank)
+                local.append(off_l + i % per_rank)
+                top.append(-1)
+            else:                                # at or above the subtree roots
+                owner.append(0)
+                local.append(0)
+                top.append(2 * D - 2 * size + i)
+        return owner, local, top
+
+    def proofs_gather_async(self, idxs: List[int]):
+        """Host leaf indices -> the sibling digests and leaf groups from
+        their owners (``owner_select``; the levels above the subtree roots
+        are read from the replicated top), as a handle for
+        proofs_finish."""
+        if any(not 0 <= i < self.n_leafs for i in idxs):
+            raise LeafNotFound()
+        k = self.config.leafs_per_node
+        n_loc = self._comps.shape[0]
+        all_groups = self._sibling_groups(idxs)
+        flat = [g for groups in all_groups for grp in groups for g in grp]
+        lidx = [i - i % k + j for i in idxs for j in range(k)]
+        dev = self.device
+
+        def t(v):
+            return torch.tensor(v, dtype=torch.int64, device=dev)
+
+        owner, local, top = (t(v) for v in self._locate(flat))
+        if self._local.shape[0]:
+            mine = self._local[local]
+        else:
+            mine = self._top.new_zeros((len(flat), 8))
+        dig_rows = owner_select(self.mesh, mine, owner)
+        on_top = (top >= 0)[:, None]
+        dig_rows = torch.where(on_top, self._top[top.clamp(min=0)], dig_rows)
+        leaf_owner = t([i // n_loc for i in lidx])
+        leaf_rows = owner_select(self.mesh, self._comps[t([i % n_loc for i in lidx])],
+                                 leaf_owner)
+        return (all_groups, k, dig_rows, leaf_rows)

@@ -130,7 +130,8 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> dict:
     Fibonacci and MiMC (equal to the single core with shift 1, its first
     LDE row to one device's transform), ``make_sharded_fold_fns`` on 4 D
     Fp2 coefficients, the parity proves of Fibonacci at 2^10 - 1
-    (DEVICE_MIN_SIZE 256) and MiMC at 2^9 - 1, FastStark in the dry run's
+    (DEVICE_MIN_SIZE 256) and MiMC at 2^9 - 1 (resident: each rank holds
+    its block of rows, ``parallel/__init__.py``), FastStark in the dry run's
     two configurations, and STIR and WHIR; every rank byte-equal to one
     device, or AssertionError. The ranks' device follows ``device``
     (``"cuda"``: rank i on card i % count; ``"cuda:0"``: all on that card;

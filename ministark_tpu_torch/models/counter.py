@@ -104,18 +104,22 @@ def counter_device_trace(stark_field, steps: int, start=1, step=3, a=5, b=7,
         rows[steps:, :] = base.rand(ark_test_rng())
         cols = np.ascontiguousarray(rows.T)
 
-    def minus_constant(out, c):
-        """out - c as polynomials: the constant touches coefficient 0 only."""
+    def minus_constant(out, c, rows):
+        """out - c as polynomials: the constant touches coefficient 0 only,
+        which a block of the coefficients (``rows`` on a mesh) holds only
+        on the rank whose block starts at 0."""
+        if rows is not None and rows.lo != 0:
+            return out
         head = kb.sub(out[0:1], kb.pack_scalar(base.from_int(c), out.device)[None])
         return torch.cat([head, out[1:]], 0)
 
-    def t_inc(tp):
+    def t_inc(tp, rows=None):
         w = kb.pack_scalar(domain.group_gen, tp.device)
-        return minus_constant(kb.sub(kb.scale_base(tp[0], w), tp[0]), step)
+        return minus_constant(kb.sub(kb.scale_base(tp[0], w), tp[0]), step, rows)
 
-    def t_affine(tp):
+    def t_affine(tp, rows=None):
         av = kb.pack_scalar(base.from_int(a), tp.device)
-        return minus_constant(kb.sub(tp[1], kb.scale_base(tp[0], av)), b)
+        return minus_constant(kb.sub(tp[1], kb.scale_base(tp[0], av)), b, rows)
 
     return DeviceTrace(stark_field=stark_field, steps=steps, cols=cols,
                        transitions=[t_inc, t_affine], cols_dev=cols_dev)

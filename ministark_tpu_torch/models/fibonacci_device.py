@@ -92,13 +92,15 @@ def fibonacci_device_trace(stark_field, steps: int, secret_b: int = 2,
 
 def _fib_transitions(kb, omega):
     """(carry, carry, sum): the reference repeats the carry constraint
-    a * omega - b verbatim (§8.2), with omega a scalar factor."""
+    a * omega - b verbatim (§8.2), with omega a scalar factor. Both act on
+    each coefficient alone, so a block of the coefficients (``rows``, a
+    ``parallel.Rows``, on a mesh) maps to the same block of the output."""
 
-    def t_carry(tp):
+    def t_carry(tp, rows=None):
         w = kb.pack_scalar(omega, tp.device)
         return kb.sub(kb.scale_base(tp[0], w), tp[1])
 
-    def t_sum(tp):
+    def t_sum(tp, rows=None):
         return kb.sub(kb.sub(tp[2], tp[0]), tp[1])
 
     return [t_carry, t_carry, t_sum]

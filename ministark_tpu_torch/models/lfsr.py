@@ -90,7 +90,7 @@ def lfsr_device_trace(stark_field, steps: int, seed: int = 7,
     cols_dev = pack_u64(np.ascontiguousarray(rows.T), device)
 
     def make_t(j):
-        def t(tp):
+        def t(tp, rows=None):      # coefficientwise: a block maps to its block
             def scalar(v):
                 return kb.pack_scalar(v, tp.device)
 

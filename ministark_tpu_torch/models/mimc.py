@@ -31,6 +31,7 @@ import numpy as np
 from ..air import Provable, TraceTable
 from ..ops.field import get_ops, pack_u64
 from ..ops.ntt import get_ntt_fns
+from ..parallel.ntt_sharded import get_block_ntt_fns
 from ..poly import DensePolynomial, Radix2EvaluationDomain
 from ..stark.engine import DeviceTrace
 from ..utils.rng import ark_test_rng
@@ -127,14 +128,22 @@ def mimc_device_trace(stark_field, steps: int, s0: int = 3,
     cols_dev = pack_u64(np.ascontiguousarray(rows.T), device)
     k_dev = pack_u64(_round_constants(n, p), device)
 
-    def cubic(tp):
-        fft, ifft, _, _ = get_ntt_fns(base, n)
+    def cubic(tp, rows=None):
+        """On a mesh (``rows``, a ``parallel.Rows``) tp is this rank's
+        block of the coefficients: the block NTTs give its block of the
+        evaluations, which meets its block of the round constants."""
+        if rows is None:
+            fft, ifft, _, _ = get_ntt_fns(base, n)
+            k = k_dev
+        else:
+            fft, ifft, _, _ = get_block_ntt_fns(base, n, rows.mesh)
+            k = k_dev[rows.lo:rows.lo + rows.count]
         evs = fft(tp[:2].contiguous())           # (2, n) column evaluations
-        t = kb.add(evs[0], k_dev.to(tp.device))
+        t = kb.add(evs[0], k.to(tp.device))
         c = kb.sub(kb.mul(kb.mul(t, t), t), evs[1])
         return ifft(c[None])[0]
 
-    def link(tp):
+    def link(tp, rows=None):                     # coefficientwise
         w = kb.pack_scalar(domain.group_gen, tp.device)
         return kb.sub(kb.scale_base(tp[1], w), tp[0])
 

@@ -67,10 +67,14 @@ def eval_poly_base_coeffs_ext_point(k_ext: FieldOps, base_coeffs, x):
     return eval_poly(k_ext, lift_base_array(k_ext, base_coeffs), x)
 
 
-def eval_many(k: FieldOps, coeffs_batch, x):
-    """Evaluate B polynomials at one point: (B, n, *elem), (*elem) -> (B, *elem)."""
+def eval_many(k: FieldOps, coeffs_batch, x, start: int = 0):
+    """Evaluate B polynomials at one point: (B, n, *elem), (*elem) -> (B, *elem).
+    With ``start``, the coefficients are those of x^start .. x^(start+n-1):
+    a block's partial sums, which a field sum across the blocks completes."""
     n = coeffs_batch.shape[1]
     pw = powers(k, x, n)
+    if start:
+        pw = k.mul(pw, k.pow(x, start).unsqueeze(0).expand_as(pw))
     return field_sum(k, k.mul(coeffs_batch, pw.unsqueeze(0)), axis=1)
 
 
@@ -201,11 +205,20 @@ def batch_inverse_full(field, k: FieldOps, arr):
     return batch_inverse(k, arr, k.pack_scalar(field.inv(total), arr.device))
 
 
-def effective_len(t) -> int:
+def effective_len(t, rows=None) -> int:
     """Length after trailing-zero trimming along axis 0 (0 for all zeros);
-    one scalar crosses to the host."""
+    one scalar crosses to the host. With ``rows`` (a ``parallel.Rows``),
+    ``t`` is this rank's block of the whole and the length is the whole's:
+    each rank's top nonzero index past its offset, the most across the
+    ranks in one gather of an int."""
     if t.shape[0] == 0:
-        return 0
-    nz = (t.reshape(t.shape[0], -1) != 0).any(1)
-    idx = torch.arange(1, t.shape[0] + 1, device=t.device)
-    return int(torch.where(nz, idx, torch.zeros_like(idx)).max())
+        top = torch.zeros((), dtype=torch.int64, device=t.device)
+    else:
+        nz = (t.reshape(t.shape[0], -1) != 0).any(1)
+        idx = torch.arange(1, t.shape[0] + 1, device=t.device)
+        top = torch.where(nz, idx, torch.zeros_like(idx)).max()
+    if rows is not None:
+        from ..parallel.mesh import max_over_ranks
+
+        top = max_over_ranks(rows.mesh, torch.where(top > 0, top + rows.lo, top))
+    return int(top)

@@ -36,8 +36,10 @@ from ..ops.poly import eval_even_odd, fold_even_odd, synth_div_suffix
 from ..ops.sha256 import merkle_inner_levels
 from . import mesh as mesh_mod
 from .fri_sharded import get_sharded_fri_fns
+from .fri_sharded import get_block_fri_fns
 from .merkle_sharded import sharded_tree_digests
-from .ntt_sharded import get_sharded_ntt_fns, select_ntt_fns, sharded_lde
+from .mesh import Rows
+from .ntt_sharded import get_block_ntt_fns, get_sharded_ntt_fns, select_ntt_fns, sharded_lde
 
 PRIME = {"gl": GOLDILOCKS_FP, "bb": BABYBEAR_FP}
 EXT = {"gl": GOLDILOCKS_FP2, "bb": BABYBEAR_FP4}
@@ -61,6 +63,10 @@ def _collectives(before: dict) -> int:
     return sum(mesh_mod.collectives.values()) - sum(before.values())
 
 
+def _received(before: dict) -> dict:
+    return {k: v - before[k] for k, v in mesh_mod.received.items()}
+
+
 def ntt(mesh, field, n, x, kind="fft", offset=None, backend="radix2"):
     """(sharded, single-device) ``kind`` transform of (batch, n) x."""
     F = PRIME[field]
@@ -68,6 +74,78 @@ def ntt(mesh, field, n, x, kind="fft", offset=None, backend="radix2"):
     args = (_t(mesh, x),) + (() if offset is None else (offset,))
     sharded = get_sharded_ntt_fns(F, n, mesh, backend)[i](*args)
     return _np(sharded), _np(get_ntt_fns(F, n, backend)[i](*args))
+
+
+def block_ntt(mesh, field, n, x, kind="fft", offset=None):
+    """(this rank's block of the block-form ``kind`` transform of size n,
+    one device's whole) for (batch, n_in) x, n_in <= n: the input is zero
+    past n_in (the padded LDE when n_in < n), and the rank passes its
+    block [r*n_in/D, (r+1)*n_in/D) of it."""
+    F = PRIME[field]
+    i = KINDS.index(kind)
+    xt = _t(mesh, x)
+    extra = () if offset is None else (offset,)
+    got = get_block_ntt_fns(F, n, mesh)[i](Rows(mesh, xt.shape[1]).take(xt, 1), *extra)
+    padded = torch.zeros((xt.shape[0], n), dtype=torch.int64, device=mesh.device)
+    padded[:, :xt.shape[1]] = xt
+    return _np(got), _np(get_ntt_fns(F, n)[i](padded, *extra))
+
+
+def block_fri(mesh, field, n, coeffs, alpha, z, zs):
+    """The block fold, deep and divide of (n, d) extension coefficients:
+    {"fold": this rank's block of the folded, "deep": (fe, fo), "divide":
+    its block of the quotient by (x - z), "batch": its block of the
+    batched divide of Q = len(zs) copies, copy q by (x - zs[q])}."""
+    E = EXT[field]
+    k = get_ops(E)
+    dev = mesh.device
+    fns = get_block_fri_fns(E, n, mesh)
+    c = Rows(mesh, n).take(_t(mesh, coeffs))
+    zp = k.pack_scalar(z, dev)
+    fe, fo = fns["deep"](c, zp)
+    zq = k.pack(list(zs), dev)
+    zq_inv = k.pack([E.inv(v) for v in zs], dev)
+    return {"fold": _np(fns["fold"](c, k.pack_scalar(alpha, dev))),
+            "deep": _np(torch.stack([fe, fo])),
+            "divide": _np(fns["divide"](c, zp, k.pack_scalar(E.inv(z), dev))),
+            "batch": _np(fns["divide"](c.unsqueeze(0).repeat(len(zs), 1, 1), zq, zq_inv))}
+
+
+def block_tree(mesh, field, vals, leafs_per_node, lookups):
+    """(root, first-occurrence indices of ``lookups``, their paths) of the
+    ``BlockMerkleTree`` over this rank's block of (n, d) extension values,
+    and the same three of one device's ``PackedMerkleTree`` over the
+    whole; paths as (leaf neighbours, digests) tuples."""
+    from ..commit.merkle import MerkleTreeConfig
+    from ..commit.packed_tree import BlockMerkleTree, PackedMerkleTree, to_leaf_comps
+
+    E = EXT[field]
+    v = _t(mesh, vals)
+    cfg = MerkleTreeConfig(leafs_per_node, 2)
+    rows = to_leaf_comps(E, _t(mesh, lookups))
+    out = []
+    for tree in (BlockMerkleTree(E, Rows(mesh, v.shape[0]).take(v), cfg, mesh),
+                 PackedMerkleTree(E, v, cfg)):
+        idxs = [int(i) for i in tree.search_rows_async(rows).cpu()]
+        paths = tree.proofs_finish(tree.proofs_gather_async(idxs))
+        out.append((tree.root(), idxs, [(tuple(p.leaf_neighbours), p.path) for p in paths]))
+    return tuple(out)
+
+
+def block_mismatch(mesh, n):
+    """The phrases of the errors a block form raises, on every rank and
+    before any collective, for a block of the wrong width and for rows
+    that do not split over the mesh."""
+    out = []
+    x = torch.zeros((1, n // mesh.size - 1), dtype=torch.int64, device=mesh.device)
+    for make, phrase in ((lambda: get_block_ntt_fns(GOLDILOCKS_FP, n, mesh)[0](x),
+                          "does not fit"),
+                         (lambda: Rows(mesh, n - 1), "do not split")):
+        try:
+            make()
+        except ValueError as e:
+            out.append(phrase if phrase in str(e) else str(e))
+    return out
 
 
 def select_ntt(mesh, field, n, x):
@@ -142,6 +220,14 @@ def _trace(model, sf, steps, device):
         from ..models.mimc import mimc_device_trace
 
         return mimc_device_trace(sf, steps, device=device)
+    if model == "counter":
+        from ..models.counter import counter_device_trace
+
+        return counter_device_trace(sf, steps, on_device=True, device=device)
+    if model == "lfsr":
+        from ..models.lfsr import lfsr_device_trace
+
+        return lfsr_device_trace(sf, steps, device=device)
     from ..models.fibonacci_device import fibonacci_device_trace
 
     return fibonacci_device_trace(sf, steps, on_device=True, device=device)
@@ -213,6 +299,31 @@ def parity(mesh, field, steps, model="fibonacci", device=None):
     before = dict(mesh_mod.collectives)
     proof = DeviceEngine(cfg, device=dev, mesh=mesh).prove(trace)
     return proof_to_json(sf, proof), _collectives(before)
+
+
+def resident_parity(mesh, field, steps, model="fibonacci", device_min_size=None):
+    """The parity prove on a mesh as the residency tests read it: (proof
+    JSON, collectives it called, bytes received by kind, the row counts of
+    the blocks gathered whole where a stage stopped splitting).
+    ``device_min_size`` sets the engine's DEVICE_MIN_SIZE for this prove,
+    so that FRI rounds too small to split run on tensors."""
+    from ..stark import engine as eng
+
+    whole, default = eng.DeviceEngine._whole, eng.DEVICE_MIN_SIZE
+    handoffs = []
+
+    def counted(self, block, rows):
+        handoffs.append(rows.n)
+        return whole(self, block, rows)
+
+    eng.DeviceEngine._whole = counted
+    eng.DEVICE_MIN_SIZE = device_min_size or default
+    before = dict(mesh_mod.received)
+    try:
+        proof, collectives = parity(mesh, field, steps, model)
+    finally:
+        eng.DeviceEngine._whole, eng.DEVICE_MIN_SIZE = whole, default
+    return proof, collectives, _received(before), handoffs
 
 
 def fast(mesh, field, steps, cfg, batch=1, model="fibonacci", device=None):

@@ -4,9 +4,13 @@ Port of ``ministark_tpu/parallel/merkle_sharded.py``. The build is
 parallel until a level is narrower than the mesh: each rank hashes its
 contiguous block of leaf groups (the decimal leaf preimages and SHA-256 of
 ``ops/leaf_hash.py``, the ``ms_leaf_hash`` kernel on a card) and folds its
-subtree with the fan-2 inner level (``ops/sha256.py``, ``inner_level<2>``).
-One gather brings every rank's levels together in rank order, which is
-each level's global order, and the last log2(D) levels finish replicated.
+subtree with the fan-2 inner level (``ops/sha256.py``, ``inner_level<2>``)
+(``block_tree_levels``). The resident prove keeps those local levels where
+they are and gathers only the D subtree roots, from which the last
+log2(D) levels finish replicated (``ministark_tpu/parallel/merkle_sharded.py:
+70-84``; ``commit/packed_tree.py::BlockMerkleTree``). The replicated build
+(``sharded_tree_digests``) instead gathers every local level, in rank
+order, which is each level's global order.
 The JAX body hashes with ``use_pallas=False`` because a Pallas kernel
 under ``shard_map`` was never run on a multi-chip TPU; the CUDA kernels
 compute the same function on one rank as on one device, so they run here.
@@ -59,6 +63,25 @@ def gather_levels(mesh: Mesh, levels: List[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
+def block_tree_levels(comps: torch.Tensor, leafs_per_node: int, fmt: int,
+                      max_digits: int = 20) -> List[torch.Tensor]:
+    """This rank's (n_loc, C) leaf components -> its subtree's levels,
+    leaf digests first and its root (one digest) last."""
+    levels = [leaf_hash(comps.contiguous(), leafs_per_node, fmt, max_digits)]
+    while levels[-1].shape[0] > 1:
+        levels.append(inner_level(levels[-1], 2))
+    return levels
+
+
+def tree_top(level: torch.Tensor) -> List[torch.Tensor]:
+    """The levels above a (D, 8) level of subtree roots, up to the root,
+    replicated: ``level`` first."""
+    levels = [level.contiguous()]
+    while levels[-1].shape[0] > 1:
+        levels.append(inner_level(levels[-1], 2))
+    return levels
+
+
 def sharded_tree_digests(comps: torch.Tensor, leafs_per_node: int, fmt: int,
                          mesh: Mesh, max_digits: int = 20) -> torch.Tensor:
     """comps: (n_elems, C) int64 leaf components, whole on every rank.
@@ -66,11 +89,6 @@ def sharded_tree_digests(comps: torch.Tensor, leafs_per_node: int, fmt: int,
     (2 * n_groups - 1, 8) int32 tensor of ``leaf_hash`` +
     ``merkle_inner_levels``."""
     assert can_shard_tree(comps.shape[0], leafs_per_node, mesh.size)
-    levels = [leaf_hash(local_rows(mesh, comps).contiguous(), leafs_per_node, fmt,
-                        max_digits)]
-    while levels[-1].shape[0] > 1:
-        levels.append(inner_level(levels[-1], 2))
-    levels = gather_levels(mesh, levels)
-    while levels[-1].shape[0] > 1:        # the top, replicated
-        levels.append(inner_level(levels[-1], 2))
-    return torch.cat(levels, 0)
+    levels = gather_levels(mesh, block_tree_levels(local_rows(mesh, comps),
+                                                   leafs_per_node, fmt, max_digits))
+    return torch.cat(levels[:-1] + tree_top(levels[-1]), 0)

@@ -4,8 +4,7 @@ Port of ``ministark_tpu/parallel/ntt_sharded.py``. For N = N1 * N2 with
 the input viewed column-major as A[i1][i2] = x[i1 + N1*i2], rank r owns
 rows i1 in [i0, i0 + N1/D), i0 = r * N1/D:
 
-  a. its rows of A: a strided slice of the replicated input (no
-     communication)
+  a. its rows of A
   b. a length-N2 NTT of every local row (the port's NTT, ops/ntt.py: the
      ``ms_ntt_gl`` / ``ms_ntt_bb`` kernel on a card)
   c. the twiddle multiply by W[i][k2] = w_N^((i0+i) * k2), rows built on
@@ -13,21 +12,35 @@ rows i1 in [i0, i0 + N1/D), i0 = r * N1/D:
   d. one ``all_to_all`` transposes the matrix, then a length-N1 NTT of
      every row k2 it now owns
 
-giving E[k2][k1] = X[k2 + N2*k1]; one ``all_gather`` makes the natural
-order output whole on every rank (``parallel/__init__.py``: replicated in
-and out). The inverse runs both NTTs inverse: their 1/N2 and 1/N1 make
-1/N. A coset's powers fold into the NTTs and the twiddle rows: s^(i1 +
-N1*i2) is the N2-NTT's own coset ``pre`` s^N1 times the row factor s^i1,
-and the inverse's s'^(k2 + N2*k1) is the N1-NTT's ``post`` s'^N2 times the
-column factor s'^k2, both multiplied into W (a row or column factor
-commutes with the transform along the other axis).
+giving E[k2][k1] = X[k2 + N2*k1], rows k2 owned in blocks of N2/D. The
+inverse runs both NTTs inverse: their 1/N2 and 1/N1 make 1/N. A coset's
+powers fold into the NTTs and the twiddle rows: s^(i1 + N1*i2) is the
+N2-NTT's own coset ``pre`` s^N1 times the row factor s^i1, and the
+inverse's s'^(k2 + N2*k1) is the N1-NTT's ``post`` s'^N2 times the column
+factor s'^k2, both multiplied into W (a row or column factor commutes with
+the transform along the other axis).
 
-``get_sharded_ntt_fns(field, n, mesh, backend)`` -> (fft, ifft,
-coset_fft, coset_ifft), the signatures of ``ops/ntt.py::get_ntt_fns``:
-(batch, n) int64 tensors in natural order, coset offsets as host scalars.
-Steps b and d take the caller's NTT backend; a sub-transform outside a
-backend's range runs radix-2, as on one device. Exact: the same values as
-one device (tests/test_torch_sharded.py).
+Two forms share steps b-d (``_FourStep``):
+
+* Block form (``get_block_ntt_fns``), the resident prove's: rank r holds
+  the natural-order block [r*n/D, (r+1)*n/D) of the output and
+  [r*n_in/D, (r+1)*n_in/D) of the input. Its rows i2 of A are a block, so
+  step a is an ``all_to_all`` of column blocks; the output E is owned by
+  k2-blocks, so one more ``all_to_all`` turns it into natural blocks of
+  k1 (the reshards the JAX package gets from XLA around its
+  ``shard_map``, ``ministark_tpu/parallel/ntt_sharded.py:147-155``). An
+  input of n_in = n / B points (B a power of two: the LDE's zero padding)
+  is taken in by the first ``all_to_all``: only rows i2 < N2/B exist, so
+  the padded tail is never built, on any rank.
+* Replicated form (``get_sharded_ntt_fns``), the signatures of
+  ``ops/ntt.py::get_ntt_fns``: the whole (batch, n) tensor on every rank,
+  whose strided rows of A are a slice (no communication), and one
+  ``all_gather`` of E that makes the output whole on every rank.
+
+Coset offsets are host scalars. Steps b and d take the caller's NTT
+backend; a sub-transform outside a backend's range runs radix-2, as on one
+device. Exact: the same values as one device (tests/test_torch_sharded.py,
+tests/test_torch_resident.py).
 """
 
 from __future__ import annotations
@@ -77,81 +90,159 @@ def _offset_powers(kb, field, s: int, start: int, count: int, device):
                   kb.pack_scalar(field.pow(s, start), device))
 
 
-def make_sharded_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
-    """(fft, ifft, coset_fft, coset_ifft) for size n over ``mesh``."""
-    ntt_field(field)
-    check_backend(backend)
-    kb = get_ops(field)
-    D = mesh.size
-    n1, n2 = _split_sizes(n, D)
-    assert n2 % D == 0, f"four-step column count {n2} must divide over {D} devices"
-    n1_loc, n2_loc = n1 // D, n2 // D
-    i0 = mesh.rank * n1_loc
-    dev = mesh.device
-    sub1 = get_ntt_fns(field, n1, backend)
-    sub2 = get_ntt_fns(field, n2, backend)
-    W = {}
+def block_ntt_fits(n: int, n_in: int, n_dev: int) -> bool:
+    """True when the block transform of size n takes (batch, n_in / D)
+    blocks: n is a power of two that splits (``can_shard``), n_in divides
+    it by a power of two B, and every rank's input block is whole rows i2
+    of A (N2 divisible by B * D)."""
+    if n & (n - 1) or not can_shard(n, n_dev) or n_in <= 0 or n % n_in:
+        return False
+    b = n // n_in
+    return b & (b - 1) == 0 and _split_sizes(n, n_dev)[1] % (b * n_dev) == 0
 
-    def twiddles(inverse: bool) -> torch.Tensor:
+
+class _FourStep:
+    """Steps b-d of the size-n transform over ``mesh``, between this
+    rank's rows of A (``rows_of_whole`` / ``rows_of_block``) and its rows
+    k2 of E (``whole`` / ``block``)."""
+
+    def __init__(self, field, n: int, mesh: Mesh, backend: str):
+        ntt_field(field)
+        check_backend(backend)
+        self.field, self.n, self.mesh = field, n, mesh
+        self.kb = get_ops(field)
+        D = mesh.size
+        self.n1, self.n2 = _split_sizes(n, D)
+        assert self.n2 % D == 0, (
+            f"four-step column count {self.n2} must divide over {D} devices")
+        self.n1_loc, self.n2_loc = self.n1 // D, self.n2 // D
+        self.i0 = mesh.rank * self.n1_loc
+        self.sub1 = get_ntt_fns(field, self.n1, backend)
+        self.sub2 = get_ntt_fns(field, self.n2, backend)
+        self._w = {}
+
+    def twiddles(self, inverse: bool) -> torch.Tensor:
         """This rank's (N1/D, N2) rows root^((i0+i) * k2)."""
-        if inverse not in W:
-            root = field.get_root_of_unity(n)
+        if inverse not in self._w:
+            field = self.field
+            root = field.get_root_of_unity(self.n)
             if inverse:
                 root = field.inv(root)
-            W[inverse] = _twiddle_rows(
-                kb, _offset_powers(kb, field, root, i0, n1_loc, dev), n2)
-        return W[inverse]
+            self._w[inverse] = _twiddle_rows(self.kb, _offset_powers(
+                self.kb, field, root, self.i0, self.n1_loc, self.mesh.device), self.n2)
+        return self._w[inverse]
 
-    def transform(x, inverse=False, pre=None, post=None):
+    def rows_of_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """(batch, n) whole -> this rank's rows of A[i1][i2] = x[i1 + N1*i2]
+        as (batch * N1/D, N2): a strided slice, no communication."""
         batch = x.shape[0]
-        assert x.shape[1:] == (n,), f"expected (batch, {n}), got {tuple(x.shape)}"
-        w = twiddles(inverse)
+        assert x.shape[1:] == (self.n,), f"expected (batch, {self.n}), got {tuple(x.shape)}"
+        a = x.reshape(batch, self.n2, self.n1)[:, :, self.i0:self.i0 + self.n1_loc]
+        return a.transpose(1, 2).reshape(batch * self.n1_loc, self.n2).contiguous()
+
+    def rows_of_block(self, x: torch.Tensor) -> torch.Tensor:
+        """(batch, n_in/D) natural-order blocks of an input of n_in = n/B
+        points (zero past n_in) -> this rank's rows of A, by one
+        ``all_to_all``. Rank s's block is rows i2 in [s*R, (s+1)*R) of A,
+        R = N2/(B*D), every column i1; column block t of it goes to rank t.
+        Rows i2 >= N2/B are the padding: zeros made here, never sent."""
+        batch, width = x.shape
+        D, n1_loc, n2 = self.mesh.size, self.n1_loc, self.n2
+        if not block_ntt_fits(self.n, width * D, D):
+            raise ValueError(f"a block of {width} points does not fit the size-"
+                             f"{self.n} transform over {D} ranks")
+        r = n2 // (self.n // (width * D) * D)
+        c = x.reshape(batch, r, D, n1_loc).permute(2, 0, 1, 3)
+        got = all_to_all_rows(self.mesh, c)                  # (D[s], batch, R, N1/D)
+        a = got.permute(1, 3, 0, 2).reshape(batch, n1_loc, D * r)
+        if D * r < n2:
+            a = torch.cat([a, a.new_zeros((batch, n1_loc, n2 - D * r))], 2)
+        return a.reshape(batch * n1_loc, n2).contiguous()
+
+    def steps(self, a: torch.Tensor, batch: int, inverse=False, pre=None, post=None):
+        """Steps b-d on this rank's rows of A -> its rows k2 of E, as
+        (batch * N2/D, N1)."""
+        kb, field, dev = self.kb, self.field, self.mesh.device
+        D, n1, n2, n1_loc, n2_loc = self.mesh.size, self.n1, self.n2, self.n1_loc, self.n2_loc
+        w = self.twiddles(inverse)
         if pre is not None:           # row factor s^(i0+i)
-            w = kb.mul(w, _offset_powers(kb, field, pre, i0, n1_loc, dev)[:, None])
+            w = kb.mul(w, _offset_powers(kb, field, pre, self.i0, n1_loc, dev)[:, None])
         if post is not None:          # column factor s'^k2
             w = kb.mul(w, _offset_powers(kb, field, post, 0, n2, dev)[None])
-        # a. this rank's rows of A[i1][i2] = x[i1 + N1*i2]
-        a = x.reshape(batch, n2, n1)[:, :, i0:i0 + n1_loc].transpose(1, 2)
-        a = a.reshape(batch * n1_loc, n2).contiguous()     # the kernel's layout
         # b. length-N2 NTT per local row (with the coset's s^N1 powers)
         if inverse:
-            b = sub2[1](a)
+            b = self.sub2[1](a)
         elif pre is not None:
-            b = sub2[2](a, field.pow(pre, n1))
+            b = self.sub2[2](a, field.pow(pre, n1))
         else:
-            b = sub2[0](a)
+            b = self.sub2[0](a)
         # c. twiddle multiply
         c = kb.mul(b.reshape(batch, n1_loc, n2), w)
         # d. the transpose, one all_to_all: all_to_all_single splits dim 0,
         # so the column blocks k2 = t*N2/D + j go to the front (rank t);
         # block s received holds rows i1 = s*N1/D + i of this rank's columns
         c = c.reshape(batch, n1_loc, D, n2_loc).permute(2, 0, 1, 3)
-        d = all_to_all_rows(mesh, c).permute(1, 3, 0, 2).reshape(batch * n2_loc, n1)
+        d = all_to_all_rows(self.mesh, c).permute(1, 3, 0, 2).reshape(batch * n2_loc, n1)
         d = d.contiguous()
         # length-N1 NTT per row k2 (with the inverse coset's s'^N2 powers)
         if not inverse:
-            e = sub1[0](d)
-        elif post is not None:
-            e = sub1[3](d, field.pow(post, n2))
-        else:
-            e = sub1[1](d)
-        # E[k2][k1] = X[k2 + N2*k1], rows k2 = s*N2/D + j from rank s
-        g = all_gather_rows(mesh, e.reshape(batch, n2_loc, n1))
-        return g.permute(1, 3, 0, 2).reshape(batch, n)
+            return self.sub1[0](d)
+        if post is not None:
+            return self.sub1[3](d, field.pow(post, n2))
+        return self.sub1[1](d)
+
+    def whole(self, e: torch.Tensor, batch: int) -> torch.Tensor:
+        """Rows k2 of E, X[k2 + N2*k1] -> the natural-order (batch, n) on
+        every rank: one ``all_gather``."""
+        g = all_gather_rows(self.mesh, e.reshape(batch, self.n2_loc, self.n1))
+        return g.permute(1, 3, 0, 2).reshape(batch, self.n)
+
+    def block(self, e: torch.Tensor, batch: int) -> torch.Tensor:
+        """Rows k2 of E -> this rank's natural-order block (batch, n/D),
+        points [t*n/D, (t+1)*n/D) = columns k1 in [t*N1/D, (t+1)*N1/D):
+        column block t goes to rank t, one ``all_to_all``."""
+        D, n1_loc, n2_loc = self.mesh.size, self.n1_loc, self.n2_loc
+        c = e.reshape(batch, n2_loc, D, n1_loc).permute(2, 0, 1, 3)
+        got = all_to_all_rows(self.mesh, c)                  # (D[s], batch, N2/D, N1/D)
+        return got.permute(1, 3, 0, 2).reshape(batch, n1_loc * self.n2)
+
+
+def _four_fns(t: _FourStep, rows_in, out):
+    """(fft, ifft, coset_fft, coset_ifft) through ``t`` from ``rows_in``
+    to ``out``."""
+
+    def run(x, **kw):
+        return out(t.steps(rows_in(x), x.shape[0], **kw), x.shape[0])
 
     def fft(x):
-        return transform(x)
+        return run(x)
 
     def ifft(x):
-        return transform(x, inverse=True)
+        return run(x, inverse=True)
 
     def coset_fft(x, offset):
-        return transform(x, pre=int(offset))
+        return run(x, pre=int(offset))
 
     def coset_ifft(x, offset_inv):
-        return transform(x, inverse=True, post=int(offset_inv))
+        return run(x, inverse=True, post=int(offset_inv))
 
     return fft, ifft, coset_fft, coset_ifft
+
+
+def make_sharded_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
+    """(fft, ifft, coset_fft, coset_ifft) for size n over ``mesh``, the
+    whole (batch, n) tensor in and out on every rank."""
+    t = _FourStep(field, n, mesh, backend)
+    return _four_fns(t, t.rows_of_whole, t.whole)
+
+
+def make_block_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
+    """(fft, ifft, coset_fft, coset_ifft) for size n over ``mesh`` on
+    blocks: (batch, n_in/D) in, rank r's points [r*n_in/D, (r+1)*n_in/D)
+    of an input zero past n_in (n_in = n unless ``block_ntt_fits`` allows
+    a padded one), (batch, n/D) out, its points [r*n/D, (r+1)*n/D)."""
+    t = _FourStep(field, n, mesh, backend)
+    return _four_fns(t, t.rows_of_block, t.block)
 
 
 _FN_CACHE: dict = {}
@@ -160,9 +251,17 @@ _FN_CACHE: dict = {}
 def get_sharded_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
     """Cached ``make_sharded_ntt_fns``: one set (and one pair of twiddle
     row tables) per (field, size, mesh, backend)."""
-    key = (field.p, n, mesh, backend)
+    key = ("whole", field.p, n, mesh, backend)
     if key not in _FN_CACHE:
         _FN_CACHE[key] = make_sharded_ntt_fns(field, n, mesh, backend)
+    return _FN_CACHE[key]
+
+
+def get_block_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
+    """Cached ``make_block_ntt_fns``."""
+    key = ("block", field.p, n, mesh, backend)
+    if key not in _FN_CACHE:
+        _FN_CACHE[key] = make_block_ntt_fns(field, n, mesh, backend)
     return _FN_CACHE[key]
 
 

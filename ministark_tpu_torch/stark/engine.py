@@ -22,9 +22,19 @@ raises on a host without a card (the CPU is used only when asked for with
 ``device="cpu"``); a tensor handed in on another device is moved there
 once. ``ntt_backend`` ("radix2", "four_step" or "pipe", ops/ntt.py) chooses
 the NTT kernels; it is not part of the config and changes no proof byte.
-``mesh`` (a ``parallel.Mesh``, every rank proving the same trace) shards
-the NTTs, the Merkle builds and the FRI rounds over its ranks by the JAX
-package's size rules, for the same proof bytes on every rank.
+``mesh`` (a ``parallel.Mesh``, every rank proving the same trace) keeps
+the prove row-sharded (``parallel/__init__.py``): rank r slices its block
+[r*n/D, (r+1)*n/D) of the trace once and holds every stage tensor so (the
+trace tree, the trace iFFT, the transitions, the LDE and the constraint
+tree, the mix, every FRI round's coefficients, codeword and tree) until a
+stage's size stops splitting by the JAX package's size rules
+(``block_ntt_fits``, ``can_shard_tree``, ``_fri_sharded``); there the
+blocks are gathered once and every rank goes on with one device's code on
+the whole. A trace stage that does not split proves so from the start; the
+verifier's iFFT stays sharded, replicated in and out. The query phase
+reads codeword values, path digests and leaf groups from their owners and
+gathers the quotients to the host in chunks. Every rank returns the proof
+of one device, byte for byte.
 
 Two value-preserving deviations from the reference's algorithm, as in the
 JAX engine: query-phase y values are read from the committed codeword
@@ -42,10 +52,10 @@ import numpy as np
 import torch
 
 from ..commit import native
-from ..commit.packed_tree import PackedMerkleTree, to_leaf_comps
+from ..commit.packed_tree import BlockMerkleTree, PackedMerkleTree, to_leaf_comps
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import check_backend
+from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import (
     effective_len,
     eval_even_odd,
@@ -54,8 +64,11 @@ from ..ops.poly import (
     mix_columns,
     synth_div_suffix,
 )
-from ..parallel.fri_sharded import get_sharded_fri_fns
-from ..parallel.ntt_sharded import select_ntt_fns
+from ..parallel.fri_sharded import get_block_fri_fns
+from ..parallel.merkle_sharded import can_shard_tree
+from ..parallel.mesh import Rows, all_gather_rows, field_sum_over_ranks, gather_to_host
+from ..parallel.mesh import max_over_ranks, owner_select
+from ..parallel.ntt_sharded import block_ntt_fits, get_block_ntt_fns, select_ntt_fns
 from ..poly import DensePolynomial, Radix2EvaluationDomain
 from ..transcript.merlin import Arthur, Merlin
 from ..utils import LeafNotFound
@@ -90,7 +103,15 @@ class DeviceTrace:
     trace domain (rows >= steps carry the deterministic ZK padding), OR
     ``cols_dev``: the same data as a (width, N) int64 tensor (witness built
     on the device). ``transitions`` map the (width, N) trace-polynomial
-    coefficient tensor to one (N,) constraint coefficient tensor."""
+    coefficient tensor to one (N,) constraint coefficient tensor. Each
+    takes a keyword ``rows`` (default None): the resident prove on a mesh
+    calls ``f(tp, rows=rows)`` with ``rows`` a ``parallel.Rows`` and tp
+    this rank's (width, N/D) block of the coefficients [rows.lo, rows.lo +
+    rows.count), and wants the same block of the output. A transition that
+    acts on each coefficient alone ignores ``rows``; one that does not (a
+    constant at x^0, a product of evaluations) reads its block's place from
+    ``rows`` and its transforms from ``get_block_ntt_fns(field, N,
+    rows.mesh)`` (models/counter.py, models/mimc.py)."""
 
     stark_field: object
     steps: int
@@ -164,21 +185,68 @@ class DeviceEngine:
     # ------------------------------------------------------------------ utils
     def _ntt(self, n: int):
         """(fft, ifft, coset_fft, coset_ifft) over the base field for size
-        n: sharded over the engine's mesh when one is set and n splits."""
-        return select_ntt_fns(self.config.stark_field.base, n, self.mesh,
-                              self.ntt_backend)
+        n on one device: the prove's whole tensors (with no mesh, or where
+        a stage stops splitting and every rank holds the whole)."""
+        return get_ntt_fns(self.config.stark_field.base, n, self.ntt_backend)
 
-    def _fri_sharded(self, n: int):
-        """Sharded fold/deep/divide for coefficient length n, or None when
-        no mesh is set or the length does not split (the JAX engine's
-        ``_fri_sharded``, ``ministark_tpu/stark/engine.py:179``)."""
-        if self.mesh is None:
-            return None
+    def _fri_splits(self, n: int) -> bool:
+        """Fold / deep / divide of n coefficients split over the mesh (the
+        JAX engine's ``_fri_sharded`` rule, ``ministark_tpu/stark/engine.py:179``)."""
         n_dev = self.mesh.size
         m = n // n_dev if n % n_dev == 0 else 0
-        if m < 2 or m % 2 or m & (m - 1):
+        return not (m < 2 or m % 2 or m & (m - 1))
+
+    def _block_ntt(self, n: int):
+        """(fft, ifft, coset_fft, coset_ifft) on this rank's blocks."""
+        return get_block_ntt_fns(self.config.stark_field.base, n, self.mesh,
+                                 self.ntt_backend)
+
+    def _tree_splits(self, n_elems: int, k: int) -> bool:
+        return (n_elems % k == 0 and n_elems // k > 1
+                and can_shard_tree(n_elems, k, self.mesh.size))
+
+    def _trace_rows(self, trace: DeviceTrace):
+        """The rows of the trace domain this rank holds (``parallel.Rows``)
+        when the trace stage splits over the mesh (the trace iFFT, the
+        padded LDE and both trees), else None: every rank proves the whole
+        with one device's code."""
+        if self.mesh is None:
             return None
-        return get_sharded_fri_fns(self.config.stark_field.extension, n, self.mesh)
+        cfg, D = self.config, self.mesh.size
+        n, k = trace.domain_size, cfg.merkle_config.leafs_per_node
+        lde_n = cfg.blowup_factor * n
+        if (block_ntt_fits(n, n, D) and block_ntt_fits(lde_n, n, D)
+                and self._tree_splits(n * trace.width, k)
+                and self._tree_splits(lde_n * trace.constrain_number(), k)):
+            return Rows(self.mesh, n)
+        return None
+
+    def _round_splits(self, m: int, size: int) -> bool:
+        """A device FRI round of m coefficients and ``size`` points stays
+        resident: its codeword's NTT, its tree and its fold / deep /
+        divide all split over the mesh."""
+        k = self.config.fri_config.merkle_config.leafs_per_node
+        return (block_ntt_fits(size, m, self.mesh.size) and self._tree_splits(size, k)
+                and self._fri_splits(m))
+
+    def _tree(self, field, vals, mcfg, rows):
+        if rows is None:
+            return PackedMerkleTree(field, vals, mcfg)
+        return BlockMerkleTree(field, vals, mcfg, self.mesh)
+
+    def _whole(self, block, rows) -> torch.Tensor:
+        """This rank's block -> the whole tensor on every rank: the one
+        gather where a stage stops splitting."""
+        return all_gather_rows(self.mesh, block).reshape((rows.n,) + tuple(block.shape[1:]))
+
+    def _host_coeffs(self, coeffs, rows) -> list:
+        """(m, d) coefficients (whole, or this rank's block of ``rows``)
+        -> host scalars, trimmed: the handoff to the host tail, whose
+        gather goes to host memory in chunks."""
+        eff = effective_len(coeffs, rows)
+        if rows is not None:
+            coeffs = gather_to_host(self.mesh, coeffs, eff, kind="all_gather")
+        return self.ke.unpack(coeffs[:eff])
 
     def _cols(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) int64 column evaluations on the engine's device."""
@@ -187,8 +255,10 @@ class DeviceEngine:
         return pack_u64(trace.cols, self.device)
 
     def _trace_polys(self, trace: DeviceTrace) -> torch.Tensor:
-        """(width, N) evaluations -> (width, N) coefficients."""
-        return self._ntt(trace.domain_size)[1](self._cols(trace))
+        """(width, N) evaluations -> (width, N) coefficients, whole on every
+        rank (the iFFT sharded over the mesh where the size splits)."""
+        return select_ntt_fns(self.config.stark_field.base, trace.domain_size,
+                              self.mesh, self.ntt_backend)[1](self._cols(trace))
 
     def constrain_coeffs(self, trace: DeviceTrace) -> torch.Tensor:
         """The out-of-band Constrains as one (w+t, N) coefficient tensor:
@@ -209,11 +279,15 @@ class DeviceEngine:
         self.phase_seconds = {}
         self._t0 = None
         self._t("trace_commit")
+        # on a mesh: this rank's rows of the trace domain, or None
+        rows = self._trace_rows(trace)
         # 1.1 trace commitment over the row-major trace; leafs_per_node is
         # the constraint count (6), so one leaf group spans two rows
         cols = self._cols(trace)
-        trace_tree = PackedMerkleTree(
-            base, cols.T.contiguous().reshape(-1), cfg.merkle_config, self.mesh)
+        if rows is not None:
+            cols = rows.take(cols, 1)                                # (w, n/D)
+        trace_tree = self._tree(base, cols.T.contiguous().reshape(-1),
+                                cfg.merkle_config, rows)
         trace_commit = trace_tree.root()
         del trace_tree
         merlin.add_bytes(trace_commit)
@@ -222,19 +296,32 @@ class DeviceEngine:
         # 1.2 LDE of all constraint polynomials
         lde_n = cfg.blowup_factor * n
         random_shift = merlin.challenge_scalar(base)
-        trace_poly = self._ntt(n)[1](cols)                           # (w, n)
-        del cols
-        all_coeffs = torch.cat(
-            [trace_poly] + [f(trace_poly)[None] for f in trace.transitions], 0)
+        if rows is None:
+            trace_poly = self._ntt(n)[1](cols)                       # (w, n)
+            del cols
+            all_coeffs = torch.cat(
+                [trace_poly] + [f(trace_poly)[None] for f in trace.transitions], 0)
+            del trace_poly
+            padded = torch.zeros((all_coeffs.shape[0], lde_n), dtype=torch.int64,
+                                 device=dev)
+            padded[:, :n] = all_coeffs
+            lde_evals = self._ntt(lde_n)[2](padded, random_shift)    # (w+t, 2n)
+            del padded
+        else:
+            # blocks: (w, n/D) coefficients, transitions on their blocks,
+            # the LDE from n/D coefficients to its 2n/D points (the zero
+            # padding is taken in by the block NTT, never built)
+            trace_poly = self._block_ntt(n)[1](cols)
+            del cols
+            all_coeffs = torch.cat([trace_poly] + [
+                f(trace_poly, rows=rows)[None] for f in trace.transitions], 0)
+            del trace_poly
+            lde_evals = self._block_ntt(lde_n)[2](all_coeffs, random_shift)
         total = all_coeffs.shape[0]
-        padded = torch.zeros((total, lde_n), dtype=torch.int64, device=dev)
-        padded[:, :n] = all_coeffs
-        lde_evals = self._ntt(lde_n)[2](padded, random_shift)        # (w+t, 2n)
-        del padded
 
         self._t("constrain_tree")
-        constrain_tree = PackedMerkleTree(
-            base, lde_evals.T.contiguous().reshape(-1), cfg.merkle_config, self.mesh)
+        constrain_tree = self._tree(base, lde_evals.T.contiguous().reshape(-1),
+                                    cfg.merkle_config, rows)
         del lde_evals
         constrain_trace_commit = constrain_tree.root()
         del constrain_tree
@@ -252,9 +339,14 @@ class DeviceEngine:
         queries = merlin.challenge_scalars(ext, cfg.constrain_queries)
         ext_coeff_arr = lift_base_array(ke, all_coeffs)              # (w+t, n, d)
         ext_mixed = lift_base_array(ke, mixed)
+        lo = 0 if rows is None else rows.lo
+        all_evals = torch.stack([eval_many(ke, ext_coeff_arr, ke.pack_scalar(q, dev), lo)
+                                 for q in queries])                  # (Q, w+t, d)
+        if rows is not None:        # the blocks' partial sums, added up
+            all_evals = field_sum_over_ranks(ke, self.mesh, all_evals)
         constrain_queries, validity_queries = [], []
-        for q in queries:
-            evals = ke.unpack(eval_many(ke, ext_coeff_arr, ke.pack_scalar(q, dev)))
+        for qi in range(len(queries)):
+            evals = ke.unpack(all_evals[qi])
             constrain_queries.append(evals)
             # validity == mixed (§8.3) => its query value is the r-weighted
             # sum of the constraint query values (identical field value)
@@ -266,7 +358,7 @@ class DeviceEngine:
 
         self._t("fri")
         # 3. FRI on the extension-lifted validity polynomial
-        fri_proof = self._fri_prove(merlin, ext_mixed)
+        fri_proof = self._fri_prove(merlin, ext_mixed, rows)
 
         self._t("done")
         return StarkProof(
@@ -287,17 +379,18 @@ class DeviceEngine:
         comp[:, :coeffs.shape[0]] = coeffs.T
         return self._ntt(domain_size)[0](comp).T.contiguous()
 
-    def _fri_prove(self, merlin: Merlin, poly_coeffs) -> "DeviceFriProof":
+    def _fri_prove(self, merlin: Merlin, poly_coeffs, rows=None) -> "DeviceFriProof":
         """Hybrid FRI: tensors for large rounds, host scalars for the
-        geometric tail (< DEVICE_MIN_SIZE); identical bytes either way."""
+        geometric tail (< DEVICE_MIN_SIZE); identical bytes either way.
+        ``rows``: the rows of ``poly_coeffs`` this rank holds, on a mesh."""
         cfg = self.config.fri_config
         ext = self.config.stark_field.extension
         ke = self.ke
 
-        degree = max(effective_len(poly_coeffs) - 1, 0)
+        degree = max(effective_len(poly_coeffs, rows) - 1, 0)
         size = (degree + 1) * cfg.blowup_factor
 
-        rounds: List[_FriRoundRepr] = [self._make_round(poly_coeffs, size)]
+        rounds: List[_FriRoundRepr] = [self._make_round(poly_coeffs, size, rows)]
         cur = rounds[0]
         for ri in range(1, cfg.rounds):
             self._t(f"fri_round_{ri}_size{cur.size}")
@@ -307,8 +400,8 @@ class DeviceEngine:
 
             alpha = merlin.challenge_scalar(ext)
             deep_value = ext.add(fe_z, ext.mul(alpha, fo_z))
-            round_coeffs = self._fold_div(cur, z, alpha, deep_value)
-            cur = self._make_round(round_coeffs, cur.size // 2)
+            round_coeffs, rows = self._fold_div(cur, z, alpha, deep_value)
+            cur = self._make_round(round_coeffs, cur.size // 2, rows)
             merlin.add_bytes(cur.tree.root())
             rounds.append(cur)
 
@@ -340,8 +433,7 @@ class DeviceEngine:
             next_reads = nxt.read_many(idxs_next)
             if prev.device:
                 self._tq(label, "device")
-                reads = prev.codeword[
-                    torch.tensor(idxs_prev, dtype=torch.int64, device=self.device)]
+                reads = prev.read_rows(idxs_prev)
                 qs, effs = self._quotients_from_reads(prev, reads, xs)
                 # proof search by the y1/y2 values, interleaved per query
                 # [y1_0, y2_0, y1_1, ...], in the tree's leaf layout (§8.6)
@@ -358,7 +450,7 @@ class DeviceEngine:
                 self._tq(label, "copy")
                 proofs = prev.tree.proofs_finish(handle)
                 prev_reads = ke.unpack(reads)
-                round_quotients = self._trim_quotients(qs, effs)
+                round_quotients = self._trim_quotients(qs, effs, prev.rows)
                 self._tq(label, "host")
             else:
                 self._tq(label, "host")
@@ -387,34 +479,40 @@ class DeviceEngine:
                               quotients=quotients)
 
     # ------------------------------------------------- hybrid round helpers
-    def _make_round(self, coeffs, size: int) -> "_FriRoundRepr":
+    def _make_round(self, coeffs, size: int, rows=None) -> "_FriRoundRepr":
         """coeffs: a tensor zero-padded to a power-of-two length (halving
-        each round), OR a trimmed host scalar list (tail rounds)."""
+        each round), whole or this rank's block of ``rows``, OR a trimmed
+        host scalar list (tail rounds)."""
         ext = self.config.stark_field.extension
         mcfg = self.config.fri_config.merkle_config
         if isinstance(coeffs, list) or size < DEVICE_MIN_SIZE:
             if not isinstance(coeffs, list):
-                coeffs = self.ke.unpack(coeffs[:effective_len(coeffs)])
+                coeffs = self._host_coeffs(coeffs, rows)
             codeword = Radix2EvaluationDomain(ext, size).fft(coeffs)
             return _FriRoundRepr(device=False, ke=self.ke, coeffs=coeffs,
                                  codeword=codeword,
                                  tree=self.tail_tree(ext, codeword, mcfg),
                                  size=size)
-        codeword = self._ext_fft(coeffs[: min(size, coeffs.shape[0])], size)
+        if rows is not None and not self._round_splits(rows.n, size):
+            coeffs, rows = self._whole(coeffs, rows), None         # the handoff
+        if rows is None:
+            codeword = self._ext_fft(coeffs[: min(size, coeffs.shape[0])], size)
+        else:                       # (m/D, d) -> this rank's (size/D, d) points
+            codeword = self._block_ntt(size)[0](coeffs.T.contiguous()).T.contiguous()
         return _FriRoundRepr(device=True, ke=self.ke, coeffs=coeffs,
                              codeword=codeword,
-                             tree=PackedMerkleTree(ext, codeword, mcfg, self.mesh),
-                             size=size)
+                             tree=self._tree(ext, codeword, mcfg, rows),
+                             size=size, rows=rows)
 
     def _deep_evals(self, rnd: "_FriRoundRepr", z):
         ext = self.config.stark_field.extension
         if rnd.device:
-            if rnd.coeffs.shape[0] == 0:
-                return ext.zero(), ext.zero()
             zp = self.ke.pack_scalar(z, self.device)
-            fns = self._fri_sharded(rnd.coeffs.shape[0])
-            if fns is not None:
-                fe, fo = fns["deep"](rnd.coeffs, zp)
+            if rnd.rows is not None:
+                fe, fo = get_block_fri_fns(ext, rnd.rows.n, self.mesh)["deep"](
+                    rnd.coeffs, zp)
+            elif rnd.coeffs.shape[0] == 0:
+                return ext.zero(), ext.zero()
             else:
                 fe, fo = eval_even_odd(self.ke, rnd.coeffs, zp)
             both = self.ke.unpack(torch.stack([fe, fo]))   # one pull
@@ -424,53 +522,61 @@ class DeviceEngine:
 
     def _fold_div(self, rnd: "_FriRoundRepr", z, alpha, deep_value):
         """One FRI round: fold even/odd, subtract the DEEP value at x^0,
-        divide by (x - z), zero-pad to n/2 (``engine._fold_div_jit``)."""
+        divide by (x - z), zero-pad to n/2 (``engine._fold_div_jit``).
+        Returns the next round's coefficients and, when they stay resident,
+        the rows this rank holds (else None)."""
         ext = self.config.stark_field.extension
         ke = self.ke
+        pack = lambda v: ke.pack_scalar(v, self.device)  # noqa: E731
+        coeffs, rows = rnd.coeffs, rnd.rows
+        if rows is not None and not self._fri_splits(rows.n // 2):
+            coeffs, rows = self._whole(coeffs, rows), None  # the halves stop splitting
         if rnd.device and not ext.is_zero(z):
-            n = rnd.coeffs.shape[0]
-            pack = lambda v: ke.pack_scalar(v, self.device)  # noqa: E731
-            fns = self._fri_sharded(n)
-            fns_half = self._fri_sharded(n // 2) if fns is not None else None
-            if fns_half is not None:
-                # a distributed round (ministark_tpu/stark/engine.py:
-                # 738-752): sharded fold, the DEEP value off x^0, sharded
-                # division; the quotient keeps the length n/2 with its
-                # trailing slot zero
-                folded = fns["fold"](rnd.coeffs, pack(alpha))
-                folded[0] = ke.sub(folded[0], pack(deep_value))
-                rp = fns_half["divide"](folded, pack(z), pack(ext.inv(z)))
+            if rows is not None:
+                # a resident round (ministark_tpu/stark/engine.py:738-752):
+                # the block fold, the DEEP value off x^0 on rank 0's block,
+                # the block division; the quotient keeps the length n/2
+                # with its trailing slot zero
+                half = Rows(self.mesh, rows.n // 2)
+                folded = get_block_fri_fns(ext, rows.n, self.mesh)["fold"](
+                    coeffs, pack(alpha))
+                if half.lo == 0:
+                    folded[0] = ke.sub(folded[0], pack(deep_value))
+                rp = get_block_fri_fns(ext, half.n, self.mesh)["divide"](
+                    folded, pack(z), pack(ext.inv(z)))
             else:
-                folded = fold_even_odd(ke, rnd.coeffs, pack(alpha))
+                half = None
+                folded = fold_even_odd(ke, coeffs, pack(alpha))
                 folded[0] = ke.sub(folded[0], pack(deep_value))
                 q = synth_div_suffix(ke, folded, pack(z), pack(ext.inv(z)))
-                rp = torch.zeros((n // 2,) + ke.elem_axes, dtype=torch.int64,
-                                 device=self.device)
+                rp = torch.zeros((coeffs.shape[0] // 2,) + ke.elem_axes,
+                                 dtype=torch.int64, device=self.device)
                 rp[: q.shape[0]] = q
             # hand off to the host representation when the next round is small
             if rnd.size // 2 < DEVICE_MIN_SIZE:
-                return ke.unpack(rp[: effective_len(rp)])
-            return rp
+                return self._host_coeffs(rp, half), None
+            return rp, half
         if rnd.device:
-            coeffs = ke.unpack(rnd.coeffs[: effective_len(rnd.coeffs)])
-        else:
-            coeffs = rnd.coeffs
+            coeffs = self._host_coeffs(coeffs, rows)
         parts = HostFriRound.split_poly(ext, DensePolynomial(ext, coeffs), 2)
         folded = parts[0] + parts[1].scale(alpha)
         dv_poly = DensePolynomial(ext, [deep_value])
         denominator = DensePolynomial(ext, [ext.neg(z), ext.one()])
-        return ((folded - dv_poly) / denominator).to_vec()
+        return ((folded - dv_poly) / denominator).to_vec(), None
 
     def _quotients_from_reads(self, prev: "_FriRoundRepr", reads, xs):
         """All of one round's query quotients (f - line) / ((x - x1)(x - x2))
         as one batch, with the lines a*x + b derived on the device from the
         codeword reads (y1 = reads[:Q], y2 = reads[Q:2Q]):
         (Q, n0 - 1, d) quotients zero-padded past their effective lengths,
-        and those lengths (Q,)."""
+        and those lengths (Q,). A resident round gives this rank's block
+        (Q, n0/D, d) of the quotients, from the batched block divide, with
+        the line subtracted at x^0 and x^1 on rank 0's block and the
+        lengths the most across the ranks."""
         ext = self.config.stark_field.extension
         ke = self.ke
         pc = prev.coeffs
-        if pc.shape[0] < 2:
+        if prev.rows is None and pc.shape[0] < 2:
             pc = torch.cat([pc, torch.zeros((2 - pc.shape[0],) + ke.elem_axes,
                                             dtype=pc.dtype, device=pc.device)], 0)
         Q = len(xs)
@@ -488,22 +594,34 @@ class DeviceEngine:
         b_s = ke.sub(y1_s, ke.mul(a_s, x1_s))
 
         num = pc.unsqueeze(0).repeat(Q, 1, 1)                        # (Q, n0, d)
-        num[:, 0] = ke.sub(num[:, 0], b_s)
-        num[:, 1] = ke.sub(num[:, 1], a_s)
-        q1 = synth_div_suffix(ke, num, x1_s, s1_s)                   # (Q, n0-1, d)
-        q1 = torch.cat([q1, torch.zeros_like(q1[:, :1])], 1)
-        q2 = synth_div_suffix(ke, q1, x2_s, s2_s)                    # (Q, n0-1, d)
+        if prev.rows is None or prev.rows.lo == 0:
+            num[:, 0] = ke.sub(num[:, 0], b_s)
+            num[:, 1] = ke.sub(num[:, 1], a_s)
+        if prev.rows is None:
+            q1 = synth_div_suffix(ke, num, x1_s, s1_s)               # (Q, n0-1, d)
+            q1 = torch.cat([q1, torch.zeros_like(q1[:, :1])], 1)
+            q2 = synth_div_suffix(ke, q1, x2_s, s2_s)                # (Q, n0-1, d)
+        else:                       # blocks, each division's trailing slot zero
+            divide = get_block_fri_fns(ext, prev.rows.n, self.mesh)["divide"]
+            q2 = divide(divide(num, x1_s, s1_s), x2_s, s2_s)         # (Q, n0/D, d)
         nz = (q2 != 0).any(-1)
         idx = torch.arange(1, q2.shape[1] + 1, device=q2.device)
         effs = torch.where(nz, idx, torch.zeros_like(idx)).amax(1)
+        if prev.rows is not None:
+            effs = max_over_ranks(self.mesh, torch.where(effs > 0, effs + prev.rows.lo, effs))
         return q2, effs
 
-    @staticmethod
-    def _trim_quotients(qs, effs):
+    def _trim_quotients(self, qs, effs, rows=None):
         """Per-query quotient tensors on the host, each trimmed to its
-        effective length; one pull of the longest prefix for the batch."""
+        effective length; one pull of the longest prefix for the batch
+        (a resident round's: gathered to host memory in chunks)."""
         effs = [int(e) for e in effs.cpu()]
-        arr = qs[:, : max(effs + [0])].cpu()
+        longest = max(effs + [0])
+        if rows is None:
+            arr = qs[:, :longest].cpu()
+        else:
+            arr = gather_to_host(self.mesh, qs.transpose(0, 1), longest)
+            arr = arr[:longest].transpose(0, 1).contiguous()
         return [arr[qi, : effs[qi]] for qi in range(len(effs))]
 
     def _host_quotient(self, prev: "_FriRoundRepr", a, b, x1, x2):
@@ -609,12 +727,23 @@ class _FriRoundRepr:
     codeword: object      # device: (size, d) tensor; host: scalar list
     tree: object          # device: PackedMerkleTree; host: MerkleTree (native)
     size: int
+    # on a mesh, the rows of the m coefficients this rank holds: coeffs is
+    # its (m/D, d) block, codeword its (size/D, d) block, tree a
+    # BlockMerkleTree; None when the round is whole on every rank
+    rows: "Rows | None" = None
+
+    def read_rows(self, idxs) -> torch.Tensor:
+        """(len(idxs), d) codeword values at host indices, whole on every
+        rank; a resident round's come from their owners."""
+        idx = torch.tensor(idxs, dtype=torch.int64, device=self.codeword.device)
+        if self.rows is None:
+            return self.codeword[idx]
+        m = self.codeword.shape[0]
+        return owner_select(self.rows.mesh, self.codeword[idx % m], idx // m)
 
     def read_many(self, idxs):
         if self.device:
-            dev = self.codeword.device
-            return self.ke.unpack(
-                self.codeword[torch.tensor(idxs, dtype=torch.int64, device=dev)])
+            return self.ke.unpack(self.read_rows(idxs))
         return [self.codeword[i] for i in idxs]
 
 

@@ -19,7 +19,10 @@ name and power limit (nvidia-smi), the runtime's
 kernel-launch calls by name, the kernels that ran on the device and their
 summed time, the prove's wall seconds and the device's busy share (kernel
 time over wall time), the wall seconds of one warm prove before it
-without the profiler (``warm_s``), the sha256 of the proof's bytes, the
+without the profiler (``warm_s``) with its peak allocated device memory
+(``peak_allocated_bytes``, peak stats reset first) and, on a mesh, the
+bytes the rank received by collective kind (``received_bytes``,
+``parallel/mesh.py::received``), the sha256 of the proof's bytes, the
 fast modes' ``phase_seconds``, and with ``--match S`` the launches and summed ms
 of the kernels whose names contain S. ``--root`` names the checkout whose
 ministark_tpu_torch is imported (default: the one holding this script), so
@@ -120,10 +123,18 @@ def measure(mesh, args):
         to_bytes = lambda p: proof_to_json(sf, p).encode()  # noqa: E731
     prove()                                                # build and warm up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = None
+    if mesh is not None:
+        from ministark_tpu_torch.parallel import mesh as pm
+
+        got = dict(getattr(pm, "received", {}))
     t0 = time.time()
     proof = prove()
     torch.cuda.synchronize()
     warm = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    received = None if got is None else {k: v - got[k] for k, v in pm.received.items()}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -147,6 +158,7 @@ def measure(mesh, args):
         "launch_calls": launch_calls, "device_kernels": kernels,
         "device_ms": device_us / 1e3, "prove_wall_s": wall,
         "device_busy_share": device_us / 1e6 / wall, "warm_s": warm,
+        "peak_allocated_bytes": peak, "received_bytes": received,
         "proof_sha256": hashlib.sha256(to_bytes(proof)).hexdigest(),
         "phase_seconds": None if phases is None else phases(),
         **({} if args.match is None else {"match": {
