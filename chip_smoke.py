@@ -66,19 +66,24 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
  10. sharded   the sharded paths (ministark_tpu_torch/parallel/) with ranks
                that share the one card in gloo groups (parallel/launch.py):
                two ranks prove GL parity and fast at 2^20 - 1 cold and warm,
-               each rank's proof equal to phases main's / fast's and
+               both resident (each rank holds its block of every stage
+               tensor), each rank's proof equal to phases main's / fast's and
                verified, with its kernel launches (paths sharded_parity and
                sharded_fast, per rank), its bytes received by collective kind
                and its warm prove's peak allocated memory; a one-rank group
-               proves the same on one device in a process of its own, and
-               a rank's resident parity prove fails above 0.75 of that
-               one's peak; the sharded coset LDE (6, 2^21),
+               proves both on one device in a process of its own, and a
+               rank's resident parity or fast prove fails above 0.75 of that
+               one's peak (SHARDED_PEAK_SHARE), a fast rank above 2 MB of
+               all_gather outside the openings; the two ranks then
+               prove_many 4 traces at 2^20 - 1, resident, equal to phase
+               fast's bytes; the sharded coset LDE (6, 2^21),
                constrain tree (6 x 2^21 elements) and index tree (2^19, 48)
                equal to one device's, both timed (a time of the code path:
-               the ranks share the card); the sharded prove core
-               (make_sharded_prove_core) at 2^18 equal to the single core with
-               shift 1, with its launches (path sharded_core); then four ranks prove the 2^14 - 1
-               pins (PINS, FAST_PINS x 1 and x 4, STIR_PINS, WHIR_PINS, one
+               the ranks share the card); the resident prove core
+               (make_sharded_prove_core) at 2^18, each rank's blocks joined
+               and equal to the single core with shift 1, with its launches
+               (path sharded_core); then four ranks prove the 2^14 - 1 pins
+               (PINS, FAST_PINS x 1 and x 4, STIR_PINS, WHIR_PINS, one
                BB_PINS and one BB_FAST_PINS entry, MiMC's MODEL_PINS)
  11. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
                on the card: small proofs byte-identical to the host oracle
@@ -113,6 +118,10 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                checked), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
                the kernel bench and the bench's proves
+ 16. processes no process that the script started is left: every child of
+               this process has ended and been reaped (the ranks, and the
+               resource tracker that the spawn method starts beside them,
+               parallel/launch.py)
 
 Phase 3 also holds the stream kernel and the digit level's four kernels
 (digitize, int8 dot, recombine, fused level) against their plain versions at
@@ -286,6 +295,30 @@ def max_abs_err(got, want) -> int:
     b = want[bad].cpu().numpy().astype(object)
     mod = 1 << (8 * got.element_size())
     return max(abs(int(x) % mod - int(y) % mod) for x, y in zip(a, b))
+
+
+def _children() -> list:
+    """[(pid, command)] of the processes whose parent is this one, zombies
+    included (read from /proc)."""
+    me, out = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if stat.rsplit(")", 1)[1].split()[1] == me:
+            out.append((int(pid), cmd))
+    return out
+
+
+def phase_processes():
+    left = _children()
+    if left:
+        fail(f"processes: the script leaves {len(left)} process(es) of its own: {left}")
+    say("processes", "no process that the script started is left")
 
 
 def phase_gpu():
@@ -1364,7 +1397,7 @@ def phase_fast(results, field="gl"):
                    f"traces (prove_many) equal to the radix-2 proof, verified; "
                    f"prove {secs:.3f} s ({secs / FAST_BATCH:.3f} s per trace)")
         del proof
-    return blob
+    return blob, many_blob
 
 
 def phase_stir_whir(results):
@@ -1470,9 +1503,13 @@ def phase_stir_whir(results):
 
 SHARDED_TIMEOUT_S = 900
 # a rank of two holds its block of every stage tensor: its peak allocated
-# memory in the warm 2^20 - 1 parity prove stays at most this share of one
-# device's, read alike in a process that proves with no mesh
+# memory in the warm 2^20 - 1 parity and fast proves stays at most this
+# share of one device's, read alike in a process that proves with no mesh
 SHARDED_PEAK_SHARE = 0.75
+# a resident fast rank's all_gather bytes outside the openings in the cold
+# 2^20 - 1 prove (local tree tops, point-evaluation partials, the final
+# coefficients); one witness LDE is 6 x 2^21 x 2 x 8 B = 201 MB
+SHARDED_FAST_GATHER_BYTES = 2 << 20
 # phase sharded's shapes: the sharded pieces timed against one device (the
 # 2^20 - 1 prove's coset LDE and constrain tree, the fast prove's witness
 # index tree) and the four-rank group's pinned steps
@@ -1531,21 +1568,32 @@ def _sharded_prove(prove, digest, device):
 
 def _sharded_one(mesh):
     """Phase sharded's one-device baseline, in a process of its own as each
-    rank of the two-rank group is: the GL parity prove at 2^20 - 1 with no
-    mesh, cold then warm. (cold and warm proofs' digests, the warm prove's
-    peak allocated bytes.)"""
+    rank of the two-rank group is: the GL parity and fast proves at 2^20 - 1
+    with no mesh, each cold then warm. {"parity": ..., "fast": ...}, each
+    (cold and warm proofs' digests, the warm prove's peak allocated bytes,
+    warm s)."""
+    import hashlib
+
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
     from ministark_tpu_torch.stark import StarkConfig
     from ministark_tpu_torch.stark.engine import DeviceEngine
-    from ministark_tpu_torch.stark.proof_io import proof_digests
+    from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
+    from ministark_tpu_torch.stark.proof_io import fast_proof_to_bytes, proof_digests
 
     sf, dev = _stark_field("gl"), mesh.device
     trace = fibonacci_device_trace(sf, MAIN_STEPS, on_device=True, device=dev)
     engine = DeviceEngine(StarkConfig(sf, 20, 2, MAIN_STEPS, trace.constrain_number()),
                           device=dev)
-    _, cold_digest, _, _, _, _, warm_digest, peak, _ = _sharded_prove(
+    _, cold_digest, _, warm, _, _, warm_digest, peak, _ = _sharded_prove(
         lambda: engine.prove(trace), lambda p: proof_digests(sf, p), dev)
-    return cold_digest, warm_digest, peak
+    out = {"parity": (cold_digest, warm_digest, peak, warm)}
+    del engine
+    stark = FastStark(FastStarkConfig(sf, MAIN_STEPS, **FAST_CFG), device=dev)
+    _, cold_digest, _, warm, _, _, warm_digest, peak, _ = _sharded_prove(
+        lambda: stark.prove(trace),
+        lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
+    out["fast"] = (cold_digest, warm_digest, peak, warm)
+    return out
 
 
 def _sharded_full(mesh):
@@ -1586,7 +1634,16 @@ def _sharded_full(mesh):
         lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
     out["fast"] = rest + [stark.verify(stark._constraint_polys(trace), proof),
                           dict(stark.phase_seconds)]
-    del proof, stark, trace
+    del proof
+    # prove_many of FAST_BATCH traces, resident, against phase fast's bytes
+    traces = [trace] + [fibonacci_device_trace(sf, MAIN_STEPS, on_device=True, device=dev)
+                        for _ in range(FAST_BATCH - 1)]
+    _sync(dev)
+    t0 = time.time()
+    blob = fast_proof_to_bytes(sf, stark.prove_many(traces))
+    _sync(dev)
+    out["fast_many"] = (hashlib.sha256(blob).hexdigest(), time.time() - t0)
+    del stark, trace, traces
 
     rng = np.random.default_rng(SEED)
     base = sf.base
@@ -1612,7 +1669,9 @@ def _sharded_full(mesh):
     out["index_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
 
     # the sharded prove core (path sharded_core) against the single core
-    # with shift 1 (its LDE is over H), the counts around the sharded call
+    # with shift 1 (its LDE is over H), the counts around the sharded call;
+    # each rank's blocks, joined across the ranks
+    from ministark_tpu_torch.parallel.mesh import all_gather_rows
     from ministark_tpu_torch.stark.core import make_prove_core, make_sharded_prove_core
 
     single, example = make_prove_core(sf, SHARDED_CORE_N, device=dev)
@@ -1627,7 +1686,9 @@ def _sharded_full(mesh):
     _sync(dev)
     secs = time.perf_counter() - t0
     launches, _ = read_counts()
-    out["core"] = (all(torch.equal(a, b) for a, b in zip(got, want)), secs, launches)
+    joined = [torch.cat(list(all_gather_rows(mesh, block)), axis)
+              for block, axis in zip(got, (1, 0, 0))]
+    out["core"] = (all(torch.equal(a, b) for a, b in zip(joined, want)), secs, launches)
     return out
 
 
@@ -1664,24 +1725,27 @@ def _sharded_pins(mesh):
     return out
 
 
-def phase_sharded(results, parity_digests, fast_sha):
+def phase_sharded(results, parity_digests, fast_sha, fast_many_sha):
     """The sharded paths (ministark_tpu_torch/parallel/) with ranks that
     share the one card: a two-rank group at full width against phases main
-    and fast (the parity prove resident, each rank's peak memory against
-    a one-rank group's one-device prove) and the sharded pieces against one
-    device, then a four-rank group at the pinned 2^14 - 1 sizes."""
+    and fast (the parity and fast proves resident, each rank's peak memory
+    against a one-rank group's one-device prove, prove_many of FAST_BATCH)
+    and the sharded pieces against one device, then a four-rank group at
+    the pinned 2^14 - 1 sizes."""
     import torch
 
     from ministark_tpu_torch.parallel import launch
 
     label = "sharded"
-    one_cold, one_warm, one_peak = launch.run(
-        _sharded_one, 1, "gloo", "cuda:0", SHARDED_TIMEOUT_S)[0]
-    if one_cold != parity_digests or one_warm != parity_digests:
-        fail(f"sharded: the one-rank group's parity proof at {MAIN_STEPS} steps "
-             "differs from phase main's")
-    say(label, f"one device in a process of its own: parity steps {MAIN_STEPS} "
-               f"equal to phase main's proof; warm prove's peak allocated {one_peak} B")
+    one = launch.run(_sharded_one, 1, "gloo", "cuda:0", SHARDED_TIMEOUT_S)[0]
+    for path, phase, want in (("parity", "main", parity_digests), ("fast", "fast", fast_sha)):
+        cold_digest, warm_digest, peak, warm = one[path]
+        if cold_digest != want or warm_digest != want:
+            fail(f"sharded: the one-rank group's {path} proof at {MAIN_STEPS} steps "
+                 f"differs from phase {phase}'s")
+        say(label, f"one device in a process of its own: {path} steps {MAIN_STEPS} "
+                   f"equal to phase {phase}'s proof; warm {warm:.3f} s, warm "
+                   f"prove's peak allocated {peak} B")
     t0 = time.time()
     ranks = launch.run(_sharded_full, 2, "gloo", "cuda:0", SHARDED_TIMEOUT_S)
     say(label, f"2 ranks on {torch.cuda.get_device_name(0)} (one card shared, "
@@ -1703,16 +1767,19 @@ def phase_sharded(results, parity_digests, fast_sha):
                        f"{cold:.3f} s, warm {warm:.3f} s, equal to phase {phase}'s "
                        f"proof, verified; {collectives} collectives; phase_seconds "
                        + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+            one_peak = one[path][2]
             share = peak / one_peak
             say(label, f"{path} rank {r['rank']} of 2: warm prove's peak allocated "
-                       f"{peak} B" + (f", {share:.4f} of one device's ({one_peak} B)"
-                                      if path == "parity" else "")
-                       + "; bytes received by kind in the cold prove "
-                       + json.dumps(received))
-            if path == "parity" and share > SHARDED_PEAK_SHARE:
-                fail(f"sharded: rank {r['rank']}'s resident parity prove peaks at "
+                       f"{peak} B, {share:.4f} of one device's ({one_peak} B); bytes "
+                       "received by kind in the cold prove " + json.dumps(received))
+            if share > SHARDED_PEAK_SHARE:
+                fail(f"sharded: rank {r['rank']}'s resident {path} prove peaks at "
                      f"{share:.3f} of one device's memory, over "
                      f"{SHARDED_PEAK_SHARE}")
+            if path == "fast" and received["all_gather"] > SHARDED_FAST_GATHER_BYTES:
+                fail(f"sharded: rank {r['rank']}'s resident fast prove received "
+                     f"{received['all_gather']} B of all_gather outside the openings, "
+                     f"over {SHARDED_FAST_GATHER_BYTES}")
             say(label, f"{what} rank {r['rank']} launches "
                        + json.dumps({k: v for k, v in launches.items() if v}))
             for name, (_, _, paths) in KERNELS.items():
@@ -1720,6 +1787,14 @@ def phase_sharded(results, parity_digests, fast_sha):
                     fail(f"{name} was not launched by rank {r['rank']} of the "
                          f"{what} path")
         record(results, what, ranks[0][path][3])     # per rank: rank 0's
+    for r in ranks:
+        digest, secs = r["fast_many"]
+        if digest != fast_many_sha:
+            fail(f"sharded: rank {r['rank']}'s resident prove_many of {FAST_BATCH} "
+                 f"traces at {MAIN_STEPS} steps differs from phase fast's")
+        say(label, f"fast prove_many steps {MAIN_STEPS} x {FAST_BATCH}, rank "
+                   f"{r['rank']} of 2: resident, equal to phase fast's proof; "
+                   f"{secs:.3f} s")
     for what, shape in (("coset_fft", str(SHARDED_LDE)),
                         ("constrain_tree", f"{SHARDED_TREE} elements, 6 per group"),
                         ("index_tree", f"{SHARDED_ROWS}, arity {FAST_CFG['arity']}")):
@@ -1736,7 +1811,8 @@ def phase_sharded(results, parity_digests, fast_sha):
             fail(f"sharded: rank {r['rank']}'s sharded prove core at n "
                  f"{SHARDED_CORE_N} differs from the single core with shift 1")
         say(label, f"make_sharded_prove_core n {SHARDED_CORE_N}, rank {r['rank']} "
-                   f"of 2: equal to the single core with shift 1; {secs:.3f} s "
+                   f"of 2: its blocks, joined, equal to the single core with shift "
+                   f"1; {secs:.3f} s "
                    "(first call); launches "
                    + json.dumps({k: v for k, v in launches.items() if v}))
         for name, (_, _, paths) in KERNELS.items():
@@ -2232,11 +2308,12 @@ def main():
     phase_kernels_digit(results)
     phase_parity()
     parity_digests = phase_main(results)
-    fast_blob = phase_fast(results)
+    fast_blob, fast_many_blob = phase_fast(results)
     phase_main(results, "bb")
     phase_fast(results, "bb")
     phase_stir_whir(results)
-    phase_sharded(results, parity_digests, hashlib.sha256(fast_blob).hexdigest())
+    phase_sharded(results, parity_digests, hashlib.sha256(fast_blob).hexdigest(),
+                  hashlib.sha256(fast_many_blob).hexdigest())
     phase_models(results)
     phase_core(results, smi)
     phase_probes(results)
@@ -2247,6 +2324,7 @@ def main():
             if results[name]["paths"].get(path, 0) <= 0:
                 fail(f"{name} was not launched by the {path} path")
     say("launches", json.dumps({k: r["paths"] for k, r in results.items()}))
+    phase_processes()
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -12,6 +12,10 @@ given on: a CUDA tensor hashes with the row-leaf and inner-level kernels,
 one launch per level; a CPU tensor takes their plain versions. With a mesh
 (``parallel/``) the leaf hashing and the lower levels shard over its ranks.
 Verification (``verify_path``) is pure-host hashlib.
+
+``BlockIndexTree`` is the same commitment on a mesh over each rank's block
+of the rows, the resident fast prove's (``parallel/__init__.py``): no rank
+holds the whole rows or the whole lower levels.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from ..ops.field import unpack_u64
 from ..ops.sha256 import binary_row_digests, digests_to_bytes, inner_level
 from ..parallel.merkle_sharded import gather_levels, local_rows
+from ..parallel.mesh import owner_select
 
 
 def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
@@ -40,19 +45,32 @@ def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
     return torch.cat(levels, 0) if len(levels) > 1 else levels[0]
 
 
-def _build_digests_sharded(comps: torch.Tensor, arity: int, mesh) -> torch.Tensor:
-    """``_build_digests`` over a mesh, the same digests and layout. Each
-    rank hashes its contiguous block of rows and folds fan ``arity`` while
-    its local level size divides the fan (every rank holds the same
-    power-of-two node count, so local blocks stay group-aligned); one
-    gather of the local levels, then the top levels replicated."""
-    levels = [binary_row_digests(local_rows(mesh, comps))]
+def _local_levels(block: torch.Tensor, arity: int) -> List[torch.Tensor]:
+    """A rank's (n/D, C) block of rows -> its local levels: the row digests,
+    then fan ``arity`` while the level's size divides the fan (every rank
+    holds the same power-of-two node count, so local blocks stay
+    group-aligned), as ``ministark_tpu/commit/index_tree.py:91-95``."""
+    levels = [binary_row_digests(block)]
     while levels[-1].shape[0] % arity == 0:
         levels.append(inner_level(levels[-1], arity))
-    levels = gather_levels(mesh, levels)
+    return levels
+
+
+def _top_levels(level: torch.Tensor, arity: int) -> List[torch.Tensor]:
+    """The levels above a whole ``level`` up to the root, ``level`` first."""
+    levels = [level]
     while levels[-1].shape[0] > 1:
         levels.append(inner_level(levels[-1], min(arity, levels[-1].shape[0])))
-    return torch.cat(levels, 0)
+    return levels
+
+
+def _build_digests_sharded(comps: torch.Tensor, arity: int, mesh) -> torch.Tensor:
+    """``_build_digests`` over a mesh, the whole rows on every rank, the same
+    digests and layout: each rank's local levels of its contiguous block,
+    one gather of them all, then the top levels replicated (STIR's and
+    WHIR's trees)."""
+    levels = gather_levels(mesh, _local_levels(local_rows(mesh, comps), arity))
+    return torch.cat(levels[:-1] + _top_levels(levels[-1], arity), 0)
 
 
 def _level_sizes(n_leaves: int, arity: int) -> List[int]:
@@ -149,3 +167,75 @@ class IndexMerkleTree:
             digest = hashlib.sha256(group).digest()
             pos //= f
         return digest == root
+
+
+class BlockIndexTree(IndexMerkleTree):
+    """The commitment of ``IndexMerkleTree`` over this rank's block of the
+    rows on ``mesh``: rank r holds the rows [r*n/D, (r+1)*n/D) and hashes
+    its local levels (``_local_levels``); one gather brings the D local
+    tops, and the levels above them are built replicated, so ``root()`` is
+    the one-device tree's. ``open_many`` is a collective: every rank calls
+    it alike."""
+
+    def __init__(self, block: torch.Tensor, arity: int, mesh):
+        assert arity >= 2 and arity & (arity - 1) == 0
+        n_loc = int(block.shape[0])
+        n = n_loc * mesh.size
+        if n_loc == 0 or n & (n - 1):
+            raise ValueError(f"a tree of {n} rows does not split over {mesh.size} ranks")
+        self.arity, self.mesh = arity, mesh
+        self.n_leaves = n
+        self.sizes = _level_sizes(n, arity)
+        self._comps = block.contiguous()
+        local = _local_levels(self._comps, arity)
+        # the local levels below the top one, which goes into the gather,
+        # concatenated
+        self._local_sizes = [lv.shape[0] for lv in local[:-1]]
+        self._local = torch.cat(local[:-1], 0) if len(local) > 1 else local[0][:0]
+        self._top = _top_levels(gather_levels(mesh, local[-1:])[0], arity)
+        self._root = None
+
+    def root(self) -> bytes:
+        if self._root is None:
+            self._root = digests_to_bytes(self._top[-1])[0].tobytes()
+        return self._root
+
+    def open_many(self, indices: List[int]) -> List[IndexMerklePath]:
+        """The paths of ``IndexMerkleTree.open_many``: a query's row and its
+        groups on the local levels come from the rank that owns the row
+        (``owner_select``, one gather each), the groups above from the
+        replicated top."""
+        arity, n_loc, L = self.arity, self._comps.shape[0], len(self._local_sizes)
+        offsets = np.concatenate([[0], np.cumsum(self._local_sizes)])
+        dev = self._comps.device
+        owner = torch.tensor([i // n_loc for i in indices], dtype=torch.int64, device=dev)
+        local_idx, top_groups = [], []
+        for idx in indices:
+            pos = idx % n_loc
+            for lvl in range(L):
+                start = int(offsets[lvl]) + pos - pos % arity
+                local_idx.extend(range(start, start + arity))
+                pos //= arity
+            pos, groups = idx // arity ** L, []
+            for lvl, level in enumerate(self._top[:-1]):
+                f = min(arity, level.shape[0])
+                groups.append((lvl, pos - pos % f, f))
+                pos //= f
+            top_groups.append(groups)
+        rows = unpack_u64(owner_select(self.mesh, self._comps[torch.tensor(
+            [i % n_loc for i in indices], dtype=torch.int64, device=dev)], owner))
+        if L:
+            mine = self._local[torch.tensor(local_idx, dtype=torch.int64, device=dev)]
+            local = digests_to_bytes(owner_select(
+                self.mesh, mine.reshape(len(indices), L * arity, 8), owner
+            ).reshape(-1, 8))
+        top = [digests_to_bytes(level) for level in self._top[:-1]]
+
+        out = []
+        for qi, groups in enumerate(top_groups):
+            path_groups = [local[(qi * L + lvl) * arity:(qi * L + lvl + 1) * arity].tobytes()
+                           for lvl in range(L)]
+            path_groups += [top[lvl][start:start + f].tobytes() for lvl, start, f in groups]
+            out.append(IndexMerklePath(row=rows[qi].astype("<u8").tobytes(),
+                                       groups=path_groups))
+        return out

@@ -136,7 +136,8 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> dict:
     device, or AssertionError. The ranks' device follows ``device``
     (``"cuda"``: rank i on card i % count; ``"cuda:0"``: all on that card;
     ``"cpu"``), and the one-device references run on ``device`` (card 0
-    for ``"cuda"``) while the ranks prove. Prints a line a check; returns
+    for ``"cuda"``) while the ranks prove. The core's ranks return their
+    blocks (resident), joined here before the comparison. Prints a line a check; returns
     {key: rank 0's collectives} for the proves."""
     from .parallel import cases, launch
 
@@ -159,14 +160,20 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> dict:
             assert _same(r[key], single[key]), (
                 f"{tag}: rank {rank}'s {what} differs from one device's")
 
-    check("core", "Fibonacci core")
-    _sharded_lde_check(ranks[0]["core"][0], ref_device)
-    lde, mixed, folded = ranks[0]["core"]
-    print(f"{tag}: core OK — sharded LDE bit-exact, equal to the single core "
-          f"with shift 1 on every rank; mixed shape {mixed.shape}, folded shape "
-          f"{folded.shape}")
-    check("mimc_core", "MiMC core")
-    print(f"{tag}: MiMC generic core OK — lde shape {ranks[0]['mimc_core'][0].shape}")
+    def check_core(key, what):
+        """The ranks' blocks, joined, against one device's core."""
+        whole = cases.core_whole([r[key] for r in ranks])
+        assert _same(whole, single[key]), (
+            f"{tag}: the ranks' {what} blocks, joined, differ from one device's")
+        return whole
+
+    lde, mixed, folded = check_core("core", "Fibonacci core")
+    _sharded_lde_check(lde, ref_device)
+    print(f"{tag}: core OK — each rank holds its block; the blocks joined are "
+          f"bit-exact, equal to the single core with shift 1; mixed shape "
+          f"{mixed.shape}, folded shape {folded.shape}")
+    lde = check_core("mimc_core", "MiMC core")[0]
+    print(f"{tag}: MiMC generic core OK — lde shape {lde.shape}")
     check("fold", "fold / deep")
     print(f"{tag}: sharded FRI fold and DEEP evals OK on {4 * n_devices} Fp2 "
           "coefficients")

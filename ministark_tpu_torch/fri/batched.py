@@ -20,21 +20,35 @@ builds run where they live, sharded over a mesh when one is given
 (``parallel/``, the same proof bytes). The verifier is pure host (hashlib and host
 field ops). Challenges come from a ratcheted SHA-256 transcript
 (``FastTranscript``), not the parity sponge.
+
+Resident on a mesh (``commit`` and ``prove`` with ``rows``, a
+``parallel.Rows``): rank r holds its block [r*n/D, (r+1)*n/D) of the
+coefficients; the LDE goes from those blocks to the rank's coset rows
+(``parallel/ntt_sharded.py::get_block_coset_ntt_fns``) and its tree is a
+``BlockIndexTree``. The mix and the F-fold are per coefficient, so they
+stay local while a block divides by F. At the first layer whose fold, LDE
+or tree stops splitting (``_fold_splits``, ``block_coset_fits``) the block
+is gathered once (``_whole``) and the rest runs with one device's code on
+the whole; the final coefficients are gathered so too. Openings come from
+the trees' owners. ``_fft_batched``, ``_tree`` and ``binding_lde`` keep
+the whole tensors of STIR, WHIR and the verifier.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 from dataclasses import dataclass
 from typing import List, Tuple
 
 import torch
 
-from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
+from ..commit.index_tree import BlockIndexTree, IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
 from ..ops.ntt import check_backend
 from ..ops.poly import fold_factor, mix_columns
-from ..parallel.ntt_sharded import select_ntt_fns
+from ..parallel.mesh import Rows, all_gather_rows
+from ..parallel.ntt_sharded import block_coset_fits, get_block_coset_ntt_fns, select_ntt_fns
 
 
 # --------------------------------------------------------------- transcript
@@ -186,8 +200,9 @@ class BatchedFri:
                  mesh=None):
         """``ntt_backend``: the NTT kernels of the LDE (ops/ntt.py); not part
         of the config or the transcript, and it changes no proof byte.
-        ``mesh``: a ``parallel.Mesh``; the LDE NTTs and the tree builds
-        shard over it where their sizes split."""
+        ``mesh``: a ``parallel.Mesh``; the whole-tensor LDE NTTs and tree
+        builds shard over it where their sizes split (replicated in and
+        out). The resident forms take the mesh of their ``rows``."""
         self.cfg = config
         self.ntt_backend = check_backend(ntt_backend)
         self.mesh = mesh
@@ -254,11 +269,55 @@ class BatchedFri:
         a = evals.reshape(B, F, N // F, d)
         return a.permute(2, 0, 1, 3).contiguous()
 
+    # ------------------------------------------------------ resident forms
+    def block_fits(self, n: int, n_dev: int) -> bool:
+        """The commitment of n coefficients splits over n_dev ranks: its LDE
+        gives each rank whole coset rows in one exchange."""
+        return block_coset_fits(self.cfg.blowup * n, n, self.cfg.fold_factor, n_dev)
+
+    def _fold_splits(self, rows: Rows) -> bool:
+        """The F-fold of the coefficients ``rows`` is local: a block is whole
+        groups of F."""
+        return rows.count % self.cfg.fold_factor == 0
+
+    def _block_coset_rows(self, block: torch.Tensor, N: int, mesh) -> torch.Tensor:
+        """(B, m/D, d) blocks of m coefficients -> this rank's coset rows of
+        their LDE over N points, (N/(F*D), B, F, d): the layout of
+        ``_coset_rows``, one batched component NTT."""
+        F = self.cfg.fold_factor
+        B, m_loc, d = block.shape
+        flat = block.movedim(-1, 1).reshape(B * d, m_loc)       # (B*d, m/D)
+        fft = get_block_coset_ntt_fns(self._ntt_base, N, F, mesh, self.ntt_backend)[0]
+        cr = fft(flat)                                          # (N/(F*D), B*d, F)
+        return cr.reshape(cr.shape[0], B, d, F).transpose(2, 3)
+
+    def _block_tree(self, block: torch.Tensor, N: int, rows: Rows) -> BlockIndexTree:
+        """The tree over this rank's coset rows of ``_block_coset_rows``."""
+        cr = self._block_coset_rows(block, N, rows.mesh)
+        return BlockIndexTree(cr.reshape(cr.shape[0], -1), self.cfg.arity, rows.mesh)
+
+    def _whole(self, block: torch.Tensor, rows: Rows) -> torch.Tensor:
+        """This rank's (m/D, d) block -> the whole (m, d) on every rank: the
+        one gather where a layer stops splitting."""
+        return all_gather_rows(rows.mesh, block).reshape((rows.n,) + tuple(block.shape[1:]))
+
+    def _one_device(self) -> "BatchedFri":
+        """This FRI with no mesh: one device's code, after a handoff."""
+        if self.mesh is None:
+            return self
+        alone = copy.copy(self)
+        alone.mesh = None
+        return alone
+
     # ------------------------------------------------------------- prove
-    def commit(self, polys: torch.Tensor) -> IndexMerkleTree:
+    def commit(self, polys: torch.Tensor, rows: Rows = None) -> IndexMerkleTree:
         """Commitment of one polynomial group: LDE all its polynomials (one
         batched component NTT) + one wide-arity coset-row tree. The caller
-        absorbs the root into its transcript where the group is bound."""
+        absorbs the root into its transcript where the group is bound.
+        With ``rows``, ``polys`` is this rank's (B, n/D, d) block of the
+        coefficients (``block_fits``) and the tree a ``BlockIndexTree``."""
+        if rows is not None:
+            return self._block_tree(polys, self.cfg.blowup * rows.n, rows)
         N = self.cfg.blowup * int(polys.shape[1])
         evals0 = self._fft_batched(polys, N)        # (B, N, d)
         return self._tree(self._coset_rows(evals0, self.cfg.fold_factor))
@@ -272,31 +331,35 @@ class BatchedFri:
         return N, self.cfg.fold_factor, self._fft_batched(ext_coeffs, N)
 
     def prove(self, polys=None, transcript: FastTranscript = None,
-              groups=None, trees=None) -> BatchedFriProof:
+              groups=None, trees=None, rows: Rows = None) -> BatchedFriProof:
         """Standalone: ``prove(polys)`` — one group, committed and absorbed
         internally on a fresh transcript.
 
         Multi-group (outer protocols, stark/fast.py): ``prove(groups=[...],
         trees=[...], transcript=tr)`` — the caller committed each group via
         ``commit`` and absorbed every root into ``tr`` in its own protocol
-        order; the FRI continues from rho."""
+        order; the FRI continues from rho.
+
+        Resident (``rows``, a ``parallel.Rows`` of the n coefficients): the
+        groups are this rank's (B, n/D, d) blocks, the trees theirs, and
+        every rank of ``rows.mesh`` calls ``prove`` alike."""
         cfg = self.cfg
         ext, ke = self.ext, self.ke
         F = cfg.fold_factor
         if groups is None:
             assert polys is not None
             groups = [polys]
-        n = int(groups[0].shape[1])
+        n = int(groups[0].shape[1]) if rows is None else rows.n
         group_sizes = [int(g.shape[0]) for g in groups]
         b = sum(group_sizes)
         assert n & (n - 1) == 0
-        assert all(int(g.shape[1]) == n for g in groups)
+        assert all(int(g.shape[1]) == groups[0].shape[1] for g in groups)
         N = cfg.blowup * n
         R = self._n_folds(n)
         if trees is None:
             assert transcript is None and len(groups) == 1
             tr = self._transcript(b, n)
-            trees = [self.commit(groups[0])]
+            trees = [self.commit(groups[0], rows)]
             tr.absorb(trees[0].root())
         else:
             assert transcript is not None and len(trees) == len(groups)
@@ -306,17 +369,31 @@ class BatchedFri:
         rho = tr.challenge_scalar(ext)
         weights = ke.pack([ext.pow(rho, j) for j in range(b)], dev)
         allp = groups[0] if len(groups) == 1 else torch.cat(groups, 0)
-        cur = mix_columns(ke, allp, weights)              # g coeffs (n, d)
+        cur = mix_columns(ke, allp, weights)      # g coeffs (n, d), or a block
+        # the whole layers: this FRI's, or one device's after a handoff
+        whole = self if rows is None else self._one_device()
 
         layer_trees: List[IndexMerkleTree] = []
         for r in range(R):
             alpha = tr.challenge_scalar(ext)
+            if rows is not None and not self._fold_splits(rows):
+                cur, rows = self._whole(cur, rows), None
             cur = fold_factor(ke, cur, ke.pack_scalar(alpha, dev), F)
+            if rows is not None:
+                rows = Rows(rows.mesh, rows.n // F)
             if r < R - 1:
-                cw = self._fft_batched(cur, N // F ** (r + 1))
-                t = self._tree(self._coset_rows(cw, F))
+                Nn = N // F ** (r + 1)
+                if rows is not None and not block_coset_fits(Nn, rows.n, F, rows.mesh.size):
+                    cur, rows = self._whole(cur, rows), None
+                if rows is None:
+                    cw = whole._fft_batched(cur, Nn)
+                    t = whole._tree(self._coset_rows(cw, F))
+                else:
+                    t = self._block_tree(cur[None], Nn, rows)
                 layer_trees.append(t)
                 tr.absorb(t.root())
+        if rows is not None:
+            cur = self._whole(cur, rows)
 
         final_coeffs = ke.unpack(cur)
         tr.absorb(b"".join(_scalar_bytes(ext, s) for s in final_coeffs))

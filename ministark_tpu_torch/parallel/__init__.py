@@ -12,27 +12,42 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
   processes and runs a function on each with its mesh. The backend is the
   caller's: ``nccl`` for ranks with a card each, ``gloo`` for CPU ranks and
   for ranks that share one card.
-* Residency (the parity prover's, ``DeviceEngine(..., mesh=mesh)``): rank
-  r holds the rows [r*n/D, (r+1)*n/D) of every stage tensor of length n
-  (``mesh.Rows``), its contiguous natural-order block, from the start of
-  ``prove`` until a stage's size stops splitting by the JAX package's size
-  rules (``block_ntt_fits``, ``can_shard_tree``, the engine's
-  ``_fri_splits``); there the blocks are gathered once and every rank goes
-  on with one device's code on the whole tensor. The block forms: ``get_block_ntt_fns`` (natural blocks in
-  and out, an input of n/B points zero-padded to n taken in by its first
-  ``all_to_all``), ``get_block_fri_fns`` (fold and divide block to block,
-  deep to the replicated pair), ``block_tree_levels`` / ``tree_top`` and
-  ``commit/packed_tree.py::BlockMerkleTree`` (local levels stay local, the
-  D subtree roots are gathered, the top is replicated). What the proof
-  carries comes from its owners: ``owner_select`` (one gather, the
-  owner's row picked) for codeword reads, path digests and leaf groups,
-  ``gather_to_host`` (in chunks, so no device holds the whole) for the
-  query quotients. A rank's memory holds 1/D of each stage tensor, and
-  the witness, which arrives whole.
-* Replicated in and out: the fast mode (``FastStark``, ``fri/batched.py``,
-  ``commit/index_tree.py``), STIR, WHIR, ``stark/core.py``'s sharded prove
-  core and the verifier's iFFT keep the signatures of one device. Their
-  sharded functions (``get_sharded_ntt_fns``, ``get_sharded_fri_fns``,
+* Residency: rank r holds the rows [r*n/D, (r+1)*n/D) of every stage
+  tensor of length n (``mesh.Rows``), its contiguous natural-order block,
+  from the start of ``prove`` until a stage's size stops splitting by the
+  size rules below; there the blocks are gathered once and every
+  rank goes on with one device's code on the whole tensor. A rank's memory
+  holds 1/D of each stage tensor, and the witness, which arrives whole.
+  Resident paths:
+
+  - the parity prover (``DeviceEngine(..., mesh=mesh)``), gated by
+    ``block_ntt_fits``, ``can_shard_tree`` and the engine's
+    ``_fri_splits``;
+  - the fast mode with batched FRI (``FastStark(..., mesh=mesh)``,
+    ``lde_backend="fri"``), gated by ``block_ntt_fits`` for the trace iFFT
+    and ``block_coset_fits`` for the commitments' LDE; a FRI layer hands
+    off where its fold, LDE or tree stops splitting (``fri/batched.py``);
+  - the prove core (``stark/core.py::make_sharded_prove_core``), which
+    returns each rank's blocks.
+
+  The block forms: ``get_block_ntt_fns`` (natural blocks in and out, an
+  input of n/B points zero-padded to n taken in by its first
+  ``all_to_all``), ``get_block_coset_ntt_fns`` (the same input, the fast
+  mode's coset rows out, one exchange when F*D divides the four-step's
+  N1), ``get_block_fri_fns`` (fold and divide block to block, deep to the
+  replicated pair), ``block_tree_levels`` / ``tree_top`` with
+  ``commit/packed_tree.py::BlockMerkleTree`` and ``commit/index_tree.py::
+  BlockIndexTree`` (local levels stay local, the D local tops are
+  gathered, the top is replicated), and block partial sums added by
+  ``field_sum_over_ranks`` (DEEP and point evaluations). What the proof
+  carries comes from its owners: ``owner_select`` (one gather, the owner's
+  row picked) for codeword reads, path digests, leaf groups and index-tree
+  rows, ``gather_to_host`` (in chunks, so no device holds the whole) for
+  the query quotients.
+* Replicated in and out, until they take blocks (ROADMAP 18c): STIR and
+  WHIR (``fri/stir.py``, ``fri/whir.py``, which share ``BatchedFri``'s
+  ``_fft_batched`` and ``_tree``), and the verifiers' iFFT and binding LDE.
+  Their sharded functions (``get_sharded_ntt_fns``, ``get_sharded_fri_fns``,
   ``sharded_tree_digests``, the index tree's sharded build) take the whole
   tensor on every rank, share the block forms' steps on the rank's share
   and end with one gather that makes the result whole on every rank.
@@ -56,8 +71,10 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
 Use: inside each rank, ``DeviceEngine(config, device=mesh.device,
 mesh=mesh)`` or ``FastStark(config, device=mesh.device, mesh=mesh)``; the
 ``mesh=`` argument also goes to ``BatchedFri``, ``Stir``, ``Whir``,
-``PackedMerkleTree`` and ``IndexMerkleTree``. A model's transitions take
-the block of the coefficients with ``rows=`` (a ``Rows``) on a mesh.
+``PackedMerkleTree`` and ``IndexMerkleTree`` (the replicated forms), and
+``BatchedFri.commit`` / ``prove`` take ``rows=`` for the resident ones. A
+model's transitions take the block of the coefficients with ``rows=`` (a
+``Rows``) on a mesh.
 """
 
 from .fri_sharded import (
@@ -69,8 +86,10 @@ from .fri_sharded import (
 from .merkle_sharded import can_shard_tree, sharded_tree_digests
 from .mesh import Mesh, Rows, default_axis, gather_to_host, make_mesh, owner_select
 from .ntt_sharded import (
+    block_coset_fits,
     block_ntt_fits,
     can_shard,
+    get_block_coset_ntt_fns,
     get_block_ntt_fns,
     get_sharded_ntt_fns,
     make_sharded_ntt_fns,
@@ -81,7 +100,8 @@ from .ntt_sharded import (
 __all__ = [
     "Mesh", "Rows", "make_mesh", "default_axis", "owner_select", "gather_to_host",
     "make_sharded_ntt_fns", "sharded_lde", "can_shard", "block_ntt_fits",
-    "get_sharded_ntt_fns", "get_block_ntt_fns", "select_ntt_fns", "get_sharded_fri_fns",
+    "get_sharded_ntt_fns", "get_block_ntt_fns", "block_coset_fits",
+    "get_block_coset_ntt_fns", "select_ntt_fns", "get_sharded_fri_fns",
     "get_block_fri_fns", "make_sharded_fri_fns", "make_sharded_fold_fns",
     "can_shard_tree", "sharded_tree_digests",
 ]

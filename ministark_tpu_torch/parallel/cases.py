@@ -249,11 +249,12 @@ def _builder(model):
 
 
 def core(mesh, field, n, model="fibonacci", cols=None, weights=None, device=None):
-    """The prove core's (lde, mixed, folded) as numpy arrays: sharded
-    (``make_sharded_prove_core``) over ``mesh``, or with ``mesh`` None the
-    single core with shift 1 on ``device``, the sharded core's twin. The
-    columns and weights are u64 arrays, the model's own columns and 5^i
-    unless given."""
+    """The prove core's (lde, mixed, folded) as numpy arrays: this rank's
+    blocks of the sharded core (``make_sharded_prove_core``) over ``mesh``
+    (``core_whole`` joins the ranks'), or with ``mesh`` None the single
+    core with shift 1 on ``device``, the sharded core's twin. The columns
+    and weights are u64 arrays, the model's own columns and 5^i unless
+    given."""
     from ..stark.core import make_prove_core, make_sharded_prove_core
 
     sf, dev = STARK[field], _device(mesh, device)
@@ -266,6 +267,14 @@ def core(mesh, field, n, model="fibonacci", cols=None, weights=None, device=None
     else:
         out = make_sharded_prove_core(sf, n, mesh, _builder(model))(c, w)
     return tuple(_np(t) for t in out)
+
+
+def core_whole(blocks):
+    """Every rank's ``core`` blocks, in rank order -> the whole (lde, mixed,
+    folded): the LDE joined along its points, the others along their
+    coefficients."""
+    return tuple(np.concatenate([b[i] for b in blocks], axis)
+                 for i, axis in enumerate((1, 0, 0)))
 
 
 def fold_deep(mesh, field, coeffs, alpha, z, device=None):
@@ -339,6 +348,78 @@ def fast(mesh, field, steps, cfg, batch=1, model="fibonacci", device=None):
     before = dict(mesh_mod.collectives)
     proof = stark.prove_many(traces)
     return fast_proof_to_bytes(sf, proof), _collectives(before)
+
+
+def block_coset_lde(mesh, field, polys, N, F):
+    """(this rank's block of the coset rows of the LDE of (B, m, d)
+    extension ``polys`` over N points, one device's whole coset rows), both
+    (rows, B, F, d) as ``BatchedFri._coset_rows`` lays them out: the
+    resident commitment's LDE (``BatchedFri._block_tree``'s) against
+    ``_fft_batched``."""
+    from ..fri.batched import BatchedFri, BatchedFriConfig
+
+    bf = BatchedFri(BatchedFriConfig(EXT[field], fold_factor=F))
+    p = _t(mesh, polys)
+    block = bf._block_coset_rows(Rows(mesh, p.shape[1]).take(p, 1), N, mesh)
+    return _np(block), _np(bf._coset_rows(bf._fft_batched(p, N), F))
+
+
+def block_index_tree(mesh, rows, arity, idxs):
+    """The ``BlockIndexTree`` over this rank's block of (n, C) u64 rows
+    against one device's ``IndexMerkleTree``: {"block": (root, every
+    level's digests gathered in the one-device layout, the paths of
+    ``idxs`` as (row, groups)), "single": the same three}."""
+    from ..commit.index_tree import BlockIndexTree, IndexMerkleTree
+    from .merkle_sharded import gather_levels
+
+    c = _t(mesh, rows)
+    out = {}
+    block = BlockIndexTree(Rows(mesh, c.shape[0]).take(c), arity, mesh)
+    sizes = block._local_sizes
+    local = gather_levels(mesh, list(torch.split(block._local, sizes))) if sizes else []
+    for key, tree, digests in (
+            ("block", block, torch.cat(local + block._top, 0)),
+            ("single", IndexMerkleTree(c, arity), None)):
+        digests = tree._digests if digests is None else digests
+        out[key] = (tree.root(), digests.cpu().numpy(),
+                    [(p.row, tuple(p.groups)) for p in tree.open_many(list(idxs))])
+    return out
+
+
+def resident_fast(mesh, field, steps, cfg, batch=1):
+    """The fast prove on a mesh as the residency tests read it: (proof
+    bytes, collectives, bytes received by kind, the events of the prove in
+    order: ("handoff", rows gathered) where a stage stops splitting or the
+    final coefficients are gathered, ("fft", points) and ("tree", rows)
+    for each call of ``BatchedFri._fft_batched`` and ``IndexMerkleTree``
+    on a whole tensor)."""
+    from ..commit.index_tree import IndexMerkleTree
+    from ..fri.batched import BatchedFri
+
+    whole, fft, tree = BatchedFri._whole, BatchedFri._fft_batched, IndexMerkleTree.__init__
+    events = []
+
+    def counted_whole(self, block, rows):
+        events.append(("handoff", rows.n))
+        return whole(self, block, rows)
+
+    def counted_fft(self, coeffs, domain_size, offset=None):
+        events.append(("fft", domain_size))
+        return fft(self, coeffs, domain_size, offset)
+
+    def counted_tree(self, comps, *args, **kw):
+        events.append(("tree", int(comps.shape[0])))
+        return tree(self, comps, *args, **kw)
+
+    BatchedFri._whole, BatchedFri._fft_batched = counted_whole, counted_fft
+    IndexMerkleTree.__init__ = counted_tree
+    before = dict(mesh_mod.received)
+    try:
+        proof, collectives = fast(mesh, field, steps, cfg, batch)
+    finally:
+        BatchedFri._whole, BatchedFri._fft_batched = whole, fft
+        IndexMerkleTree.__init__ = tree
+    return proof, collectives, _received(before), events
 
 
 def ldt(mesh, backend, n=1 << 10, device=None):

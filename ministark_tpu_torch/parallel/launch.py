@@ -22,18 +22,27 @@ r % (number of cards) (a card each, the nccl case, when there are enough);
 ``device="cuda:0"`` puts every rank on that card (ranks that share one
 card, with gloo); ``device="cpu"`` runs CPU ranks (gloo). The kernel
 library is built here, before the ranks start.
+
+``run`` leaves no process behind: it reaps every rank, and it stops and
+reaps the resource tracker that the ``spawn`` method starts beside them
+(on a Python whose tracker has no finalizer, 3.12.3 for one, it would end
+only when the caller exits, and nothing would reap it then).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import multiprocessing as mp
 import os
 import queue as queue_mod
 import tempfile
+import threading
 import time
 import traceback
 from datetime import timedelta
+from multiprocessing import resource_tracker
 
 import torch
 import torch.distributed as dist
@@ -42,6 +51,10 @@ from .mesh import make_mesh
 
 # seconds to drain what a rank wrote just before it exited
 _DRAIN_S = 2.0
+# runs in progress in this process, and whether the last one out stops the
+# resource tracker (none was running when the first began)
+_RUNS = {"active": 0, "stop": False}
+_RUNS_LOCK = threading.Lock()
 
 
 def _rank_main(fn, rank, world, backend, device, store_path, timeout_s, args,
@@ -101,6 +114,38 @@ def run(fn, world: int, backend: str, device="cuda", timeout_s: float = 300.0,
         from ..ops import cuda
 
         cuda.library()
+    with _reaped_tracker():
+        try:
+            return _run(fn, world, backend, device, timeout_s, args, settings)
+        except BaseException as e:
+            # the traceback's frames hold the queue: drop their locals, so
+            # that its semaphores go now and not after the tracker has
+            # stopped (their finalizers would start a new one)
+            traceback.clear_frames(e.__traceback__)
+            raise
+
+
+@contextlib.contextmanager
+def _reaped_tracker():
+    """Around a run: when the last run in progress in this process ends, and
+    no tracker was running when the first began, stop the resource tracker
+    and reap it (runs may overlap, from threads)."""
+    tracker = resource_tracker._resource_tracker
+    with _RUNS_LOCK:
+        if _RUNS["active"] == 0:
+            _RUNS["stop"] = tracker._pid is None
+        _RUNS["active"] += 1
+    try:
+        yield
+    finally:
+        with _RUNS_LOCK:
+            _RUNS["active"] -= 1
+            if _RUNS["active"] == 0 and _RUNS["stop"]:
+                gc.collect()         # the queues' semaphores, unregistered
+                tracker._stop()      # closes its pipe and reaps it
+
+
+def _run(fn, world, backend, device, timeout_s, args, settings):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="ministark_mesh_") as tmp:
@@ -119,4 +164,6 @@ def run(fn, world: int, backend: str, device="cuda", timeout_s: float = 300.0,
             for p in procs:
                 if p.is_alive():
                     p.kill()
-                p.join(timeout=10)
+                p.join()             # a killed rank always ends: reap it
+            results.close()
+            results.join_thread()

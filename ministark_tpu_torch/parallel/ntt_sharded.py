@@ -20,7 +20,7 @@ inverse's s'^(k2 + N2*k1) is the N1-NTT's ``post`` s'^N2 times the column
 factor s'^k2, both multiplied into W (a row or column factor commutes with
 the transform along the other axis).
 
-Two forms share steps b-d (``_FourStep``):
+Three forms share steps b-d (``_FourStep``):
 
 * Block form (``get_block_ntt_fns``), the resident prove's: rank r holds
   the natural-order block [r*n/D, (r+1)*n/D) of the output and
@@ -32,6 +32,15 @@ Two forms share steps b-d (``_FourStep``):
   input of n_in = n / B points (B a power of two: the LDE's zero padding)
   is taken in by the first ``all_to_all``: only rows i2 < N2/B exist, so
   the padded tail is never built, on any rank.
+* Coset-row block form (``get_block_coset_ntt_fns``), the resident fast
+  mode's LDE (``fri/batched.py``): the input as in the block form, the
+  output the fast mode's coset rows, row i holding the points {i +
+  t*n/F : t < F}, rank r its rows [r*n/(F*D), (r+1)*n/(F*D)). When F*D
+  divides N1 (``block_coset_fits``), row i = k2 + N2*k1' at coset t is
+  column k1 = t*N1/F + k1', so rank r's rows are the columns t*N1/F +
+  r*N1/(F*D) + [0, N1/(F*D)) of every t: one ``all_to_all``, as the block
+  form's, with another column map. Where F*D does not divide N1 the rows
+  would need a second exchange; the stage is then not resident.
 * Replicated form (``get_sharded_ntt_fns``), the signatures of
   ``ops/ntt.py::get_ntt_fns``: the whole (batch, n) tensor on every rank,
   whose strided rows of A are a slice (no communication), and one
@@ -99,6 +108,13 @@ def block_ntt_fits(n: int, n_in: int, n_dev: int) -> bool:
         return False
     b = n // n_in
     return b & (b - 1) == 0 and _split_sizes(n, n_dev)[1] % (b * n_dev) == 0
+
+
+def block_coset_fits(n: int, n_in: int, F: int, n_dev: int) -> bool:
+    """True when the coset-row block transform of size n takes (batch,
+    n_in / D) blocks and gives each rank its n/(F*D) coset rows in one
+    ``all_to_all``: ``block_ntt_fits`` and F*D dividing N1."""
+    return block_ntt_fits(n, n_in, n_dev) and _split_sizes(n, n_dev)[0] % (F * n_dev) == 0
 
 
 class _FourStep:
@@ -169,27 +185,28 @@ class _FourStep:
             w = kb.mul(w, _offset_powers(kb, field, pre, self.i0, n1_loc, dev)[:, None])
         if post is not None:          # column factor s'^k2
             w = kb.mul(w, _offset_powers(kb, field, post, 0, n2, dev)[None])
+        # each step rebinds ``a``, so a rank holds at most two stage tensors
+        # besides the collective's buffers
         # b. length-N2 NTT per local row (with the coset's s^N1 powers)
         if inverse:
-            b = self.sub2[1](a)
+            a = self.sub2[1](a)
         elif pre is not None:
-            b = self.sub2[2](a, field.pow(pre, n1))
+            a = self.sub2[2](a, field.pow(pre, n1))
         else:
-            b = self.sub2[0](a)
+            a = self.sub2[0](a)
         # c. twiddle multiply
-        c = kb.mul(b.reshape(batch, n1_loc, n2), w)
+        a = kb.mul(a.reshape(batch, n1_loc, n2), w)
         # d. the transpose, one all_to_all: all_to_all_single splits dim 0,
         # so the column blocks k2 = t*N2/D + j go to the front (rank t);
         # block s received holds rows i1 = s*N1/D + i of this rank's columns
-        c = c.reshape(batch, n1_loc, D, n2_loc).permute(2, 0, 1, 3)
-        d = all_to_all_rows(self.mesh, c).permute(1, 3, 0, 2).reshape(batch * n2_loc, n1)
-        d = d.contiguous()
+        a = all_to_all_rows(self.mesh, a.reshape(batch, n1_loc, D, n2_loc).permute(2, 0, 1, 3))
+        a = a.permute(1, 3, 0, 2).reshape(batch * n2_loc, n1).contiguous()
         # length-N1 NTT per row k2 (with the inverse coset's s'^N2 powers)
         if not inverse:
-            return self.sub1[0](d)
+            return self.sub1[0](a)
         if post is not None:
-            return self.sub1[3](d, field.pow(post, n2))
-        return self.sub1[1](d)
+            return self.sub1[3](a, field.pow(post, n2))
+        return self.sub1[1](a)
 
     def whole(self, e: torch.Tensor, batch: int) -> torch.Tensor:
         """Rows k2 of E, X[k2 + N2*k1] -> the natural-order (batch, n) on
@@ -205,6 +222,22 @@ class _FourStep:
         c = e.reshape(batch, n2_loc, D, n1_loc).permute(2, 0, 1, 3)
         got = all_to_all_rows(self.mesh, c)                  # (D[s], batch, N2/D, N1/D)
         return got.permute(1, 3, 0, 2).reshape(batch, n1_loc * self.n2)
+
+
+    def coset_rows(self, e: torch.Tensor, batch: int, F: int) -> torch.Tensor:
+        """Rows k2 of E -> this rank's coset rows (n/(F*D), batch, F): row
+        j holds X[i + t*n/F] of every batch row at column t, i = r*n/(F*D)
+        + j. Columns k1 = t*N1/F + s*N1/(F*D) + c go to rank s, one
+        ``all_to_all``; a received block from rank s holds the rows k2 in
+        [s*N2/D, (s+1)*N2/D), and row i = k2 + N2*(r*N1/(F*D) + c)."""
+        D, n2_loc, n2 = self.mesh.size, self.n2_loc, self.n2
+        c_len = self.n1 // (F * D)
+        if c_len * F * D != self.n1:
+            raise ValueError(f"coset rows of {F} do not split the size-{self.n} "
+                             f"transform over {D} ranks")
+        c = e.reshape(batch, n2_loc, F, D, c_len).permute(3, 0, 1, 2, 4)
+        got = all_to_all_rows(self.mesh, c)          # (D[s], batch, N2/D, F, c)
+        return got.permute(4, 0, 2, 1, 3).reshape(c_len * n2, batch, F)
 
 
 def _four_fns(t: _FourStep, rows_in, out):
@@ -245,6 +278,14 @@ def make_block_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
     return _four_fns(t, t.rows_of_block, t.block)
 
 
+def make_block_coset_ntt_fns(field, n: int, F: int, mesh: Mesh, backend: str = "radix2"):
+    """(fft, ifft, coset_fft, coset_ifft) for size n over ``mesh`` from the
+    block form's (batch, n_in/D) input blocks to this rank's coset rows
+    (n/(F*D), batch, F) (``block_coset_fits``)."""
+    t = _FourStep(field, n, mesh, backend)
+    return _four_fns(t, t.rows_of_block, lambda e, batch: t.coset_rows(e, batch, F))
+
+
 _FN_CACHE: dict = {}
 
 
@@ -262,6 +303,14 @@ def get_block_ntt_fns(field, n: int, mesh: Mesh, backend: str = "radix2"):
     key = ("block", field.p, n, mesh, backend)
     if key not in _FN_CACHE:
         _FN_CACHE[key] = make_block_ntt_fns(field, n, mesh, backend)
+    return _FN_CACHE[key]
+
+
+def get_block_coset_ntt_fns(field, n: int, F: int, mesh: Mesh, backend: str = "radix2"):
+    """Cached ``make_block_coset_ntt_fns``."""
+    key = ("coset_rows", field.p, n, F, mesh, backend)
+    if key not in _FN_CACHE:
+        _FN_CACHE[key] = make_block_coset_ntt_fns(field, n, F, mesh, backend)
     return _FN_CACHE[key]
 
 

@@ -19,7 +19,10 @@ port's ``DeviceTrace.transitions`` serve both cores, so there is no
 The two cores differ in their LDE, as in the JAX package: the single core
 evaluates over the coset ``shift * H`` of size 2n, the sharded core over H
 itself (a plain FFT of the padded batch, ``core.py:152-153``), so the
-sharded core's LDE equals the single core's with ``shift = 1``.
+sharded core's LDE equals the single core's with ``shift = 1``. The
+sharded core is resident (``parallel/__init__.py``): each rank computes
+and returns its block of every output, which a gather along the point or
+coefficient axis makes the single core's.
 """
 
 from __future__ import annotations
@@ -53,13 +56,14 @@ def _packed_cols(dtrace, device) -> torch.Tensor:
     return pack_u64(dtrace.cols, device)
 
 
-def _spine(kb, trans, ifft, cols, weights, lde):
-    """iFFT, transitions, the zero-padded batch through ``lde``, mix, fold."""
+def _spine(kb, trans, ifft, cols, weights, lde, rows=None):
+    """iFFT, transitions, the coefficients through ``lde``, mix, fold; with
+    ``rows`` (a ``parallel.Rows``) on this rank's block of each."""
+    kw = {} if rows is None else {"rows": rows}
     tp = ifft(cols)                                          # (w, n)
-    allc = torch.cat([tp] + [f(tp)[None] for f in trans], 0)  # (w+t, n)
-    padded = torch.cat([allc, torch.zeros_like(allc)], 1)    # (w+t, 2n)
+    allc = torch.cat([tp] + [f(tp, **kw)[None] for f in trans], 0)  # (w+t, n)
     mixed = mix_columns(kb, allc, weights)                   # (n,)
-    return lde(padded), mixed, fold_even_odd(kb, mixed, weights[1])
+    return lde(allc), mixed, fold_even_odd(kb, mixed, weights[1])
 
 
 def make_prove_core(stark_field, n: int, trace_builder=None, device="cuda",
@@ -91,8 +95,8 @@ def make_prove_core(stark_field, n: int, trace_builder=None, device="cuda",
     def core(cols, shift, weights):
         if isinstance(shift, torch.Tensor):
             shift = kb.unpack(shift.reshape(1))[0]            # one pull
-        return _spine(kb, trans, ifft, cols, weights,
-                      lambda padded: coset_fft(padded, int(shift)))
+        return _spine(kb, trans, ifft, cols, weights, lambda allc: coset_fft(
+            torch.cat([allc, torch.zeros_like(allc)], 1), int(shift)))  # (w+t, 2n)
 
     def example_args():
         shift = kb.pack_scalar(base.from_int(7), device)
@@ -106,20 +110,32 @@ def make_prove_core(stark_field, n: int, trace_builder=None, device="cuda",
 def make_sharded_prove_core(stark_field, n: int, mesh, trace_builder=None,
                             ntt_backend: str = "radix2"):
     """The core over ``mesh`` (``parallel.Mesh``; every rank calls it on the
-    same inputs): the trace iFFT, transitions, mixing and fold on each
-    rank's device, the LDE one sharded four-step NTT of the whole padded
-    batch (``parallel/ntt_sharded.py``). ``core(cols, weights) -> (lde,
-    mixed, folded)``, whole on every rank; the LDE is over H (no coset)."""
-    from ..parallel.ntt_sharded import get_sharded_ntt_fns
+    same inputs), resident: rank r takes its block [r*n/D, (r+1)*n/D) of
+    the columns and runs the block iFFT, the transitions on their block
+    (``rows=``), the block LDE from n/D coefficients to its 2n/D points
+    (the zero padding taken in by the block NTT, ``parallel/
+    ntt_sharded.py``), and the mix and fold on its block.
 
+    ``core(cols, weights) -> (lde, mixed, folded)``: cols (w, n) and
+    weights whole on every rank; the outputs are this rank's blocks,
+    lde (w + t, 2n/D) of the points [r*2n/D, (r+1)*2n/D) over H (no
+    coset), mixed (n/D,) and folded (n/(2D),) of the coefficients from
+    r*n/D and r*n/(2D). Raises when the sizes do not split over the mesh."""
+    from ..parallel.mesh import Rows
+    from ..parallel.ntt_sharded import block_ntt_fits, get_block_ntt_fns
+
+    D = mesh.size
+    if not (block_ntt_fits(n, n, D) and block_ntt_fits(2 * n, n, D) and (n // D) % 2 == 0):
+        raise ValueError(f"the prove core of {n} rows does not split over {D} ranks")
     base = stark_field.base
     kb = get_ops(base)
     dtrace = _trace_for(stark_field, n, trace_builder, mesh.device)
     trans = list(dtrace.transitions)
-    ifft = get_ntt_fns(base, n, ntt_backend)[1]
-    sharded_fft = get_sharded_ntt_fns(base, 2 * n, mesh, ntt_backend)[0]
+    rows = Rows(mesh, n)
+    ifft = get_block_ntt_fns(base, n, mesh, ntt_backend)[1]
+    lde = get_block_ntt_fns(base, 2 * n, mesh, ntt_backend)[0]
 
     def core(cols, weights):
-        return _spine(kb, trans, ifft, cols, weights, sharded_fft)
+        return _spine(kb, trans, ifft, rows.take(cols, 1), weights, lde, rows)
 
     return core

@@ -30,8 +30,18 @@ without a card the constructor raises. Traces on another device are moved
 to the prover's once. ``ntt_backend`` ("radix2", "four_step" or "pipe",
 ops/ntt.py) chooses the NTT kernels; it is not part of ``FastStarkConfig``
 or the transcript and changes no proof byte. ``mesh`` (a ``parallel.Mesh``,
-every rank proving the same traces) shards the trace iFFT and, through the
-low-degree test, its LDEs and trees, for the same proof bytes.
+every rank proving the same traces) gives the same proof bytes on every
+rank. With batched FRI the prove is resident where the trace stage splits
+(``_trace_rows``): rank r takes its block [r*n/D, (r+1)*n/D) of the trace
+columns and holds every stage tensor so, from the block iFFT through the
+transitions (``rows=``), both commitments (the block LDE to coset rows and
+``BlockIndexTree``), the validity mix, the point evaluations (block
+partial sums, added across the ranks) and the FRI layers until one stops
+splitting (``fri/batched.py``). A trace stage that does not split proves
+on one device's code on every rank. STIR and WHIR stay replicated in and
+out: the whole tensors on every rank, their NTTs and trees sharded where
+the sizes split. The verifier's iFFT (``_constraint_polys``) and binding
+LDE are replicated in and out.
 """
 
 from __future__ import annotations
@@ -46,9 +56,10 @@ from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_
 from ..fri.stir import Stir, StirConfig
 from ..fri.whir import Whir, WhirConfig
 from ..ops.field import get_ops, lift_base_array, pack_u64
-from ..ops.ntt import check_backend
+from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import eval_many, field_sum
-from ..parallel.ntt_sharded import select_ntt_fns
+from ..parallel.mesh import Rows, field_sum_over_ranks
+from ..parallel.ntt_sharded import block_ntt_fits, get_block_ntt_fns, select_ntt_fns
 from .engine import DeviceTrace
 
 
@@ -159,19 +170,42 @@ class FastStark:
 
     def _constraint_polys(self, trace: DeviceTrace) -> torch.Tensor:
         """trace -> (w+t, n) int64 coefficient tensor on the prover's
-        device: the trace polynomials ++ the transition outputs."""
-        n = trace.domain_size
+        device: the trace polynomials ++ the transition outputs, whole on
+        every rank (the iFFT sharded over the mesh where the size splits)."""
+        ifft = select_ntt_fns(self.base, trace.domain_size, self.mesh, self.ntt_backend)[1]
+        return self._polys(trace, ifft)
+
+    def _polys(self, trace: DeviceTrace, ifft, rows: Rows = None) -> torch.Tensor:
+        """The constraint polynomials through ``ifft``: whole, or with
+        ``rows`` this rank's (w+t, n/D) block of their coefficients."""
         if trace.cols_dev is not None:
             x = trace.cols_dev.to(self.device)
         else:
             x = pack_u64(trace.cols, self.device)
-        tp = select_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1](x)
-        return torch.cat([tp] + [f(tp)[None] for f in trace.transitions], 0)
+        kw = {} if rows is None else {"rows": rows}
+        tp = ifft(x if rows is None else rows.take(x, 1))
+        return torch.cat([tp] + [f(tp, **kw)[None] for f in trace.transitions], 0)
 
-    def _point_evals(self, ext_coeffs: torch.Tensor, z) -> list:
-        """All polynomials of (B, n, d) at one host point, pulled once."""
-        return self.ke.unpack(eval_many(self.ke, ext_coeffs,
-                                        self.ke.pack_scalar(z, ext_coeffs.device)))
+    def _trace_rows(self, traces: List[DeviceTrace]):
+        """The rows of the trace domain this rank holds (``parallel.Rows``)
+        when the prove is resident: batched FRI on a mesh, and the trace
+        iFFT and the commitments' LDE to coset rows split over it (their
+        trees then split too). Else None."""
+        if self.mesh is None or self.config.lde_backend != "fri":
+            return None
+        n, D = traces[0].domain_size, self.mesh.size
+        if block_ntt_fits(n, n, D) and self.fri.block_fits(n, D):
+            return Rows(self.mesh, n)
+        return None
+
+    def _point_evals(self, ext_coeffs: torch.Tensor, z, rows: Rows = None) -> list:
+        """All polynomials of (B, n, d) at one host point, pulled once; with
+        ``rows`` the blocks' partial sums, added across the ranks."""
+        zp = self.ke.pack_scalar(z, ext_coeffs.device)
+        if rows is None:
+            return self.ke.unpack(eval_many(self.ke, ext_coeffs, zp))
+        part = eval_many(self.ke, ext_coeffs, zp, start=rows.lo)
+        return self.ke.unpack(field_sum_over_ranks(self.ke, rows.mesh, part))
 
     # ---------------------------------------------------------------- prove
     def prove(self, trace: DeviceTrace) -> FastStarkProof:
@@ -185,8 +219,20 @@ class FastStark:
         self._t0 = None
         self._t("constraint_polys")
         B = len(traces)
-        all_b = torch.stack([self._constraint_polys(t) for t in traces])
-        total, n = int(all_b.shape[1]), int(all_b.shape[2])
+        n = traces[0].domain_size
+        assert all(t.domain_size == n for t in traces)
+        # on a mesh: this rank's rows (resident), or None; STIR and WHIR
+        # prove replicated, batched FRI off the resident path on one device
+        rows = self._trace_rows(traces)
+        fri = self.fri
+        if rows is not None:
+            ifft = get_block_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1]
+        elif self.config.lde_backend == "fri":
+            ifft, fri = get_ntt_fns(self.base, n, self.ntt_backend)[1], fri._one_device()
+        else:
+            ifft = select_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1]
+        all_b = torch.stack([self._polys(t, ifft, rows) for t in traces])
+        total, n_loc = int(all_b.shape[1]), int(all_b.shape[2])
         w = traces[0].width
         assert all(t.width == w for t in traces)
         tr = self._transcript(w, total - w, n, B)
@@ -194,32 +240,35 @@ class FastStark:
         # 1. COMMIT the constraint polynomials, absorb, THEN draw challenges
         #    (nothing may be squeezed before the witness commitment binds).
         self._t("commit_witness")
-        ext_flat = lift_base_array(ke, all_b.reshape(B * total, n))  # (B(w+t), n, d)
+        # (B(w+t), n, d), or this rank's (B(w+t), n/D, d) block
+        ext_flat = lift_base_array(ke, all_b.reshape(B * total, n_loc))
         del all_b
-        tree_w = self.fri.commit(ext_flat)
+        # STIR's and WHIR's commit and prove take no rows
+        kw = {} if rows is None else {"rows": rows}
+        tree_w = fri.commit(ext_flat, **kw)
         tr.absorb(tree_w.root())
 
         self._t("point_evals")
         r = tr.challenge_scalar(ext)
         weights = ke.pack([ext.pow(r, i) for i in range(total)], self.device)
-        ext_3d = ext_flat.reshape((B, total, n) + ke.elem_axes)
+        ext_3d = ext_flat.reshape((B, total, n_loc) + ke.elem_axes)
         validities = field_sum(                               # (B, n, d)
             ke, ke.mul(ext_3d, weights[:, None].expand_as(ext_3d)), axis=1)
 
         point_evals = []
         for _ in range(self.config.point_queries):
             z = tr.challenge_scalar(ext)
-            evals = self._point_evals(ext_flat, z)
+            evals = self._point_evals(ext_flat, z, rows)
             tr.absorb(b"".join(_scalar_bytes(ext, e) for e in evals))
             point_evals.append(evals)
 
         # 2. commit the validities (they depend on r), absorb, run the LDT
         self._t("commit_validities")
-        tree_v = self.fri.commit(validities)
+        tree_v = fri.commit(validities, **kw)
         tr.absorb(tree_v.root())
         self._t("lde_prove")
-        fri_proof = self.fri.prove(
-            groups=[ext_flat, validities], trees=[tree_w, tree_v], transcript=tr,
+        fri_proof = fri.prove(
+            groups=[ext_flat, validities], trees=[tree_w, tree_v], transcript=tr, **kw,
         )
         self._t("end")
         return FastStarkProof(

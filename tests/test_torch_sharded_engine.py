@@ -9,8 +9,8 @@ STIR and WHIR through ``FastStark(lde_backend=...)``, BabyBear parity and
 fast, and the golden fast fixtures, whose sizes split. The same groups
 run the sharded prove core (``stark/core.py::make_sharded_prove_core``,
 Fibonacci and MiMC over Goldilocks, Fibonacci over BabyBear, at the dry
-run's n = 64 on seeded inputs), held against the JAX package's single core
-with shift 1, and ``make_sharded_fold_fns`` on 16 Goldilocks Fp2
+run's n = 64 on seeded inputs), whose blocks, joined across the ranks, are
+held against the JAX package's single core with shift 1, and ``make_sharded_fold_fns`` on 16 Goldilocks Fp2
 coefficients, held against the JAX package's fold_even_odd and
 eval_even_odd. Negative cases: a size that does not split runs on one
 device, and a rank that raises or hangs makes ``launch.run`` raise within
@@ -188,15 +188,16 @@ def _same_on_every_rank(groups, world, key):
 @pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("field,model", list(CORES))
 def test_sharded_core_equals_jax_single_core_with_shift_1(groups, world, field, model):
-    """make_sharded_prove_core's (lde, mixed, folded): the LDE is over H,
-    so it equals the JAX single core's with the coset offset 1."""
+    """make_sharded_prove_core's (lde, mixed, folded), each rank's block,
+    joined across the ranks: the LDE is over H, so it equals the JAX
+    single core's with the coset offset 1."""
     jsf, builder, _ = CORES[(field, model)]
     base = jsf.base
     cols, weights = _core_inputs(field, model)
     core, _ = j_make_prove_core(jsf, CORE_N, builder)
     pack = lambda a: jnp.asarray(to_jax_packed(torch.from_numpy(a.view(np.int64)), base))  # noqa: E731
     want = core(pack(cols), pack(np.asarray(1, dtype=np.uint64)), pack(weights))
-    got = _same_on_every_rank(groups, world, ("core", field, model))
+    got = cases.core_whole([r[("core", field, model)] for r in groups[world].result()])
     for g, w in zip(got, want):
         assert np.array_equal(g, from_jax_packed(np.asarray(w), base).numpy().view(np.uint64))
 
