@@ -65,16 +65,18 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                2^20 - 1 prove, verified
  10. sharded   the sharded paths (ministark_tpu_torch/parallel/) with ranks
                that share the one card in gloo groups (parallel/launch.py):
-               two ranks prove GL parity and fast at 2^20 - 1 cold and warm,
-               both resident (each rank holds its block of every stage
-               tensor), each rank's proof equal to phases main's / fast's and
-               verified, with its kernel launches (paths sharded_parity and
-               sharded_fast, per rank), its bytes received by collective kind
-               and its warm prove's peak allocated memory; a one-rank group
-               proves both on one device in a process of its own, and a
-               rank's resident parity or fast prove fails above 0.75 of that
-               one's peak (SHARDED_PEAK_SHARE), a fast rank above 2 MB of
-               all_gather outside the openings; the two ranks then
+               two ranks prove GL parity, fast, STIR and WHIR at 2^20 - 1
+               cold and warm, all resident (each rank holds its block of
+               every stage tensor, STIR and WHIR until the round that hands
+               off), each rank's proof equal to phases main's / fast's /
+               stir_whir's and verified, with its kernel launches (paths
+               sharded_parity, sharded_fast, sharded_stir and sharded_whir,
+               per rank), its bytes received by collective kind and its warm
+               prove's peak allocated memory; a one-rank group proves all
+               four on one device in a process of its own, and a rank's
+               resident prove fails above 0.75 of that one's peak
+               (SHARDED_PEAK_SHARE), a fast, STIR or WHIR rank above 2 MB
+               of all_gather outside the openings; the two ranks then
                prove_many 4 traces at 2^20 - 1, resident, equal to phase
                fast's bytes; the sharded coset LDE (6, 2^21),
                constrain tree (6 x 2^21 elements) and index tree (2^19, 48)
@@ -83,8 +85,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                (make_sharded_prove_core) at 2^18, each rank's blocks joined
                and equal to the single core with shift 1, with its launches
                (path sharded_core); then four ranks prove the 2^14 - 1 pins
-               (PINS, FAST_PINS x 1 and x 4, STIR_PINS, WHIR_PINS, one
-               BB_PINS and one BB_FAST_PINS entry, MiMC's MODEL_PINS)
+               (PINS, FAST_PINS x 1 and x 4, STIR_PINS and WHIR_PINS,
+               resident, one BB_PINS and one BB_FAST_PINS entry, MiMC's
+               MODEL_PINS)
  11. models    the counter, LFSR and MiMC AIRs (models/{counter,lfsr,mimc}.py)
                on the card: small proofs byte-identical to the host oracle
                over both fields, the 2^14 - 1 pins of the JAX package
@@ -114,8 +117,8 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                0 just before each path runs, read just after): the 2^20 - 1
                proves of each prover, backend and field (the STIR and WHIR
                paths stir, whir, stir_bb, whir_bb; the sharded paths
-               sharded_parity and sharded_fast, rank 0's, every rank
-               checked), the MiMC prove, the prove core at 2^20 (core) and
+               sharded_parity, sharded_fast, sharded_stir and sharded_whir,
+               rank 0's, every rank checked), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
                the kernel bench and the bench's proves
  16. processes no process that the script started is left: every child of
@@ -1404,7 +1407,8 @@ def phase_stir_whir(results):
     """The fast prover with the STIR and the WHIR low-degree tests, each in
     FAST_CFG: its golden fixture, its JAX pins, 2^20 - 1 cold and warm
     (verified, both group roots recomputed with the plain versions), then
-    one BabyBear + Fp4 2^20 - 1 prove, verified."""
+    one BabyBear + Fp4 2^20 - 1 prove, verified. Returns {"stir": sha256,
+    "whir": sha256} of the Goldilocks 2^20 - 1 proof bytes."""
     import hashlib
 
     import torch
@@ -1415,6 +1419,7 @@ def phase_stir_whir(results):
     )
 
     label = "stir_whir"
+    digests = {}
     for lde, pins in LDT_PINS.items():
         cfg = dict(FAST_CFG, lde_backend=lde)
         sf = _stark_field("gl")
@@ -1462,6 +1467,7 @@ def phase_stir_whir(results):
         blob = fast_proof_to_bytes(sf, proof)
         if fast_proof_to_bytes(sf, proof2) != blob:
             fail(f"{lde}: cold and warm proofs differ")
+        digests[lde] = hashlib.sha256(blob).hexdigest()
         t0 = time.time()
         if not stark.verify(stark._constraint_polys(trace), proof):
             fail(f"{lde}: verify returned False")
@@ -1499,15 +1505,18 @@ def phase_stir_whir(results):
             {k: v for k, v in launches.items() if v}) + "; inner-level by fan "
             + json.dumps(fans))
         del proof, stark, trace
+    return digests
 
 
 SHARDED_TIMEOUT_S = 900
 # a rank of two holds its block of every stage tensor: its peak allocated
-# memory in the warm 2^20 - 1 parity and fast proves stays at most this
-# share of one device's, read alike in a process that proves with no mesh
+# memory in the warm 2^20 - 1 parity, fast, STIR and WHIR proves stays at
+# most this share of one device's, read alike in a process that proves with
+# no mesh
 SHARDED_PEAK_SHARE = 0.75
-# a resident fast rank's all_gather bytes outside the openings in the cold
-# 2^20 - 1 prove (local tree tops, point-evaluation partials, the final
+# a resident fast, STIR or WHIR rank's all_gather bytes outside the openings
+# in the cold 2^20 - 1 prove (local tree tops, point-evaluation and sumcheck
+# partials, the block divisions' totals, the handoff and final
 # coefficients); one witness LDE is 6 x 2^21 x 2 x 8 B = 201 MB
 SHARDED_FAST_GATHER_BYTES = 2 << 20
 # phase sharded's shapes: the sharded pieces timed against one device (the
@@ -1569,9 +1578,10 @@ def _sharded_prove(prove, digest, device):
 def _sharded_one(mesh):
     """Phase sharded's one-device baseline, in a process of its own as each
     rank of the two-rank group is: the GL parity and fast proves at 2^20 - 1
-    with no mesh, each cold then warm. {"parity": ..., "fast": ...}, each
-    (cold and warm proofs' digests, the warm prove's peak allocated bytes,
-    warm s)."""
+    (the fast one with batched FRI, STIR and WHIR) with no mesh, each cold
+    then warm. {"parity": ..., "fast": ..., "stir": ..., "whir": ...}, each (cold
+    and warm proofs' digests, the warm prove's peak allocated bytes, warm
+    s)."""
     import hashlib
 
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
@@ -1588,18 +1598,22 @@ def _sharded_one(mesh):
         lambda: engine.prove(trace), lambda p: proof_digests(sf, p), dev)
     out = {"parity": (cold_digest, warm_digest, peak, warm)}
     del engine
-    stark = FastStark(FastStarkConfig(sf, MAIN_STEPS, **FAST_CFG), device=dev)
-    _, cold_digest, _, warm, _, _, warm_digest, peak, _ = _sharded_prove(
-        lambda: stark.prove(trace),
-        lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
-    out["fast"] = (cold_digest, warm_digest, peak, warm)
+    for path, lde in (("fast", "fri"), ("stir", "stir"), ("whir", "whir")):
+        stark = FastStark(FastStarkConfig(sf, MAIN_STEPS, **dict(FAST_CFG, lde_backend=lde)),
+                          device=dev)
+        _, cold_digest, _, warm, _, _, warm_digest, peak, _ = _sharded_prove(
+            lambda: stark.prove(trace),
+            lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
+        out[path] = (cold_digest, warm_digest, peak, warm)
+        del stark
     return out
 
 
 def _sharded_full(mesh):
     """One rank of phase sharded's two-rank group: the GL parity and fast
-    proves at 2^20 - 1 (cold, warm, verified), then the sharded coset LDE,
-    constrain tree and index tree against one device, timed."""
+    proves at 2^20 - 1 (cold, warm, verified; the fast one with batched
+    FRI, STIR and WHIR, all resident), then the sharded coset LDE, constrain
+    tree and index tree against one device, timed."""
     import hashlib
 
     import numpy as np
@@ -1635,6 +1649,15 @@ def _sharded_full(mesh):
     out["fast"] = rest + [stark.verify(stark._constraint_polys(trace), proof),
                           dict(stark.phase_seconds)]
     del proof
+    for lde in ("stir", "whir"):
+        ldt = FastStark(FastStarkConfig(sf, MAIN_STEPS, **dict(FAST_CFG, lde_backend=lde)),
+                        device=dev, mesh=mesh)
+        proof, *rest = _sharded_prove(
+            lambda: ldt.prove(trace),
+            lambda p: hashlib.sha256(fast_proof_to_bytes(sf, p)).hexdigest(), dev)
+        out[lde] = rest + [ldt.verify(ldt._constraint_polys(trace), proof),
+                           dict(ldt.phase_seconds)]
+        del proof, ldt
     # prove_many of FAST_BATCH traces, resident, against phase fast's bytes
     traces = [trace] + [fibonacci_device_trace(sf, MAIN_STEPS, on_device=True, device=dev)
                         for _ in range(FAST_BATCH - 1)]
@@ -1725,20 +1748,24 @@ def _sharded_pins(mesh):
     return out
 
 
-def phase_sharded(results, parity_digests, fast_sha, fast_many_sha):
+def phase_sharded(results, parity_digests, fast_sha, fast_many_sha, ldt_sha):
     """The sharded paths (ministark_tpu_torch/parallel/) with ranks that
-    share the one card: a two-rank group at full width against phases main
-    and fast (the parity and fast proves resident, each rank's peak memory
-    against a one-rank group's one-device prove, prove_many of FAST_BATCH)
-    and the sharded pieces against one device, then a four-rank group at
-    the pinned 2^14 - 1 sizes."""
+    share the one card: a two-rank group at full width against phases main,
+    fast and stir_whir (the parity, fast, STIR and WHIR proves resident,
+    each rank's peak memory against a one-rank group's one-device prove,
+    prove_many of FAST_BATCH) and the sharded pieces against one device,
+    then a four-rank group at the pinned 2^14 - 1 sizes."""
     import torch
 
     from ministark_tpu_torch.parallel import launch
 
     label = "sharded"
     one = launch.run(_sharded_one, 1, "gloo", "cuda:0", SHARDED_TIMEOUT_S)[0]
-    for path, phase, want in (("parity", "main", parity_digests), ("fast", "fast", fast_sha)):
+    proves = (("parity", "sharded_parity", "main", parity_digests),
+              ("fast", "sharded_fast", "fast", fast_sha),
+              ("stir", "sharded_stir", "stir_whir", ldt_sha["stir"]),
+              ("whir", "sharded_whir", "stir_whir", ldt_sha["whir"]))
+    for path, _, phase, want in proves:
         cold_digest, warm_digest, peak, warm = one[path]
         if cold_digest != want or warm_digest != want:
             fail(f"sharded: the one-rank group's {path} proof at {MAIN_STEPS} steps "
@@ -1752,9 +1779,7 @@ def phase_sharded(results, parity_digests, fast_sha, fast_many_sha):
                "so every time here is a time of the code path, not a scaling), "
                "backend gloo, collectives on the card's tensors unstaged; group "
                f"ran in {time.time() - t0:.1f} s")
-    for path, what, phase, want in (
-            ("parity", "sharded_parity", "main", parity_digests),
-            ("fast", "sharded_fast", "fast", fast_sha)):
+    for path, what, phase, want in proves:
         for r in ranks:
             (cold_digest, cold, warm, launches, collectives, warm_digest, peak,
              received, ok, phases) = r[path]
@@ -1776,8 +1801,8 @@ def phase_sharded(results, parity_digests, fast_sha, fast_many_sha):
                 fail(f"sharded: rank {r['rank']}'s resident {path} prove peaks at "
                      f"{share:.3f} of one device's memory, over "
                      f"{SHARDED_PEAK_SHARE}")
-            if path == "fast" and received["all_gather"] > SHARDED_FAST_GATHER_BYTES:
-                fail(f"sharded: rank {r['rank']}'s resident fast prove received "
+            if path != "parity" and received["all_gather"] > SHARDED_FAST_GATHER_BYTES:
+                fail(f"sharded: rank {r['rank']}'s resident {path} prove received "
                      f"{received['all_gather']} B of all_gather outside the openings, "
                      f"over {SHARDED_FAST_GATHER_BYTES}")
             say(label, f"{what} rank {r['rank']} launches "
@@ -2226,7 +2251,7 @@ _LDT_BB_PATHS = ("stir_bb", "whir_bb")
 # parity and fast proves (the probes launch only the probe kernels)
 _BENCH_PATHS = ("mimc", "bench_kernels", "bench_prove")
 # the 2^20 - 1 proves of phase sharded, per rank (of two)
-_SHARDED_PATHS = ("sharded_parity", "sharded_fast")
+_SHARDED_PATHS = ("sharded_parity", "sharded_fast", "sharded_stir", "sharded_whir")
 # the prove core on one device at 2^20 (phase core) and sharded over two
 # ranks (phase sharded, per rank)
 _CORE_PATHS = ("core", "sharded_core")
@@ -2247,8 +2272,8 @@ KERNELS = {
                   ("parity", "mimc", "bench_prove", "sharded_parity")),
     "sha256_rows": ("ministark_tpu_torch/csrc/sha256.cu",
                     "ministark_tpu/ops/sha256_pallas.py:113",
-                    ("fast", "fast_bb", "bench_kernels", "bench_prove", "sharded_fast")
-                    + _LDT_PATHS + _LDT_BB_PATHS),
+                    ("fast", "fast_bb", "bench_kernels", "bench_prove", "sharded_fast",
+                     "sharded_stir", "sharded_whir") + _LDT_PATHS + _LDT_BB_PATHS),
     "gl_mul": ("ministark_tpu_torch/csrc/gl_mul.cu",
                "ministark_tpu/ops/pallas_kernels.py:36",
                ("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + _BENCH_PATHS
@@ -2311,9 +2336,9 @@ def main():
     fast_blob, fast_many_blob = phase_fast(results)
     phase_main(results, "bb")
     phase_fast(results, "bb")
-    phase_stir_whir(results)
+    ldt_sha = phase_stir_whir(results)
     phase_sharded(results, parity_digests, hashlib.sha256(fast_blob).hexdigest(),
-                  hashlib.sha256(fast_many_blob).hexdigest())
+                  hashlib.sha256(fast_many_blob).hexdigest(), ldt_sha)
     phase_models(results)
     phase_core(results, smi)
     phase_probes(results)

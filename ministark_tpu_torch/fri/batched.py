@@ -16,8 +16,8 @@ proof bytes (tests/test_torch_fast.py holds them to the JAX package's).
 
 Polynomials are (B, n, d) extension tensors (d = 2 for Goldilocks Fp2, 4
 for BabyBear Fp4) on any device; the NTTs and tree
-builds run where they live, sharded over a mesh when one is given
-(``parallel/``, the same proof bytes). The verifier is pure host (hashlib and host
+builds run where they live, resident on a mesh when given its rows
+(below; the same proof bytes). The verifier is pure host (hashlib and host
 field ops). Challenges come from a ratcheted SHA-256 transcript
 (``FastTranscript``), not the parity sponge.
 
@@ -30,8 +30,10 @@ stay local while a block divides by F. At the first layer whose fold, LDE
 or tree stops splitting (``_fold_splits``, ``block_coset_fits``) the block
 is gathered once (``_whole``) and the rest runs with one device's code on
 the whole; the final coefficients are gathered so too. Openings come from
-the trees' owners. ``_fft_batched``, ``_tree`` and ``binding_lde`` keep
-the whole tensors of STIR, WHIR and the verifier.
+the trees' owners. STIR and WHIR (``fri/stir.py``) commit through the
+same block forms, over their cosets. ``_fft_batched`` and ``_tree`` take
+whole tensors: one device's code without rows or after a handoff, and the
+verifier's binding LDE (on the mesh).
 """
 
 from __future__ import annotations
@@ -200,9 +202,10 @@ class BatchedFri:
                  mesh=None):
         """``ntt_backend``: the NTT kernels of the LDE (ops/ntt.py); not part
         of the config or the transcript, and it changes no proof byte.
-        ``mesh``: a ``parallel.Mesh``; the whole-tensor LDE NTTs and tree
-        builds shard over it where their sizes split (replicated in and
-        out). The resident forms take the mesh of their ``rows``."""
+        ``mesh``: a ``parallel.Mesh``; ``binding_lde``'s NTT shards over it
+        where its size splits (replicated in and out). Commit and prove take
+        the mesh of their ``rows``, and without rows run one device's
+        code."""
         self.cfg = config
         self.ntt_backend = check_backend(ntt_backend)
         self.mesh = mesh
@@ -232,9 +235,9 @@ class BatchedFri:
         return ev.movedim(lead, -1)                       # (..., N, d)
 
     def _tree(self, rows: torch.Tensor) -> IndexMerkleTree:
-        """(N/F, ..., d) coset rows -> tree over their u64 components."""
-        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity,
-                               self.mesh)
+        """(N/F, ..., d) coset rows -> tree over their u64 components, on
+        one device."""
+        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity)
 
     def _transcript(self, b: int, n: int) -> FastTranscript:
         tr = FastTranscript(b"batched-fri")
@@ -280,20 +283,23 @@ class BatchedFri:
         groups of F."""
         return rows.count % self.cfg.fold_factor == 0
 
-    def _block_coset_rows(self, block: torch.Tensor, N: int, mesh) -> torch.Tensor:
+    def _block_coset_rows(self, block: torch.Tensor, N: int, mesh,
+                          offset: int = None) -> torch.Tensor:
         """(B, m/D, d) blocks of m coefficients -> this rank's coset rows of
         their LDE over N points, (N/(F*D), B, F, d): the layout of
-        ``_coset_rows``, one batched component NTT."""
+        ``_coset_rows``, one batched component NTT; with ``offset`` over
+        the coset offset * <w_N> (STIR's and WHIR's domains)."""
         F = self.cfg.fold_factor
         B, m_loc, d = block.shape
         flat = block.movedim(-1, 1).reshape(B * d, m_loc)       # (B*d, m/D)
-        fft = get_block_coset_ntt_fns(self._ntt_base, N, F, mesh, self.ntt_backend)[0]
-        cr = fft(flat)                                          # (N/(F*D), B*d, F)
+        fns = get_block_coset_ntt_fns(self._ntt_base, N, F, mesh, self.ntt_backend)
+        cr = fns[0](flat) if offset is None else fns[2](flat, offset)  # (N/(F*D), B*d, F)
         return cr.reshape(cr.shape[0], B, d, F).transpose(2, 3)
 
-    def _block_tree(self, block: torch.Tensor, N: int, rows: Rows) -> BlockIndexTree:
+    def _block_tree(self, block: torch.Tensor, N: int, rows: Rows,
+                    offset: int = None) -> BlockIndexTree:
         """The tree over this rank's coset rows of ``_block_coset_rows``."""
-        cr = self._block_coset_rows(block, N, rows.mesh)
+        cr = self._block_coset_rows(block, N, rows.mesh, offset)
         return BlockIndexTree(cr.reshape(cr.shape[0], -1), self.cfg.arity, rows.mesh)
 
     def _whole(self, block: torch.Tensor, rows: Rows) -> torch.Tensor:
@@ -319,7 +325,7 @@ class BatchedFri:
         if rows is not None:
             return self._block_tree(polys, self.cfg.blowup * rows.n, rows)
         N = self.cfg.blowup * int(polys.shape[1])
-        evals0 = self._fft_batched(polys, N)        # (B, N, d)
+        evals0 = self._one_device()._fft_batched(polys, N)  # (B, N, d)
         return self._tree(self._coset_rows(evals0, self.cfg.fold_factor))
 
     def binding_lde(self, ext_coeffs: torch.Tensor):
@@ -370,8 +376,8 @@ class BatchedFri:
         weights = ke.pack([ext.pow(rho, j) for j in range(b)], dev)
         allp = groups[0] if len(groups) == 1 else torch.cat(groups, 0)
         cur = mix_columns(ke, allp, weights)      # g coeffs (n, d), or a block
-        # the whole layers: this FRI's, or one device's after a handoff
-        whole = self if rows is None else self._one_device()
+        # the whole layers run one device's code: with no rows, or after a handoff
+        whole = self._one_device()
 
         layer_trees: List[IndexMerkleTree] = []
         for r in range(R):
@@ -387,7 +393,7 @@ class BatchedFri:
                     cur, rows = self._whole(cur, rows), None
                 if rows is None:
                     cw = whole._fft_batched(cur, Nn)
-                    t = whole._tree(self._coset_rows(cw, F))
+                    t = self._tree(self._coset_rows(cw, F))
                 else:
                     t = self._block_tree(cur[None], Nn, rows)
                 layer_trees.append(t)

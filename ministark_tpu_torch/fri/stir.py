@@ -35,6 +35,21 @@ The prover's polynomials are (n, d) extension tensors on the prover's
 device; every coset FFT is the port's NTT (ops/ntt.py, ``ntt_backend``),
 every round's tree the index tree's SHA-256 kernels. The verifier is pure
 host (hashlib and host field ops).
+
+Resident on a mesh (``commit`` and ``prove`` with ``rows``, a
+``parallel.Rows``; WHIR the same, ``fri/whir.py``): rank r holds its block
+[r*d/D, (r+1)*d/D) of every round's d coefficients. Each commitment is the
+block LDE to this rank's coset rows over the round's coset and a
+``BlockIndexTree`` (``BatchedFri._block_tree``), the mix and the k-fold are
+per coefficient, the point evaluations are block partial sums added across
+the ranks (``eval_points(..., start=)``), and the quotient with degree
+correction is ``quot_degcor_block``. A round stays on the blocks while
+``_round_splits`` holds: the fold is local, the folded block holds more
+than |G| coefficients and its coset-row LDE splits (``block_coset_fits``).
+At the first round where it fails the block is gathered once
+(``BatchedFri._whole``) and the rest runs with one device's code; the final
+fold is whole. Without ``rows`` a prove runs one device's code on every
+rank, mesh or not: the mesh serves only the verifier's ``binding_lde``.
 """
 
 from __future__ import annotations
@@ -47,6 +62,9 @@ import torch
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
 from ..ops.poly import field_sum, fold_factor, mix_columns, powers, synth_div_suffix
+from ..parallel.fri_sharded import get_block_fri_fns
+from ..parallel.mesh import Rows, field_sum_over_ranks, previous_rows
+from ..parallel.ntt_sharded import block_coset_fits
 from .batched import (
     BatchedFri,
     BatchedFriConfig,
@@ -167,12 +185,16 @@ def _geom_eval(ext, r, x, e):
 
 
 # ------------------------------------------------------------- device ops
-def eval_points(ke, coeffs, pts):
+def eval_points(ke, coeffs, pts, start: int = 0):
     """ONE polynomial (n, *elem) at m points (m, *elem) -> (m, *elem), in one
     batched pass: the powers of every point, one product, one sum
-    (``_eval_points_jit``, a vmap of ``eval_many``)."""
+    (``_eval_points_jit``, a vmap of ``eval_many``). With ``start``, the
+    coefficients are those of x^start .. x^(start+n-1): a block's partial
+    sums, which a field sum across the blocks completes."""
     n = coeffs.shape[0]
     pw = powers(ke, pts, n)                                  # (m, n, *elem)
+    if start:
+        pw = ke.mul(pw, ke.pow(pts, start).unsqueeze(1).expand_as(pw))
     return field_sum(ke, ke.mul(pw, coeffs.unsqueeze(0)), axis=1)
 
 
@@ -199,6 +221,33 @@ def quot_degcor(ke, coeffs, ans, roots, scales, rcor_pows):
     return out
 
 
+def quot_degcor_block(field, block, ans, roots, scales, rcor_pows, rows: Rows):
+    """``quot_degcor`` on this rank's block ``rows`` of the d coefficients
+    (``field``: the extension), giving its block of f: Ans_G comes off the
+    head on the rank whose block starts at 0, each division is the block
+    divide (``parallel/fri_sharded.py``; its trailing slot zero is the
+    re-padded one's), and the shifted products read the previous rank's
+    last |G| coefficients (``previous_rows``, one ``halo`` gather). The
+    block holds more than |G| coefficients."""
+    ke = get_ops(field)
+    m, c = roots.shape[0], block.shape[0]
+    if c <= m:
+        raise ValueError(f"a block of {c} coefficients is too short for |G| = {m}")
+    cur = block
+    if rows.lo == 0:
+        cur = torch.cat([ke.sub(cur[: ans.shape[0]], ans), cur[ans.shape[0]:]], 0)
+    divide = get_block_fri_fns(field, rows.n, rows.mesh)["divide"]
+    for j in range(m):
+        cur = divide(cur, roots[j], scales[j])
+    # out[g] = sum_l r_cor^l cur[g - l], the indices below the block's
+    # first from the previous rank (zeros below 0)
+    ext = torch.cat([previous_rows(rows.mesh, cur, m), cur], 0)
+    out = torch.zeros_like(cur)
+    for l in range(rcor_pows.shape[0]):
+        out = ke.add(out, ke.mul(ext[m - l: m - l + c], rcor_pows[l].expand_as(cur)))
+    return out
+
+
 class CosetRowLdt:
     """What STIR and WHIR share: the fast mode's commitment helpers (the
     component NTT's coset form, coset rows, the index tree), the commitment
@@ -209,7 +258,8 @@ class CosetRowLdt:
         """``ntt_backend``: the NTT kernels of every coset FFT (ops/ntt.py);
         not part of the config or the transcript, it changes no proof byte.
         ``mesh``: a ``parallel.Mesh``, handed to the ``BatchedFri`` whose
-        coset FFTs and trees then shard over it."""
+        ``binding_lde`` then shards over it; commit and prove take the mesh
+        of their ``rows``."""
         self.cfg = config
         self.ext = config.field
         self.ke = get_ops(self.ext)
@@ -231,9 +281,13 @@ class CosetRowLdt:
         ))
         return tr
 
-    def _commit(self, coeffs_2d, N: int, offset: int) -> IndexMerkleTree:
-        """coeffs (B, m, d) -> coset-row index tree over offset*<w_N>."""
-        ev = self._bf._fft_batched(coeffs_2d, N, offset)
+    def _commit(self, coeffs_2d, N: int, offset: int, rows: Rows = None) -> IndexMerkleTree:
+        """coeffs (B, m, d) -> coset-row index tree over offset*<w_N>, one
+        device's code; with ``rows`` this rank's (B, m/D, d) blocks -> a
+        ``BlockIndexTree``."""
+        if rows is not None:
+            return self._bf._block_tree(coeffs_2d, N, rows, offset)
+        ev = self._bf._one_device()._fft_batched(coeffs_2d, N, offset)
         return self._bf._tree(self._bf._coset_rows(ev, self.cfg.k))
 
     def _ood_ok(self, z) -> bool:
@@ -246,13 +300,41 @@ class CosetRowLdt:
     def _dedupe(idxs: List[int]) -> List[int]:
         return sorted(set(idxs))
 
-    def commit(self, polys) -> IndexMerkleTree:
+    def commit(self, polys, rows: Rows = None) -> IndexMerkleTree:
         """Commitment of one polynomial group over L_0 (coset-row tree).
         The CALLER absorbs the root into its transcript at the protocol
-        point where the group is bound (stark/fast.py)."""
-        n = int(polys.shape[1])
+        point where the group is bound (stark/fast.py). With ``rows``,
+        ``polys`` is this rank's (B, n/D, d) block of the coefficients
+        (``block_fits``) and the tree a ``BlockIndexTree``."""
+        n = int(polys.shape[1]) if rows is None else rows.n
         d, N, off, t, R = self._schedule(n)
-        return self._commit(polys, N[0], off[0])
+        return self._commit(polys, N[0], off[0], rows)
+
+    # ------------------------------------------------------ resident forms
+    def block_fits(self, n: int, n_dev: int) -> bool:
+        """The L_0 commitment of n coefficients splits over n_dev ranks: its
+        LDE gives each rank whole coset rows in one exchange."""
+        return self._bf.block_fits(n, n_dev)
+
+    def _round_splits(self, rows: Rows, i: int, N, t) -> bool:
+        """Round i (1..R) of the schedule's N and t, on the coefficients
+        ``rows``, stays on the blocks: the k-fold is local, the folded block
+        holds at least ``_round_least(t, i)`` coefficients and their
+        coset-row LDE over N[i] points splits."""
+        k, D = self.cfg.k, rows.mesh.size
+        m = rows.n // k
+        return (rows.count % k == 0 and m // D >= self._round_least(t, i)
+                and block_coset_fits(N[i], m, k, D))
+
+    def _evals(self, cur, pts, rows: Rows = None) -> list:
+        """The polynomial ``cur`` at host points, pulled once; with ``rows``
+        the block's partial sums, added across the ranks."""
+        ke = self.ke
+        packed = ke.pack(pts, cur.device)
+        if rows is None:
+            return ke.unpack(eval_points(ke, cur, packed))
+        part = eval_points(ke, cur, packed, start=rows.lo)
+        return ke.unpack(field_sum_over_ranks(ke, rows.mesh, part))
 
     def binding_lde(self, ext_coeffs):
         """(N_0, k, evals over L_0) for outer-protocol row binding — same
@@ -261,25 +343,26 @@ class CosetRowLdt:
         d, N, off, t, R = self._schedule(n)
         return N[0], self.cfg.k, self._bf._fft_batched(ext_coeffs, N[0], off[0])
 
-    def _start(self, polys, transcript, groups, trees):
+    def _start(self, polys, transcript, groups, trees, rows):
         """(group_sizes, n, schedule, trees, transcript, f_0 coefficients):
         the start both provers share. Standalone (``polys``) commits and
         absorbs the one group on a fresh transcript; an outer protocol
-        passes groups it committed and absorbed itself."""
+        passes groups it committed and absorbed itself. With ``rows`` the
+        groups are this rank's blocks and f_0 its block."""
         ext, ke = self.ext, self.ke
         if groups is None:
             assert polys is not None
             groups = [polys]
-        n = int(groups[0].shape[1])
+        n = int(groups[0].shape[1]) if rows is None else rows.n
         group_sizes = [int(g.shape[0]) for g in groups]
         b = sum(group_sizes)
         assert n & (n - 1) == 0
-        assert all(int(g.shape[1]) == n for g in groups)
+        assert all(int(g.shape[1]) == groups[0].shape[1] for g in groups)
         sched = self._schedule(n)
         if trees is None:
             assert transcript is None and len(groups) == 1
             tr = self._transcript(b, n)
-            trees = [self.commit(groups[0])]
+            trees = [self.commit(groups[0], rows)]
             tr.absorb(trees[0].root())
         else:
             assert transcript is not None and len(trees) == len(groups)
@@ -288,7 +371,7 @@ class CosetRowLdt:
         rho = tr.challenge_scalar(ext)
         weights = ke.pack([ext.pow(rho, j) for j in range(b)], dev)
         allp = groups[0] if len(groups) == 1 else torch.cat(groups, 0)
-        cur = mix_columns(ke, allp, weights)          # f_0 coeffs (n, d)
+        cur = mix_columns(ke, allp, weights)          # f_0 coeffs (n, d), or a block
         return group_sizes, n, sched, trees, tr, cur
 
     @staticmethod
@@ -358,21 +441,31 @@ class Stir(CosetRowLdt):
         _SCHEDULE_CACHE[key] = (d, N, off, t, R)
         return d, N, off, t, R
 
+    @staticmethod
+    def _round_least(t, i: int) -> int:
+        """The least a folded block of round i holds: more than |G| <=
+        t_{i-1} + 1, the degree correction's halo."""
+        return t[i - 1] + 2
+
     # ----------------------------------------------------------- prove
     def prove(self, polys=None, transcript: FastTranscript = None,
-              groups=None, trees=None) -> StirProof:
+              groups=None, trees=None, rows: Rows = None) -> StirProof:
         """Standalone: ``prove(polys)`` — one group, committed and absorbed
         internally on a fresh transcript.
 
         Multi-group (outer protocols): ``prove(groups=[...], trees=[...],
         transcript=tr)`` — the caller committed each group via ``commit``
         and absorbed every root BEFORE any challenge; STIR continues from
-        rho (same contract as BatchedFri.prove)."""
+        rho (same contract as BatchedFri.prove).
+
+        Resident (``rows``, a ``parallel.Rows`` of the n coefficients): the
+        groups are this rank's (B, n/D, d) blocks, the trees theirs, and
+        every rank of ``rows.mesh`` calls ``prove`` alike."""
         cfg = self.cfg
         ext, ke = self.ext, self.ke
         k = cfg.k
         group_sizes, n, (d, N, off, t, R), trees, tr, cur = self._start(
-            polys, transcript, groups, trees)
+            polys, transcript, groups, trees, rows)
         dev = cur.device
 
         round_trees: List[IndexMerkleTree] = []
@@ -381,14 +474,18 @@ class Stir(CosetRowLdt):
         pow_nonces: List[bytes] = []
         for i in range(1, R + 1):
             r = tr.challenge_scalar(ext)
+            if rows is not None and not self._round_splits(rows, i, N, t):
+                cur, rows = self._bf._whole(cur, rows), None
             cur = fold_factor(ke, cur, ke.pack_scalar(r, dev), k)
-            tree = self._commit(cur[None], N[i], off[i])
+            if rows is not None:
+                rows = Rows(rows.mesh, rows.n // k)
+            tree = self._commit(cur[None], N[i], off[i], rows)
             round_trees.append(tree)
             tr.absorb(tree.root())
 
             z = tr.challenge_scalar(ext)
             assert self._ood_ok(z), "out-of-domain sample hit the prime field"
-            beta = ke.unpack(eval_points(ke, cur, ke.pack([z], dev)))[0]
+            beta = self._evals(cur, [z], rows)[0]
             betas.append(beta)
             tr.absorb(_scalar_bytes(ext, beta))
 
@@ -407,11 +504,13 @@ class Stir(CosetRowLdt):
                 )
                 for j in idxs
             ]
-            vs = ke.unpack(eval_points(ke, cur, ke.pack(ys, dev)))
+            vs = self._evals(cur, ys, rows)
             G = [(z, beta)] + list(zip(ys, vs))
-            cur = self._apply_quot_degcor(cur, G, r_cor)
+            cur = self._apply_quot_degcor(cur, G, r_cor, rows)
 
         r_fin = tr.challenge_scalar(ext)
+        if rows is not None:
+            cur = self._bf._whole(cur, rows)
         cur = fold_factor(ke, cur, ke.pack_scalar(r_fin, dev), k)
         final_coeffs = ke.unpack(cur[: d[R] // k])
         tr.absorb(b"".join(_scalar_bytes(ext, s) for s in final_coeffs))
@@ -430,19 +529,22 @@ class Stir(CosetRowLdt):
             pow_nonces=pow_nonces,
         )
 
-    def _apply_quot_degcor(self, cur, G, r_cor):
-        """cur (d_i, d) g_i coeffs -> f_i coeffs, on cur's device."""
+    def _apply_quot_degcor(self, cur, G, r_cor, rows: Rows = None):
+        """cur (d_i, d) g_i coeffs -> f_i coeffs, on cur's device; with
+        ``rows`` this rank's block of each."""
         ext, ke = self.ext, self.ke
         dev = cur.device
         m = len(G)
         pts = [x for (x, _) in G]
-        return quot_degcor(
-            ke, cur,
+        args = (
             ke.pack(_newton_interp(ext, G), dev),
             ke.pack(pts, dev),
             ke.pack([ext.inv(x) for x in pts], dev),
             ke.pack([ext.pow(r_cor, l) for l in range(m + 1)], dev),
         )
+        if rows is None:
+            return quot_degcor(ke, cur, *args)
+        return quot_degcor_block(ext, cur, *args, rows)
 
     # ----------------------------------------------------------- verify
     def verify(self, proof: StirProof,

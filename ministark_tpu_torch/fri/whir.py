@@ -43,6 +43,15 @@ Final: kappa more sumcheck rounds, then p = Fold_k(f_R, alphas) ships in
 the clear; the verifier checks the residual claim
 sum_c lambda_c*E_c*p(q_c^k) == sigma directly and binds p to C_R by t_R
 fiber spot-checks.
+
+Resident on a mesh (``commit`` and ``prove`` with ``rows``, as STIR's,
+``fri/stir.py``): rank r holds its block of every iteration's
+coefficients. The sumcheck's even/odd evaluations are block partial sums
+added across the ranks (``sumcheck_evals(..., start=)``), its even/odd
+fold stays local while the block is even, and each iteration commits
+through the block LDE to coset rows. At the first iteration whose folds or
+LDE stop splitting the block is gathered once; the final sumcheck and its
+fold run whole. Without ``rows`` a prove runs one device's code.
 """
 
 from __future__ import annotations
@@ -54,8 +63,9 @@ import torch
 
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.poly import field_sum, fold_even_odd, powers
+from ..parallel.mesh import Rows, field_sum_over_ranks
 from .batched import FastTranscript, _row_values, _scalar_bytes
-from .stir import CosetRowLdt, StirResult, eval_points
+from .stir import CosetRowLdt, StirResult
 
 
 # --------------------------------------------------------------- config
@@ -119,15 +129,20 @@ class WhirProof:
 
 
 # ------------------------------------------------------------- device ops
-def sumcheck_evals(ke, cur, pts):
+def sumcheck_evals(ke, cur, pts, start: int = 0):
     """Even/odd-half evaluations for one sumcheck round
     (``_sumcheck_evals_jit``), every point in one batched pass.
 
     cur: (L, *elem) coefficients, L even; pts: (m, *elem) packed points
     (q_c^(2^l) per constraint). Returns (m, 2, *elem): for each point,
-    [even-half eval, odd-half eval]."""
+    [even-half eval, odd-half eval]. With ``start``, each half's
+    coefficients are those of x^start, x^(start+1), ... (a block whose
+    first coefficient is 2 * start): partial sums, which a field sum across
+    the blocks completes."""
     both = torch.stack([cur[0::2], cur[1::2]])               # (2, L/2, *elem)
     pw = powers(ke, pts, both.shape[1])                      # (m, L/2, *elem)
+    if start:
+        pw = ke.mul(pw, ke.pow(pts, start).unsqueeze(1).expand_as(pw))
     return field_sum(ke, ke.mul(pw.unsqueeze(1), both.unsqueeze(0)), axis=2)
 
 
@@ -201,15 +216,22 @@ class Whir(CosetRowLdt):
     def _poly2_eval(ext, h, x):
         return ext.add(h[0], ext.mul(x, ext.add(h[1], ext.mul(x, h[2]))))
 
+    @staticmethod
+    def _round_least(t, i: int) -> int:
+        """The least a folded block of iteration i holds: one coefficient
+        (no quotient, so no halo)."""
+        return 1
+
     # ----------------------------------------------------------- prove
-    def _prover_sumcheck_block(self, cur, state, tr):
+    def _prover_sumcheck_block(self, cur, state, tr, rows: Rows = None):
         """Run kappa sumcheck rounds: ship h_l, draw alpha_l, fold.
 
         state: dict with 'sigma' and 'constraints' [(lam, E, q_scalar)]
         where q_scalar is the CURRENT first component (q^(2^0) relative to
-        cur's variables). Returns (folded cur, alphas, [h coeff triples]);
-        mutates state: sigma updated, constraints' E accumulated and
-        q advanced by 2^kappa squarings."""
+        cur's variables). Returns (folded cur, alphas, [h coeff triples],
+        the folded block's rows); mutates state: sigma updated,
+        constraints' E accumulated and q advanced by 2^kappa squarings.
+        With ``rows``, cur is this rank's block, which divides by k."""
         ext, ke = self.ext, self.ke
         dev = cur.device
         cons = state["constraints"]
@@ -220,7 +242,12 @@ class Whir(CosetRowLdt):
         triples = []
         for _l in range(self.cfg.kappa):
             q_next = [ext.mul(q, q) for q in qs]   # suffix base = q^2
-            flat = ke.unpack(sumcheck_evals(ke, cur, ke.pack(q_next, dev)))
+            packed = ke.pack(q_next, dev)
+            if rows is None:
+                flat = ke.unpack(sumcheck_evals(ke, cur, packed))
+            else:
+                part = sumcheck_evals(ke, cur, packed, start=rows.lo // 2)
+                flat = ke.unpack(field_sum_over_ranks(ke, rows.mesh, part))
             evals = [(flat[2 * ci], flat[2 * ci + 1]) for ci in range(len(cons))]
             h = self._sumcheck_round_poly(
                 [(lams[ci], Es[ci], qs[ci]) for ci in range(len(cons))],
@@ -241,31 +268,36 @@ class Whir(CosetRowLdt):
                 Es[ci] = ext.mul(Es[ci], eq_l)
             qs = q_next
             cur = fold_even_odd(ke, cur, ke.pack_scalar(alpha, dev))
+            if rows is not None:
+                rows = Rows(rows.mesh, rows.n // 2)
         state["constraints"] = [
             (lams[ci], Es[ci], qs[ci]) for ci in range(len(cons))
         ]
-        return cur, alphas, triples
+        return cur, alphas, triples, rows
 
     def prove(self, polys=None, transcript: FastTranscript = None,
-              groups=None, trees=None) -> WhirProof:
+              groups=None, trees=None, rows: Rows = None) -> WhirProof:
         """Standalone: ``prove(polys)`` — one group, committed and absorbed
         internally on a fresh transcript.
 
         Multi-group (outer protocols): ``prove(groups=[...], trees=[...],
         transcript=tr)`` — the caller committed each group via ``commit``
         and absorbed every root BEFORE any challenge (same contract as
-        BatchedFri.prove / Stir.prove)."""
+        BatchedFri.prove / Stir.prove).
+
+        Resident (``rows``, a ``parallel.Rows`` of the n coefficients): the
+        groups are this rank's (B, n/D, d) blocks, the trees theirs, and
+        every rank of ``rows.mesh`` calls ``prove`` alike."""
         cfg = self.cfg
         ext, ke = self.ext, self.ke
         k = cfg.k
         group_sizes, n, (d, N, off, t, R), trees, tr, cur = self._start(
-            polys, transcript, groups, trees)
-        dev = cur.device
+            polys, transcript, groups, trees, rows)
 
         # initial out-of-domain constraint binds f_0 before any folding
         z0 = tr.challenge_scalar(ext)
         assert self._ood_ok(z0), "out-of-domain sample hit the prime field"
-        beta0 = ke.unpack(eval_points(ke, cur, ke.pack([z0], dev)))[0]
+        beta0 = self._evals(cur, [z0], rows)[0]
         tr.absorb(_scalar_bytes(ext, beta0))
         betas = [beta0]
         state = {
@@ -279,16 +311,19 @@ class Whir(CosetRowLdt):
         pow_nonces: List[bytes] = []
         p_mod = self.prime.p
         for i in range(1, R + 1):
-            cur, _alphas, triples = self._prover_sumcheck_block(cur, state, tr)
+            if rows is not None and not self._round_splits(rows, i, N, t):
+                cur, rows = self._bf._whole(cur, rows), None
+            cur, _alphas, triples, rows = self._prover_sumcheck_block(
+                cur, state, tr, rows)
             sumcheck.append(triples)
 
-            tree = self._commit(cur[None], N[i], off[i])
+            tree = self._commit(cur[None], N[i], off[i], rows)
             round_trees.append(tree)
             tr.absorb(tree.root())
 
             z = tr.challenge_scalar(ext)
             assert self._ood_ok(z), "out-of-domain sample hit the prime field"
-            beta = ke.unpack(eval_points(ke, cur, ke.pack([z], dev)))[0]
+            beta = self._evals(cur, [z], rows)[0]
             betas.append(beta)
             tr.absorb(_scalar_bytes(ext, beta))
 
@@ -306,7 +341,7 @@ class Whir(CosetRowLdt):
                 )
                 for j in idxs
             ]
-            vs = ke.unpack(eval_points(ke, cur, ke.pack(ys, dev))) if ys else []
+            vs = self._evals(cur, ys, rows) if ys else []
             sigma = ext.add(state["sigma"], ext.mul(gamma, beta))
             g_pow = gamma
             new_cons = [(gamma, ext.one(), z)]
@@ -322,8 +357,11 @@ class Whir(CosetRowLdt):
                 for (lam, E, q) in state["constraints"]
             ] + new_cons
 
-        # final block: kappa sumcheck rounds, ship the fold in the clear
-        cur, _alphas_fin, triples_fin = self._prover_sumcheck_block(
+        # final block: kappa sumcheck rounds on the whole, ship the fold in
+        # the clear
+        if rows is not None:
+            cur = self._bf._whole(cur, rows)
+        cur, _alphas_fin, triples_fin, _ = self._prover_sumcheck_block(
             cur, state, tr
         )
         sumcheck.append(triples_fin)

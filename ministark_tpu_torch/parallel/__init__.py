@@ -23,10 +23,13 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
   - the parity prover (``DeviceEngine(..., mesh=mesh)``), gated by
     ``block_ntt_fits``, ``can_shard_tree`` and the engine's
     ``_fri_splits``;
-  - the fast mode with batched FRI (``FastStark(..., mesh=mesh)``,
-    ``lde_backend="fri"``), gated by ``block_ntt_fits`` for the trace iFFT
-    and ``block_coset_fits`` for the commitments' LDE; a FRI layer hands
-    off where its fold, LDE or tree stops splitting (``fri/batched.py``);
+  - the fast mode (``FastStark(..., mesh=mesh)``) with each of its
+    low-degree tests, gated by ``block_ntt_fits`` for the trace iFFT and
+    ``block_coset_fits`` for the L_0 commitments' LDE; a FRI layer hands
+    off where its fold, LDE or tree stops splitting (``fri/batched.py``), a
+    STIR round or WHIR iteration where its fold or coset-row LDE stops
+    splitting or (STIR) its block would hold no more than |G| coefficients
+    (``fri/stir.py``, ``fri/whir.py``);
   - the prove core (``stark/core.py::make_sharded_prove_core``), which
     returns each rank's blocks.
 
@@ -38,16 +41,19 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
   replicated pair), ``block_tree_levels`` / ``tree_top`` with
   ``commit/packed_tree.py::BlockMerkleTree`` and ``commit/index_tree.py::
   BlockIndexTree`` (local levels stay local, the D local tops are
-  gathered, the top is replicated), and block partial sums added by
-  ``field_sum_over_ranks`` (DEEP and point evaluations). What the proof
+  gathered, the top is replicated), block partial sums added by
+  ``field_sum_over_ranks`` (DEEP, point and sumcheck evaluations), and
+  ``previous_rows`` (the previous rank's last rows, a ``halo``: STIR's
+  degree correction, ``fri/stir.py::quot_degcor_block``). What the proof
   carries comes from its owners: ``owner_select`` (one gather, the owner's
   row picked) for codeword reads, path digests, leaf groups and index-tree
   rows, ``gather_to_host`` (in chunks, so no device holds the whole) for
   the query quotients.
-* Replicated in and out, until they take blocks (ROADMAP 18c): STIR and
-  WHIR (``fri/stir.py``, ``fri/whir.py``, which share ``BatchedFri``'s
-  ``_fft_batched`` and ``_tree``), and the verifiers' iFFT and binding LDE.
-  Their sharded functions (``get_sharded_ntt_fns``, ``get_sharded_fri_fns``,
+* Replicated in and out: only the verifiers' iFFT and binding LDE
+  (``DeviceEngine.constrain_coeffs``, ``FastStark._constraint_polys`` and
+  ``binding_lde``); a low-degree test's ``commit`` and ``prove`` without
+  rows run one device's code. The sharded functions
+  (``get_sharded_ntt_fns``, ``get_sharded_fri_fns``,
   ``sharded_tree_digests``, the index tree's sharded build) take the whole
   tensor on every rank, share the block forms' steps on the rank's share
   and end with one gather that makes the result whole on every rank.
@@ -58,8 +64,8 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
   ``ops/poly.py::field_sum`` (``field_sum_over_ranks``), never
   ``all_reduce(SUM)`` on field values. ``mesh.collectives`` counts each
   rank's calls by kind and ``mesh.received`` the bytes that reached it
-  (``all_to_all``, ``all_gather``, and ``opening`` for what the proof
-  carries).
+  (``all_to_all``, ``all_gather``, ``opening`` for what the proof
+  carries, and ``halo``).
 * Every rank calls the same collectives in the same order, so every rank
   calls the same entry points alike: ``prove``, and ``verify`` where the
   caller verifies (the verifier's own iFFT of the constraints is sharded
@@ -70,9 +76,10 @@ Programming model: SPMD, one process per rank, on ``torch.distributed``.
 
 Use: inside each rank, ``DeviceEngine(config, device=mesh.device,
 mesh=mesh)`` or ``FastStark(config, device=mesh.device, mesh=mesh)``; the
-``mesh=`` argument also goes to ``BatchedFri``, ``Stir``, ``Whir``,
-``PackedMerkleTree`` and ``IndexMerkleTree`` (the replicated forms), and
-``BatchedFri.commit`` / ``prove`` take ``rows=`` for the resident ones. A
+``mesh=`` argument also goes to ``PackedMerkleTree`` and
+``IndexMerkleTree`` (the replicated forms) and to ``BatchedFri``,
+``Stir`` and ``Whir`` (their ``binding_lde``), whose ``commit`` /
+``prove`` take ``rows=`` for the resident forms. A
 model's transitions take the block of the coefficients with ``rows=`` (a
 ``Rows``) on a mesh.
 """

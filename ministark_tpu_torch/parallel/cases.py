@@ -350,18 +350,47 @@ def fast(mesh, field, steps, cfg, batch=1, model="fibonacci", device=None):
     return fast_proof_to_bytes(sf, proof), _collectives(before)
 
 
-def block_coset_lde(mesh, field, polys, N, F):
+def block_coset_lde(mesh, field, polys, N, F, offset=None):
     """(this rank's block of the coset rows of the LDE of (B, m, d)
     extension ``polys`` over N points, one device's whole coset rows), both
     (rows, B, F, d) as ``BatchedFri._coset_rows`` lays them out: the
     resident commitment's LDE (``BatchedFri._block_tree``'s) against
-    ``_fft_batched``."""
+    ``_fft_batched``; with ``offset`` over the coset offset * <w_N>, STIR's
+    and WHIR's."""
     from ..fri.batched import BatchedFri, BatchedFriConfig
 
     bf = BatchedFri(BatchedFriConfig(EXT[field], fold_factor=F))
     p = _t(mesh, polys)
-    block = bf._block_coset_rows(Rows(mesh, p.shape[1]).take(p, 1), N, mesh)
-    return _np(block), _np(bf._coset_rows(bf._fft_batched(p, N), F))
+    block = bf._block_coset_rows(Rows(mesh, p.shape[1]).take(p, 1), N, mesh, offset)
+    return _np(block), _np(bf._coset_rows(bf._fft_batched(p, N, offset), F))
+
+
+def block_ldt_ops(mesh, field, coeffs, pts, ans, roots, r_cor, start_pts):
+    """STIR's and WHIR's block pieces on this rank's block of the (n, d)
+    extension ``coeffs``: {"eval_points": the block partials of ``pts``
+    added across the ranks (whole values), "quot_degcor": this rank's
+    block of the quotient by the points ``roots`` with degree correction
+    (``ans`` the interpolant's coefficients, ``r_cor`` a host scalar),
+    "sumcheck_evals": the block partials of the even/odd halves at
+    ``start_pts``, added across the ranks}. Points are u64 arrays (m, d)."""
+    from ..fri.stir import eval_points, quot_degcor_block
+    from ..fri.whir import sumcheck_evals
+    from .mesh import field_sum_over_ranks
+
+    E = EXT[field]
+    k = get_ops(E)
+    rows = Rows(mesh, len(coeffs))
+    c = rows.take(_t(mesh, coeffs))
+    roots_t = _t(mesh, roots)
+    scales = k.pack([E.inv(x) for x in k.unpack(roots_t)], mesh.device)
+    r = k.unpack(_t(mesh, [r_cor]))[0]
+    rpows = k.pack([E.pow(r, j) for j in range(len(roots) + 1)], mesh.device)
+    ev = eval_points(k, c, _t(mesh, pts), start=rows.lo)
+    sc = sumcheck_evals(k, c, _t(mesh, start_pts), start=rows.lo // 2)
+    return {"eval_points": _np(field_sum_over_ranks(k, mesh, ev)),
+            "quot_degcor": _np(quot_degcor_block(E, c, _t(mesh, ans), roots_t, scales,
+                                                 rpows, rows)),
+            "sumcheck_evals": _np(field_sum_over_ranks(k, mesh, sc))}
 
 
 def block_index_tree(mesh, rows, arity, idxs):
@@ -389,10 +418,11 @@ def block_index_tree(mesh, rows, arity, idxs):
 def resident_fast(mesh, field, steps, cfg, batch=1):
     """The fast prove on a mesh as the residency tests read it: (proof
     bytes, collectives, bytes received by kind, the events of the prove in
-    order: ("handoff", rows gathered) where a stage stops splitting or the
-    final coefficients are gathered, ("fft", points) and ("tree", rows)
-    for each call of ``BatchedFri._fft_batched`` and ``IndexMerkleTree``
-    on a whole tensor)."""
+    order: ("handoff", rows gathered) where a FRI layer, STIR round or
+    WHIR iteration stops splitting or the final coefficients are gathered,
+    ("fft", points) and ("tree", rows) for each call of
+    ``BatchedFri._fft_batched`` and ``IndexMerkleTree`` on a whole
+    tensor). ``cfg["lde_backend"]`` picks the low-degree test."""
     from ..commit.index_tree import IndexMerkleTree
     from ..fri.batched import BatchedFri
 
@@ -426,8 +456,10 @@ def ldt(mesh, backend, n=1 << 10, device=None):
     """(the proof's fields, collectives it called) of a standalone STIR or
     WHIR prove (``backend``) over two random Goldilocks Fp2 polynomials of
     n coefficients from ``ark_test_rng``, in ``__graft_entry__.py:215-260``'s
-    configuration (k 4, blowup 2, security 8, final length 16): sharded
-    over ``mesh``, or on one device, ``device``, when ``mesh`` is None."""
+    configuration (k 4, blowup 2, security 8, final length 16): resident
+    on ``mesh`` (each rank proves from its block of the coefficients) where
+    the L_0 commitment splits over it, else on one device, ``device`` when
+    ``mesh`` is None."""
     from ..fri.stir import Stir, StirConfig
     from ..fri.whir import Whir, WhirConfig
     from ..utils.rng import ark_test_rng
@@ -438,8 +470,9 @@ def ldt(mesh, backend, n=1 << 10, device=None):
     polys = polys.reshape(2, n, 2)
     cls, cfg = {"stir": (Stir, StirConfig), "whir": (Whir, WhirConfig)}[backend]
     before = dict(mesh_mod.collectives)
-    proof = cls(cfg(ext, k=4, blowup=2, security_bits=8, final_len=16),
-                mesh=mesh).prove(polys)
+    prover = cls(cfg(ext, k=4, blowup=2, security_bits=8, final_len=16))
+    rows = Rows(mesh, n) if mesh is not None and prover.block_fits(n, mesh.size) else None
+    proof = prover.prove(polys if rows is None else rows.take(polys, 1), rows=rows)
     paths = [p for q in proof.batch_openings for p in q]
     paths += [p for rnd in proof.round_openings for p in rnd]
     fields = (proof.group_roots, proof.round_roots, proof.betas,

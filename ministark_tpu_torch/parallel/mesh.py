@@ -25,7 +25,9 @@ its index); a tensor too large for one device leaves by
 ``collectives`` counts the calls a rank makes by kind and ``received`` the
 bytes that reached it from the other ranks. ``opening`` is the kind of what
 the proof itself carries (codeword reads, path digests, leaf groups, query
-quotients), gathered from the ranks that own it.
+quotients), gathered from the ranks that own it; ``halo`` the previous
+rank's last coefficients that a block's shifted products read (STIR's
+degree correction).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from ..ops.poly import field_sum
 
 AXIS = "shards"
 
-KINDS = ("all_to_all", "all_gather", "opening")
+KINDS = ("all_to_all", "all_gather", "opening", "halo")
 # Incremented once per collective a rank calls, by kind ...
 collectives = dict.fromkeys(KINDS, 0)
 # ... and by the bytes that reached the rank from the others in it.
@@ -105,7 +107,7 @@ _gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tenso
 def all_gather_rows(mesh: Mesh, x: torch.Tensor, kind: str = "all_gather") -> torch.Tensor:
     """(...) on every rank -> (D, ...), row s from rank s. One
     ``all_gather_into_tensor`` into the concatenated form (gloo's only),
-    counted under ``kind`` (``all_gather`` or ``opening``)."""
+    counted under ``kind`` (``all_gather``, ``opening`` or ``halo``)."""
     src = x.contiguous().reshape((1,) + tuple(x.shape))
     _count(kind, src.nbytes * (mesh.size - 1))
     out = src.new_empty((mesh.size,) + tuple(x.shape))
@@ -122,6 +124,16 @@ def owner_select(mesh: Mesh, rows: torch.Tensor, owner: torch.Tensor) -> torch.T
     sent = torch.where(mine, rows, torch.zeros_like(rows))
     got = all_gather_rows(mesh, sent, "opening")                  # (D, q, ...)
     return got[owner, torch.arange(rows.shape[0], device=rows.device)]
+
+
+def previous_rows(mesh: Mesh, block: torch.Tensor, m: int) -> torch.Tensor:
+    """The previous rank's last ``m`` rows of its block (zeros on rank 0,
+    whose block starts the axis): one gather of every rank's last rows, a
+    ``halo``. The blocks hold at least ``m`` rows."""
+    if block.shape[0] < m:
+        raise ValueError(f"a block of {block.shape[0]} rows has no {m}-row halo")
+    got = all_gather_rows(mesh, block[block.shape[0] - m:], "halo")
+    return got[mesh.rank - 1] if mesh.rank else torch.zeros_like(got[0])
 
 
 def gather_to_host(mesh: Mesh, block: torch.Tensor, count: int = None,

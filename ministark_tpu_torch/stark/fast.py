@@ -31,17 +31,17 @@ to the prover's once. ``ntt_backend`` ("radix2", "four_step" or "pipe",
 ops/ntt.py) chooses the NTT kernels; it is not part of ``FastStarkConfig``
 or the transcript and changes no proof byte. ``mesh`` (a ``parallel.Mesh``,
 every rank proving the same traces) gives the same proof bytes on every
-rank. With batched FRI the prove is resident where the trace stage splits
-(``_trace_rows``): rank r takes its block [r*n/D, (r+1)*n/D) of the trace
-columns and holds every stage tensor so, from the block iFFT through the
-transitions (``rows=``), both commitments (the block LDE to coset rows and
-``BlockIndexTree``), the validity mix, the point evaluations (block
-partial sums, added across the ranks) and the FRI layers until one stops
-splitting (``fri/batched.py``). A trace stage that does not split proves
-on one device's code on every rank. STIR and WHIR stay replicated in and
-out: the whole tensors on every rank, their NTTs and trees sharded where
-the sizes split. The verifier's iFFT (``_constraint_polys``) and binding
-LDE are replicated in and out.
+rank. The prove is resident where the trace stage splits
+(``_trace_rows``), with every low-degree test: rank r takes its block
+[r*n/D, (r+1)*n/D) of the trace columns and holds every stage tensor so,
+from the block iFFT through the transitions (``rows=``), both commitments
+(the block LDE to coset rows and ``BlockIndexTree``), the validity mix, the
+point evaluations (block partial sums, added across the ranks) and the FRI
+layers, STIR rounds or WHIR iterations until one stops splitting
+(``fri/batched.py``, ``fri/stir.py``, ``fri/whir.py``). A trace stage that
+does not split proves on one device's code on every rank, with no
+collective. The verifier's iFFT (``_constraint_polys``) and binding LDE
+are replicated in and out.
 """
 
 from __future__ import annotations
@@ -188,10 +188,10 @@ class FastStark:
 
     def _trace_rows(self, traces: List[DeviceTrace]):
         """The rows of the trace domain this rank holds (``parallel.Rows``)
-        when the prove is resident: batched FRI on a mesh, and the trace
-        iFFT and the commitments' LDE to coset rows split over it (their
-        trees then split too). Else None."""
-        if self.mesh is None or self.config.lde_backend != "fri":
+        when the prove is resident: on a mesh, the trace iFFT and the
+        low-degree test's LDE to coset rows split over it (their trees then
+        split too). Else None."""
+        if self.mesh is None:
             return None
         n, D = traces[0].domain_size, self.mesh.size
         if block_ntt_fits(n, n, D) and self.fri.block_fits(n, D):
@@ -221,16 +221,12 @@ class FastStark:
         B = len(traces)
         n = traces[0].domain_size
         assert all(t.domain_size == n for t in traces)
-        # on a mesh: this rank's rows (resident), or None; STIR and WHIR
-        # prove replicated, batched FRI off the resident path on one device
+        # on a mesh: this rank's rows (resident), or None: one device's code
         rows = self._trace_rows(traces)
-        fri = self.fri
         if rows is not None:
             ifft = get_block_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1]
-        elif self.config.lde_backend == "fri":
-            ifft, fri = get_ntt_fns(self.base, n, self.ntt_backend)[1], fri._one_device()
         else:
-            ifft = select_ntt_fns(self.base, n, self.mesh, self.ntt_backend)[1]
+            ifft = get_ntt_fns(self.base, n, self.ntt_backend)[1]
         all_b = torch.stack([self._polys(t, ifft, rows) for t in traces])
         total, n_loc = int(all_b.shape[1]), int(all_b.shape[2])
         w = traces[0].width
@@ -243,9 +239,7 @@ class FastStark:
         # (B(w+t), n, d), or this rank's (B(w+t), n/D, d) block
         ext_flat = lift_base_array(ke, all_b.reshape(B * total, n_loc))
         del all_b
-        # STIR's and WHIR's commit and prove take no rows
-        kw = {} if rows is None else {"rows": rows}
-        tree_w = fri.commit(ext_flat, **kw)
+        tree_w = self.fri.commit(ext_flat, rows)
         tr.absorb(tree_w.root())
 
         self._t("point_evals")
@@ -264,11 +258,11 @@ class FastStark:
 
         # 2. commit the validities (they depend on r), absorb, run the LDT
         self._t("commit_validities")
-        tree_v = fri.commit(validities, **kw)
+        tree_v = self.fri.commit(validities, rows)
         tr.absorb(tree_v.root())
         self._t("lde_prove")
-        fri_proof = fri.prove(
-            groups=[ext_flat, validities], trees=[tree_w, tree_v], transcript=tr, **kw,
+        fri_proof = self.fri.prove(
+            groups=[ext_flat, validities], trees=[tree_w, tree_v], transcript=tr, rows=rows,
         )
         self._t("end")
         return FastStarkProof(

@@ -6,7 +6,9 @@ tests/test_sharded_engine.py and of ``__graft_entry__.py::dryrun_multichip``:
 the Goldilocks parity prove at 2^10 - 1 with DEVICE_MIN_SIZE 256 (the
 sharded FRI rounds), MiMC, FastStark in the dry run's two configurations,
 STIR and WHIR through ``FastStark(lde_backend=...)``, BabyBear parity and
-fast, and the golden fast fixtures, whose sizes split. The same groups
+fast, and the golden fast fixtures, whose sizes split and whose STIR and
+WHIR proves log their events: the handoff first, at the round the split
+rules give, and a halo only where a STIR round stays on blocks. The same groups
 run the sharded prove core (``stark/core.py::make_sharded_prove_core``,
 Fibonacci and MiMC over Goldilocks, Fibonacci over BabyBear, at the dry
 run's n = 64 on seeded inputs), whose blocks, joined across the ranks, are
@@ -62,6 +64,13 @@ PROVES = {
 }
 GOLDENS = {"fast_fri_fib100.bin": "fri", "fast_stir_fib100.bin": "stir",
            "fast_whir_fib100.bin": "whir"}
+# (world, golden) -> the STIR and WHIR proves' events (cases.resident_fast):
+# round 1 of 100 steps stays on blocks of 2 ranks and hands off at 4, where
+# its LDE and tree are whole; then the final fold's gather
+GOLDEN_EVENTS = {}
+for _g in ("fast_stir_fib100.bin", "fast_whir_fib100.bin"):
+    GOLDEN_EVENTS[(2, _g)] = [("handoff", 32)]
+    GOLDEN_EVENTS[(4, _g)] = [("handoff", 128), ("fft", 128), ("tree", 32)]
 X = np.arange(8 * 256, dtype=np.uint64).reshape(8, 256)
 CORE_N = 64                              # entry.py's dry run at 2 and 4 ranks
 # (field, model) -> (JAX stark field, JAX trace builder, width + transitions)
@@ -87,7 +96,8 @@ FOLD_INPUTS = (_seeded(J_GL.base.p, (FOLD_N, 2), 20), (5, 6), (7, 8))
 
 def _scenarios():
     out = [(key, name, kw) for key, (name, kw) in PROVES.items()]
-    out += [(g, "fast", dict(field="gl", steps=100, cfg=dict(GOLDEN_CFG, lde_backend=b)))
+    out += [(g, "resident_fast", dict(field="gl", steps=100,
+                                      cfg=dict(GOLDEN_CFG, lde_backend=b)))
             for g, b in GOLDENS.items()]
     # 2^1 does not split over 2 or 4 ranks, 2^8 does
     out += [(("select", n), "select_ntt", dict(field="gl", n=n, x=X[:, :n]))
@@ -157,9 +167,12 @@ def test_sharded_prove_equals_one_device(groups, world, key):
 def test_sharded_fast_equals_golden(groups, world, name):
     with open(os.path.join(GOLDEN, name), "rb") as f:
         want = f.read()
-    proof, collectives = _ranks(groups, world, name)
-    assert collectives > 0
-    assert proof == want
+    for proof, collectives, received, events in (r[name] for r in groups[world].result()):
+        assert collectives > 0
+        assert proof == want
+        if (world, name) in GOLDEN_EVENTS:
+            assert events == GOLDEN_EVENTS[(world, name)]
+        assert (received["halo"] > 0) is (GOLDENS[name] == "stir" and world == 2)
 
 
 @pytest.mark.parametrize("world", WORLDS)
