@@ -194,9 +194,10 @@ def kernel_rooflines(device="cuda", shrink: int = 0):
         return engine._fold_div(rnd, z, alpha, dv)[0]      # (coefficients, rows)
 
     def fold_work(length):
-        # read the (length, 2) coefficients, write half as many; a fold and
-        # a division step are an Fp2 product (3 base products) each per output
-        return 16 * length + 8 * length, (length // 2) * 2 * 3 * rf.OPS_GL_MUL
+        # the fused fold-divide (ops/div_scan.py) of (length, 2) coefficients
+        # to half as many: chip_smoke.py phase 3's count of its row
+        return rf.div_scan_work(torch.empty((1, length, 2), device="meta"), length // 2,
+                                True, "gl2")
 
     entry("fri_fold_div_2^21_fp2", lambda: fold_div(coeffs), 3, fold_work(m),
           lambda ms: ms, "ms", [m, 2])

@@ -23,7 +23,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                product, the Fp2 product at the provers' shapes, and the
                leaf hash at every SHA-256 padding boundary; the products'
                and the leaf hash's lines split the host's time per call
-               from the card's
+               from the card's; the division scan and pow_dot
+               (csrc/div_scan.cu) in Fp2 and Fp4 at the FRI and query
+               rounds' shapes, with device ms and bound_frac
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 over
                Goldilocks and steps 7 and 13 over BabyBear, with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
@@ -118,7 +120,10 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                proves of each prover, backend and field (the STIR and WHIR
                paths stir, whir, stir_bb, whir_bb; the sharded paths
                sharded_parity, sharded_fast, sharded_stir and sharded_whir,
-               rank 0's, every rank checked), the MiMC prove, the prove core at 2^20 (core) and
+               rank 0's, every rank checked; the division scan on every
+               parity path, STIR's and the resident parity and STIR
+               ranks', pow_dot where eval_even_odd or the block deep and
+               divide run), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
                the kernel bench and the bench's proves
  16. processes no process that the script started is left: every child of
@@ -899,6 +904,89 @@ def phase_kernels_digit(results):
     int_mm_col(rec, lambda: torch._int_mm(a8_rows, b8_col))
 
 
+def _ext_points(rng, E, count):
+    """(z, 1/z) on the card, (count, K) each: random nonzero elements of the
+    extension E and their inverses from the host field."""
+    import numpy as np
+
+    from ministark_tpu_torch.ops.field import get_ops
+
+    k = get_ops(E)
+    zs = [E.from_base_coeffs(tuple(int(c) for c in row))
+          for row in rng.integers(1, E.p, size=(count, E.extension_degree),
+                                  dtype=np.uint64)]
+    return k.pack(zs).cuda(), k.pack([E.inv(z) for z in zs]).cuda()
+
+
+def phase_kernels_div_scan(results):
+    """Phase 3 for the division scan and pow_dot (csrc/div_scan.cu), Goldilocks
+    Fp2 then BabyBear Fp4, at the provers' shapes: the FRI fold-divide 2^21 ->
+    2^20 (fold, DEEP value as the head), a division of 2^20 coefficients, the
+    query round's two divisions at the parity configuration's Q (one
+    polynomial broadcast against Q lines in the head, then Q rows), a
+    resident 2^19 block with its start and carry; pow_dot at stride 2 over
+    2^21 coefficients (eval_even_odd's even half) and a 2^19 block's total
+    from its start. Each against its plain version on the card (exact), with
+    device ms, bound_frac and the launches one call counts (fails unless 3
+    for a division over more than one tile, 2 for pow_dot); no PyTorch call
+    computes either function."""
+    import numpy as np
+
+    from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2, Goldilocks
+    from ministark_tpu_torch.ops import div_scan as ds
+    from ministark_tpu_torch.ops.field import get_ops
+    from ministark_tpu_torch.stark import StarkConfig
+
+    rng = np.random.default_rng(SEED + 18)
+    compare = make_compare(results)
+    Q = StarkConfig(Goldilocks, 20, 2, MAIN_STEPS, 6).fri_queries
+    n20, n19 = 1 << 20, 1 << 19
+    for tag, E in (("gl2", GOLDILOCKS_FP2), ("bb4", BABYBEAR_FP4)):
+        k, K = get_ops(E), E.extension_degree
+        z, zinv = _ext_points(rng, E, Q)
+        z1, zi1 = z[:1], zinv[:1]
+        c21 = _rand_u64(rng, (1, 2 * n20, K), E.p)
+        cq = _rand_u64(rng, (Q, n20, K), E.p)
+        blk = _rand_u64(rng, (1, n19, K), E.p)
+        alpha, small = _rand_u64(rng, (K,), E.p), _rand_u64(rng, (Q, 2, K), E.p)
+        divisions = [
+            ("fold-divide 2^21 -> 2^20 (fold, head 1)", c21, n20, z1, zi1,
+             dict(head=small[:1, :1], fold=alpha)),
+            ("(1, 2^20)", cq[:1], n20, z1, zi1, {}),
+            (f"query ({Q}, 2^20), one polynomial broadcast, head 2",
+             cq[:1].expand(Q, -1, -1), n20, z, zinv, dict(head=small)),
+            (f"query ({Q}, 2^20)", cq, n20, z, zinv, {}),
+            ("block 2^19 from 2^19 with its carry", blk, n19, z1, zi1,
+             dict(start=n19, carry=small[:1, 0]))]
+        def per_call(name, label, rec, kern, want):
+            """The launches one call counts (ops/div_scan.py::launches)."""
+            before = ds.launches[name]
+            kern()
+            rec["launches_per_call"] = got = ds.launches[name] - before
+            say("kernels", f"{name} {label}: {got} launch(es) per call")
+            if got != want:
+                fail(f"{name} {label}: {got} launches per call, expected {want}")
+
+        for label, c, m, zz, zi, kw in divisions:
+            work = rf.div_scan_work(c, m, "fold" in kw, tag, zz, zi, kw.get("head"),
+                                    kw.get("carry"), kw.get("fold"))
+            kern = lambda: ds.div_scan_cuda(k, c, zz, zi, **kw)   # noqa: E731
+            rec = compare("div_scan_" + tag, label, kern,
+                          lambda: ds.div_scan_plain(k, c, zz, zi, **kw), work,
+                          plain_reps=1, device=True)
+            per_call("div_scan_" + tag, label, rec, kern, 3 if m > ds.TILE else 1)
+        dots = [("eval_even_odd 2^21, stride 2 (even half)", c21, z1, 0, 2),
+                ("block total 2^19 from 2^19", blk, z1, n19, 1)]
+        for label, c, zz, start, stride in dots:
+            work = rf.pow_dot_work(c[:, ::stride], zz, tag)
+            kern = lambda: ds.pow_dot_cuda(k, c, zz, start, stride)   # noqa: E731
+            rec = compare("pow_dot_" + tag, label, kern,
+                          lambda: ds.pow_dot_plain(k, c, zz, start, stride), work,
+                          plain_reps=1, device=True)
+            per_call("pow_dot_" + tag, label, rec, kern, 2)
+        del c21, cq, blk
+
+
 def _host_proof(sf, steps):
     from ministark_tpu_torch.models import FibonacciClaim, Witness
     from ministark_tpu_torch.stark import Stark, StarkConfig
@@ -1023,6 +1111,7 @@ def _reference_commits(engine, trace):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
+    from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
     from ministark_tpu_torch.ops import ntt
@@ -1033,7 +1122,7 @@ def reset_counts():
     from ministark_tpu_torch.ops import stream
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
-                   fs.pass2_launches, pp.launches, nd.launches):
+                   fs.pass2_launches, pp.launches, nd.launches, ds.launches):
         for key in counts:
             counts[key] = 0
     sh.launches = sh.row_launches = gl.launches = gl.ext_launches = 0
@@ -1044,6 +1133,7 @@ def reset_counts():
 def read_counts():
     """({kernel: launches}, {fan: inner-level launches}) since reset_counts,
     with each NTT kernel and the leaf hash split by field ("_bb")."""
+    from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
     from ministark_tpu_torch.ops import ntt
@@ -1057,7 +1147,7 @@ def read_counts():
               "gl_mul": gl.launches, "gl_ext_mul": gl.ext_launches,
               "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
-              **nd.launches}
+              **nd.launches, **ds.launches}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
         counts["ntt" + suffix] = ntt.launches[tag]
         counts["ntt_four_step_pass1" + suffix] = fs.pass1_launches[tag]
@@ -2255,6 +2345,11 @@ _SHARDED_PATHS = ("sharded_parity", "sharded_fast", "sharded_stir", "sharded_whi
 # the prove core on one device at 2^20 (phase core) and sharded over two
 # ranks (phase sharded, per rank)
 _CORE_PATHS = ("core", "sharded_core")
+# the Goldilocks and BabyBear parity proves at 2^20 - 1, every backend (the
+# MiMC prove and the bench's parity prove among them)
+_PARITY_PATHS = ("parity", "mimc", "bench_prove") + tuple(
+    f"parity_{b}" for b in NTT_BACKENDS)
+_PARITY_BB_PATHS = ("parity_bb",) + tuple(f"parity_bb_{b}" for b in NTT_BACKENDS)
 # name -> (source, the TPU kernel it replaces, the paths whose 2^20 - 1 prove
 # must launch it). The BabyBear entries are the same sources' bb
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
@@ -2314,6 +2409,19 @@ KERNELS = {
                      "scripts/tpu_fused_stage_probe.py:165", ("probes",)),
     "digit_level_gl": ("ministark_tpu_torch/csrc/ntt_digit.cu",
                        "scripts/tpu_f32_pad_probe.py:54", ("probes", "bench_kernels")),
+    # array code the JAX package left to XLA (ROADMAP X3, X1): the FRI
+    # round's eval_even_odd and the block totals (pow_dot), the fold-divide,
+    # the query quotients and STIR's quotients (div_scan)
+    "pow_dot_gl2": ("ministark_tpu_torch/csrc/div_scan.cu",
+                    "ministark_tpu/ops/poly_device.py:279",
+                    _PARITY_PATHS + ("sharded_parity", "sharded_stir")),
+    "div_scan_gl2": ("ministark_tpu_torch/csrc/div_scan.cu",
+                     "ministark_tpu/ops/planar.py:391",
+                     _PARITY_PATHS + ("stir", "sharded_parity", "sharded_stir")),
+    "pow_dot_bb4": ("ministark_tpu_torch/csrc/div_scan.cu",
+                    "ministark_tpu/ops/poly_device.py:279", _PARITY_BB_PATHS),
+    "div_scan_bb4": ("ministark_tpu_torch/csrc/div_scan.cu",
+                     "ministark_tpu/ops/planar.py:391", _PARITY_BB_PATHS + ("stir_bb",)),
 }
 
 
@@ -2331,6 +2439,7 @@ def main():
     phase_kernels(results)
     phase_kernels_bb(results)
     phase_kernels_digit(results)
+    phase_kernels_div_scan(results)
     phase_parity()
     parity_digests = phase_main(results)
     fast_blob, fast_many_blob = phase_fast(results)

@@ -27,6 +27,7 @@
 // is always one 16-byte store.
 #include <cuda_runtime.h>
 
+#include "ext_field.cuh"
 #include "gl.cuh"
 
 namespace {
@@ -128,15 +129,11 @@ __global__ void gl_mul_strided(const uint64_t* __restrict__ a,
 
 // ---------------------------------------------------------------- Fp2
 
-// Karatsuba in registers, as ops/gl.py::ext_mul: v0 = a0 b0, v1 = a1 b1,
-// c0 = v0 + 7 v1, c1 = (a0 + a1)(b0 + b1) - v0 - v1
+// Karatsuba in registers, as ops/gl.py::ext_mul (ext_field.cuh's gl2)
 __device__ __forceinline__ ulonglong2 fp2_mul(uint64_t a0, uint64_t a1,
                                               uint64_t b0, uint64_t b1) {
-  const uint64_t v0 = gl::mul(a0, b0);
-  const uint64_t v1 = gl::mul(a1, b1);
-  const uint64_t c0 = gl::add(v0, gl::mul(v1, 7));
-  const uint64_t s = gl::mul(gl::add(a0, a1), gl::add(b0, b1));
-  return make_ulonglong2(c0, gl::sub(gl::sub(s, v0), v1));
+  const gl2::V c = gl2::mul(gl2::V{{a0, a1}}, gl2::V{{b0, b1}});
+  return make_ulonglong2(c.c[0], c.c[1]);
 }
 
 template <bool VEC>

@@ -26,7 +26,7 @@ Round i (functions f_0..f_R, committed evaluations C_0..C_R):
        f_i = DegCor(Quotient(g_i, G_i), r_cor, d_i),
      G_i = {(z_i, beta_i)} U {(y_j, v_j)}; Quotient(g, G) = (g - Ans_G)/V_G
      with Ans_G the interpolation through G and V_G its vanishing
-     polynomial (|G_i| synthetic divisions, ops/poly.synth_div_suffix);
+     polynomial (|G_i| synthetic divisions, ops/div_scan.div_scan);
      DegCor multiplies by sum_{l<=e} (r_cor x)^l (e + 1 shifted products).
 Final: p = Fold_k(f_R, r_R) ships in the clear; t_R spot checks bind it to
 C_R through the same quotient relation.
@@ -61,7 +61,8 @@ import torch
 
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
-from ..ops.poly import field_sum, fold_factor, mix_columns, powers, synth_div_suffix
+from ..ops.div_scan import div_scan
+from ..ops.poly import field_sum, fold_factor, mix_columns, powers
 from ..parallel.fri_sharded import get_block_fri_fns
 from ..parallel.mesh import Rows, field_sum_over_ranks, previous_rows
 from ..parallel.ntt_sharded import block_coset_fits
@@ -200,19 +201,21 @@ def eval_points(ke, coeffs, pts, start: int = 0):
 
 def quot_degcor(ke, coeffs, ans, roots, scales, rcor_pows):
     """f = DegCor(Quotient(g, G), r_cor) at fixed length d
-    (``_quot_degcor_jit``): subtract Ans_G from the head, divide by each
-    (x - root) with the suffix-scan synthetic division (re-padded to d after
-    each), then multiply by sum_l (r_cor x)^l as |G| + 1 shifted products.
+    (``_quot_degcor_jit``): divide by each (x - root) with
+    ``ops/div_scan.py::div_scan``, Ans_G subtracted from the head in the
+    first and each quotient keeping the length d (its trailing slot zero),
+    then multiply by sum_l (r_cor x)^l as |G| + 1 shifted products.
 
     coeffs (d, *elem); ans, roots, scales (m, *elem) with scales[j] =
     roots[j]^-1; rcor_pows (m + 1, *elem), the powers of r_cor."""
     d = coeffs.shape[0]
     m = roots.shape[0]
-    head = ke.sub(coeffs[: ans.shape[0]], ans)
-    cur = torch.cat([head, coeffs[ans.shape[0]:]], 0)
-    zpad = torch.zeros_like(cur[:1])
+    cur, head = coeffs.unsqueeze(0), ans.unsqueeze(0)
     for j in range(m):
-        cur = torch.cat([synth_div_suffix(ke, cur, roots[j], scales[j]), zpad], 0)
+        # each quotient keeps the length d, its trailing slot zero
+        cur = div_scan(ke, cur, roots[j: j + 1], scales[j: j + 1], head=head)
+        head = None
+    cur = cur[0]
     out = torch.zeros_like(cur)
     for l in range(rcor_pows.shape[0]):
         # the term is cur shifted up by l with zero fill: out[l:] only
@@ -233,12 +236,11 @@ def quot_degcor_block(field, block, ans, roots, scales, rcor_pows, rows: Rows):
     m, c = roots.shape[0], block.shape[0]
     if c <= m:
         raise ValueError(f"a block of {c} coefficients is too short for |G| = {m}")
-    cur = block
-    if rows.lo == 0:
-        cur = torch.cat([ke.sub(cur[: ans.shape[0]], ans), cur[ans.shape[0]:]], 0)
+    cur, head = block, ans
     divide = get_block_fri_fns(field, rows.n, rows.mesh)["divide"]
     for j in range(m):
-        cur = divide(cur, roots[j], scales[j])
+        cur = divide(cur, roots[j], scales[j], head=head)
+        head = None
     # out[g] = sum_l r_cor^l cur[g - l], the indices below the block's
     # first from the previous rank (zeros below 0)
     ext = torch.cat([previous_rows(rows.mesh, cur, m), cur], 0)

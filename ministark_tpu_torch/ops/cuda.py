@@ -28,8 +28,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
-           "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu")
-HEADERS = ("gl.cuh", "bb.cuh", "ntt_common.cuh", "ntt_stages.cuh",
+           "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu",
+           "div_scan.cu")
+HEADERS = ("gl.cuh", "bb.cuh", "ext_field.cuh", "ntt_common.cuh", "ntt_stages.cuh",
            "sha256.cuh", "wgmma_s8.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -44,6 +45,8 @@ _NTT = [_P, _P, _I, _I, _I64P, _P, _P, _P, _P, _P, _P, _U64, _I64P, _P]
 _PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
 _PASS2 = [_P, _P, _I, _I, _I, _P, _P, _P, _U64, _P]
 _LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _U64, _P]
+_POW_DOT = [_P, _P, _P, _P, _I64P, _P]
+_DIV_SCAN = [_P] * 9 + [_I64P, _P]
 # name -> argtypes; every function returns int (a cudaError_t). The NTT
 # kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
 # (BabyBear), with the same arguments.
@@ -82,6 +85,12 @@ _SIGNATURES = {
     "ms_digit_level_gl": [_P, _P, _P, _I, _I, _I, _P, _I, _U64, _U64, _P],
     # x, out, n, threads, per_thread, stream
     "ms_stream_add1": [_P, _P, _I64, _I, _I, _P],
+    # c, z, out, tile totals, plan (int64[ops/div_scan.py::PLAN_LEN]), stream;
+    # _gl2 Goldilocks Fp2, _bb4 BabyBear Fp4
+    "ms_pow_dot_gl2": _POW_DOT, "ms_pow_dot_bb4": _POW_DOT,
+    # c, z, zinv, alpha, head, carry (null where unused), out, tile totals,
+    # tile carries, plan, stream
+    "ms_div_scan_gl2": _DIV_SCAN, "ms_div_scan_bb4": _DIV_SCAN,
 }
 
 _lib = None

@@ -32,7 +32,8 @@ from ..fields import BabyBear, Goldilocks
 from ..ops.field import get_ops, pack_u64, unpack_u64
 from ..ops.leaf_hash import leaf_hash
 from ..ops.ntt import get_ntt_fns
-from ..ops.poly import eval_even_odd, fold_even_odd, synth_div_suffix
+from ..ops import div_scan as ds
+from ..ops.poly import eval_even_odd, fold_even_odd
 from ..ops.sha256 import merkle_inner_levels
 from . import mesh as mesh_mod
 from .fri_sharded import get_sharded_fri_fns
@@ -176,8 +177,10 @@ def ntt_roundtrip(mesh, field, n, x, offset):
 
 def fri(mesh, field, n, coeffs, alpha, z):
     """The sharded fold / deep / divide of (n, d) extension coefficients
-    and their single-device twins (``ops/poly.py``), as
-    {name: (sharded, single)}."""
+    and their single-device twins, as {name: (sharded, single)}: the fold
+    ``ops/poly.py``'s, deep and divide the plain versions of
+    ``ops/div_scan.py`` (on the card too, so the kernels' block forms are
+    held against them and not against the kernels' whole forms)."""
     E = EXT[field]
     k = get_ops(E)
     fns = get_sharded_fri_fns(E, n, mesh)
@@ -185,9 +188,9 @@ def fri(mesh, field, n, coeffs, alpha, z):
     ap, zp = k.pack_scalar(alpha, mesh.device), k.pack_scalar(z, mesh.device)
     zinv = k.pack_scalar(E.inv(z), mesh.device)
     fe, fo = fns["deep"](c, zp)
-    se, so = eval_even_odd(k, c, zp)
-    q = synth_div_suffix(k, c, zp, zinv)
-    q = torch.cat([q, torch.zeros_like(q[:1])], 0)
+    c1, z1 = c.unsqueeze(0), zp.unsqueeze(0)
+    se, so = (ds.pow_dot_plain(k, c1, z1, stride=2, offset=o)[0] for o in (0, 1))
+    q = ds.div_scan_plain(k, c1, z1, zinv.unsqueeze(0))[0]     # its last slot is 0
     return {"fold": (_np(fns["fold"](c, ap)), _np(fold_even_odd(k, c, ap))),
             "deep": (_np(torch.stack([fe, fo])), _np(torch.stack([se, so]))),
             "divide": (_np(fns["divide"](c, zp, zinv)), _np(q))}

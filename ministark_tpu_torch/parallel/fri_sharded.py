@@ -7,20 +7,22 @@ power of two), and one round decomposes as:
   fold:    local strided combine e + alpha*o            (no communication);
            the fold of block [lo, lo+m) is the block [lo/2, lo/2+m/2) of
            the result, so the folded coefficients stay resident
-  deep:    local partial ladder sums, one field-exact gather
-  divide:  division by (x - z) from local suffix sums and one gather of
-           the block totals
+  deep:    local partial sums at stride 2 from the block's start, one
+           field-exact gather
+  divide:  division by (x - z) from the block's total and one gather of
+           the totals
 
-The division uses the closed form of the single-device code
-(``ops/poly.py::synth_div_suffix``):
-
-  q_i = z^-(i+1) * T_(i+1),   T_i = sum_(j >= i) c_j z^j
-
-rank r adds to its local suffix sums the exclusive suffix of the later
-ranks' block totals. The output keeps the input length with a trailing
-zero (q has degree n - 2; slot n - 1 is z^-n * T_n = 0). It takes a batch
-of rows, each with its own z: the query quotients of a round divide Q
-polynomials by Q lines' roots at once.
+Both are ``ops/div_scan.py``'s (the kernels on the card): with c_j the
+block's coefficients and start = r*m, the block's total is
+pow_dot(c, z, start) = sum_j c_j z^(start+j), and rank r's block of the
+quotient is div_scan(c, z, zinv, start, carry=E_r) with E_r the sum of the
+later ranks' totals: q_g = z^-(start+g+1) * (E_r + sum_(j > g) c_j
+z^(start+j)). The output keeps the input length with a trailing zero (q
+has degree n - 2: the last rank's block ends in a slot with nothing above
+it). It takes a batch of rows, each with its own z: the query quotients of
+a round divide Q polynomials by Q lines' roots at once; with ``fold`` it
+divides the fold of a block of 2m coefficients, the FRI round's fold and
+division in one scan.
 
 ``get_block_fri_fns`` are the resident prove's: blocks in, blocks out (deep
 returns the replicated pair). ``get_sharded_fri_fns`` wrap them for the
@@ -32,17 +34,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.div_scan import div_scan, pow_dot
 from ..ops.field import FieldOps, get_ops
-from ..ops.poly import field_sum, fold_even_odd, powers, suffix_sums
+from ..ops.poly import field_sum, fold_even_odd
 from .mesh import Mesh, Rows, all_gather_rows, field_sum_over_ranks
-
-
-def _pow2_chain(k: FieldOps, x, e: int):
-    """x^e for a power-of-two e by repeated squaring."""
-    assert e & (e - 1) == 0 and e >= 1
-    for _ in range(e.bit_length() - 1):
-        x = k.mul(x, x)
-    return x
 
 
 def _mask(k: FieldOps, mask_1d, a):
@@ -51,31 +46,20 @@ def _mask(k: FieldOps, mask_1d, a):
     return torch.where(m, a, torch.zeros_like(a))
 
 
-def _dot(k: FieldOps, a, b):
-    return field_sum(k, k.mul(a, b), axis=0)
-
-
-def _offset_ladder(k: FieldOps, x, count: int, block: int, rank: int):
-    """[x^(rank*block) .. x^(rank*block + count - 1)] along a new
-    coefficient axis, x (*batch, *elem) -> (*batch, count, *elem), for a
-    power-of-two block: the rank's powers of x, its offset raised on the
-    device."""
-    off = k.pow(_pow2_chain(k, x, block), rank)
-    pw = powers(k, x, count)
-    ax = x.dim() - len(k.elem_axes)
-    return k.mul(pw, off.unsqueeze(ax).expand_as(pw))
-
-
 def make_block_fri_fns(field, n: int, mesh: Mesh):
     """{"fold", "deep", "divide"} on this rank's block of m = n / D rows of
     (n, *elem) coefficients of the extension ``field``:
 
       fold(block, alpha)      -> (m/2, *elem): its block of the n/2 folded
       deep(block, z)          -> (fe, fo), the even/odd halves at z, whole
-      divide(block, z, zinv)  -> (*batch, m, *elem): its block of the
+      divide(block, z, zinv, head=None, fold=None)
+                              -> (*batch, m, *elem): its block of the
                                  quotient by (x - z), trailing slot zero;
-                                 block (*batch, m, *elem), z and zinv = 1/z
-                                 (*batch, *elem)
+                                 block (*batch, m, *elem), or 2m rows
+                                 folded by ``fold`` = alpha; z and zinv =
+                                 1/z (*batch, *elem); ``head`` (*batch, H,
+                                 *elem), H <= m, subtracted at x^0..x^(H-1)
+                                 (on rank 0's block)
 
     with alpha, z and zinv packed scalars (*elem) where no batch is given."""
     k = get_ops(field)
@@ -84,10 +68,11 @@ def make_block_fri_fns(field, n: int, mesh: Mesh):
         raise ValueError(f"{n} coefficients do not split into even blocks over {D} ranks")
     m = n // D
     assert m & (m - 1) == 0, "local block must be a power of two"
+    nd = len(k.elem_axes)
 
-    def check(block, ax):
-        if block.shape[ax] != m:
-            raise ValueError(f"expected a block of {m} rows, got {block.shape[ax]}")
+    def check(block, ax, rows=m):
+        if block.shape[ax] != rows:
+            raise ValueError(f"expected a block of {rows} rows, got {block.shape[ax]}")
 
     def fold(block, alpha):
         check(block, 0)
@@ -96,28 +81,33 @@ def make_block_fri_fns(field, n: int, mesh: Mesh):
     def deep(block, z):
         check(block, 0)
         # the local even coefficients have global even ranks r*m/2 + j
-        pw_off = _offset_ladder(k, z, m // 2, m // 2, r)
-        parts = torch.stack([_dot(k, block[0::2], pw_off), _dot(k, block[1::2], pw_off)])
+        c, zb = block.unsqueeze(0), z.unsqueeze(0)
+        parts = torch.cat([pow_dot(k, c, zb, r * m // 2, 2, offset) for offset in (0, 1)])
         fe, fo = field_sum_over_ranks(k, mesh, parts)
         return fe, fo
 
-    def divide(block, z, zinv):
-        ax = block.dim() - 1 - len(k.elem_axes)         # the coefficient axis
-        check(block, ax)
-        # t_j = c_j * z^(r*m + j) for local j
-        t = k.mul(block, _offset_ladder(k, z, m, m, r))
-        s_loc = suffix_sums(k, t)                      # local inclusive suffix
-        # exclusive suffix of the later ranks' totals: E_r = sum_(s > r) total_s
-        totals = all_gather_rows(mesh, s_loc.select(ax, 0))  # (D, *batch, *elem)
+    def divide(block, z, zinv, head=None, fold=None):
+        one = block.dim() == 1 + nd                     # no batch axis
+        if one:
+            block, z, zinv = block.unsqueeze(0), z.unsqueeze(0), zinv.unsqueeze(0)
+            head = None if head is None else head.unsqueeze(0)
+        check(block, 1, m if fold is None else 2 * m)
+        if head is not None and head.shape[1] > m:
+            raise ValueError(f"a head of {head.shape[1]} coefficients spans blocks of {m}")
+        start = r * m
+        # this block's sum_j c'_j z^(start+j); rank 0's, the one the head
+        # changes, joins no carry
+        if fold is None:
+            total = pow_dot(k, block, z, start)
+        else:
+            even, odd = (pow_dot(k, block, z, start, 2, offset) for offset in (0, 1))
+            total = k.add(even, k.mul(odd, fold.expand_as(odd)))
+        # the later ranks' totals: E_r = sum_(s > r) total_s
+        totals = all_gather_rows(mesh, total)                  # (D, B, *elem)
         later = torch.arange(D, device=block.device) > r
         e_r = field_sum(k, _mask(k, later, totals), axis=0)
-        # T_(g+1) for local j: the local suffix shifted left by one, plus E_r
-        shifted = torch.cat([s_loc.narrow(ax, 1, m - 1),
-                             torch.zeros_like(s_loc.narrow(ax, 0, 1))], ax)
-        shifted = k.add(shifted, e_r.unsqueeze(ax).expand_as(shifted))
-        # q_g = zinv^(g+1) * T_(g+1), zinv^(g+1) = zinv^(r*m) * zinv^(j+1)
-        pwi = _offset_ladder(k, zinv, m + 1, m, r).narrow(ax, 1, m)
-        return k.mul(shifted, pwi)
+        q = div_scan(k, block, z, zinv, start, e_r, head, fold)
+        return q[0] if one else q
 
     return {"fold": fold, "deep": deep, "divide": divide}
 

@@ -56,14 +56,8 @@ from ..commit.packed_tree import BlockMerkleTree, PackedMerkleTree, to_leaf_comp
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
 from ..ops.field import get_ops, lift_base_array, pack_u64
 from ..ops.ntt import check_backend, get_ntt_fns
-from ..ops.poly import (
-    effective_len,
-    eval_even_odd,
-    eval_many,
-    fold_even_odd,
-    mix_columns,
-    synth_div_suffix,
-)
+from ..ops.div_scan import div_scan
+from ..ops.poly import effective_len, eval_even_odd, eval_many, mix_columns
 from ..parallel.fri_sharded import get_block_fri_fns
 from ..parallel.merkle_sharded import can_shard_tree
 from ..parallel.mesh import Rows, all_gather_rows, field_sum_over_ranks, gather_to_host
@@ -532,26 +526,21 @@ class DeviceEngine:
         if rows is not None and not self._fri_splits(rows.n // 2):
             coeffs, rows = self._whole(coeffs, rows), None  # the halves stop splitting
         if rnd.device and not ext.is_zero(z):
+            # fold, DEEP value off x^0 and division in one scan
+            # (ops/div_scan.py): the quotient keeps the length n/2 with its
+            # trailing slot zero
+            zp, zinv, head = pack(z), pack(ext.inv(z)), pack(deep_value).unsqueeze(0)
             if rows is not None:
                 # a resident round (ministark_tpu/stark/engine.py:738-752):
-                # the block fold, the DEEP value off x^0 on rank 0's block,
-                # the block division; the quotient keeps the length n/2
-                # with its trailing slot zero
+                # this rank's block of the quotient from its block of
+                # coefficients
                 half = Rows(self.mesh, rows.n // 2)
-                folded = get_block_fri_fns(ext, rows.n, self.mesh)["fold"](
-                    coeffs, pack(alpha))
-                if half.lo == 0:
-                    folded[0] = ke.sub(folded[0], pack(deep_value))
                 rp = get_block_fri_fns(ext, half.n, self.mesh)["divide"](
-                    folded, pack(z), pack(ext.inv(z)))
+                    coeffs, zp, zinv, head=head, fold=pack(alpha))
             else:
                 half = None
-                folded = fold_even_odd(ke, coeffs, pack(alpha))
-                folded[0] = ke.sub(folded[0], pack(deep_value))
-                q = synth_div_suffix(ke, folded, pack(z), pack(ext.inv(z)))
-                rp = torch.zeros((coeffs.shape[0] // 2,) + ke.elem_axes,
-                                 dtype=torch.int64, device=self.device)
-                rp[: q.shape[0]] = q
+                rp = div_scan(ke, coeffs.unsqueeze(0), zp.unsqueeze(0), zinv.unsqueeze(0),
+                              head=head.unsqueeze(0), fold=pack(alpha))[0]
             # hand off to the host representation when the next round is small
             if rnd.size // 2 < DEVICE_MIN_SIZE:
                 return self._host_coeffs(rp, half), None
@@ -593,17 +582,15 @@ class DeviceEngine:
         a_s = ke.mul(ke.sub(y2_s, y1_s), dxinv_s)
         b_s = ke.sub(y1_s, ke.mul(a_s, x1_s))
 
-        num = pc.unsqueeze(0).repeat(Q, 1, 1)                        # (Q, n0, d)
-        if prev.rows is None or prev.rows.lo == 0:
-            num[:, 0] = ke.sub(num[:, 0], b_s)
-            num[:, 1] = ke.sub(num[:, 1], a_s)
-        if prev.rows is None:
-            q1 = synth_div_suffix(ke, num, x1_s, s1_s)               # (Q, n0-1, d)
-            q1 = torch.cat([q1, torch.zeros_like(q1[:, :1])], 1)
-            q2 = synth_div_suffix(ke, q1, x2_s, s2_s)                # (Q, n0-1, d)
-        else:                       # blocks, each division's trailing slot zero
+        # the one polynomial against Q lines b + a x, subtracted in the scan
+        num = pc.unsqueeze(0).expand((Q,) + tuple(pc.shape))        # (Q, n0, d)
+        head = torch.stack([b_s, a_s], 1)                            # (Q, 2, d)
+        if prev.rows is None:       # each division's trailing slot zero
+            q1 = div_scan(ke, num, x1_s, s1_s, head=head)            # (Q, n0, d)
+            q2 = div_scan(ke, q1, x2_s, s2_s).narrow(1, 0, pc.shape[0] - 1)
+        else:                       # blocks, the head on rank 0's
             divide = get_block_fri_fns(ext, prev.rows.n, self.mesh)["divide"]
-            q2 = divide(divide(num, x1_s, s1_s), x2_s, s2_s)         # (Q, n0/D, d)
+            q2 = divide(divide(num, x1_s, s1_s, head=head), x2_s, s2_s)  # (Q, n0/D, d)
         nz = (q2 != 0).any(-1)
         idx = torch.arange(1, q2.shape[1] + 1, device=q2.device)
         effs = torch.where(nz, idx, torch.zeros_like(idx)).amax(1)

@@ -42,6 +42,16 @@ OPS_FP2_MUL = 4 * OPS_GL_MUL + 3 * 8 + 2 * 5
 # add or a sub is 3 (add, compare, select)
 OPS_BB_MUL = 2 + 12 + 2 + 2
 OPS_BB_BUTTERFLY = OPS_BB_MUL + 3 + 3
+# BabyBear Fp2 (u^2 = 11, ext_field.cuh's bb4::fp2_mul): four products (the
+# three Karatsuba ones and 11 v1) and five adds or subs
+OPS_BB_FP2_MUL = 4 * OPS_BB_MUL + 5 * 3
+# BabyBear Fp4 (ext_field.cuh's bb4::mul, Karatsuba over Fp2): three Fp2
+# products; the nonresidue (k + u) times v1 = (x0 + x1 u), k = p - 11 = -11:
+# (11 x1 - 11 x0) + (x0 - 11 x1) u, two base products and two subs; four adds
+# forming the Karatsuba sums and six adds or subs forming the result
+OPS_FP4_MUL = 3 * OPS_BB_FP2_MUL + (2 * OPS_BB_MUL + 2 * 3) + 4 * 3 + 6 * 3
+# an extension product by the kernels' suffix: Goldilocks Fp2, BabyBear Fp4
+EXT_MUL_OPS = {"gl2": OPS_FP2_MUL, "bb4": OPS_FP4_MUL}
 # (product, butterfly) operations per field, by the kernels' field suffix
 FIELD_OPS = {"gl": (OPS_GL_MUL, OPS_BUTTERFLY), "bb": (OPS_BB_MUL, OPS_BB_BUTTERFLY)}
 OPS_DIGIT = 4                      # one decimal digit: multiply-high, shift, multiply, sub
@@ -228,6 +238,25 @@ def ext_mul_work(a, b):
     out = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]).numel()
     reads = _stored(a) + (0 if _same(a, b) else _stored(b))
     return 8 * (reads + 2 * out), out * OPS_FP2_MUL
+
+
+def div_scan_work(c, m, fold: bool, tag, *small):
+    """A division of c's B rows by (x - z) to m outputs each
+    (``ops/div_scan.py::div_scan``): the stored coefficients (a row
+    broadcast over the batch counted once) and the ``small`` operands (z, zinv,
+    head, carry, alpha; None where absent) read once, the (B, m, K)
+    quotient written once; one extension product per output for Horner's
+    step, one more for the fold. The adds are not counted."""
+    B, K = c.shape[0], c.shape[-1]
+    reads = _stored(c) + sum(_stored(t) for t in small if t is not None)
+    return 8 * (reads + B * m * K), B * m * (1 + int(fold)) * EXT_MUL_OPS[tag]
+
+
+def pow_dot_work(terms, z, tag):
+    """``pow_dot`` over the (B, n, K) terms it reads: each term and z read
+    once, (B, K) written; one extension product a term."""
+    B, n, K = terms.shape
+    return 8 * (_stored(terms) + _stored(z) + B * K), B * n * EXT_MUL_OPS[tag]
 
 
 def leaf_hash_work(comps, k, fmt, max_digits=20):

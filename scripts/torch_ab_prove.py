@@ -10,10 +10,11 @@ against this checkout's.
 
     python3 scripts/torch_ab_prove.py [--steps N] [--pairs N] [--root DIR]
                                       [--tail] [--field goldilocks|babybear]
-                                      [--device cuda|cpu]
+                                      [--mode parity|stir] [--device cuda|cpu]
 
-Proves Fibonacci (security 20, blowup 2, witness on the device) once on
-each side to warm up, checks that both give the same proof, then
+Proves Fibonacci (security 20, blowup 2, witness on the device; with
+``--root`` and ``--mode stir`` the fast mode's STIR prove, queries 32, arity
+4) once on each side to warm up, checks that both give the same proof, then
 ``--pairs`` times A, B, B, A (the order turns so that a drift of the
 machine falls on both alike), and prints one JSON line: the card's name and
 power limit (nvidia-smi), every prove's wall seconds, the median and the
@@ -50,23 +51,35 @@ def load_package(root, alias):
     return mod
 
 
-def _side(pkg, field, steps, device, **engine_kw):
-    """(engine, trace, proof_digests) of one side, from package ``pkg``."""
+def _side(pkg, field, steps, device, mode="parity", **engine_kw):
+    """(prover, prove, digest) of one side, from package ``pkg``: the parity
+    engine, or with ``mode`` "stir" the fast mode's STIR prover in
+    torch_launch_count.py's configuration (queries 32, arity 4); ``prove()``
+    proves the trace, ``digest(proof)`` names its bytes."""
+    import hashlib
     import importlib
 
     fields = importlib.import_module(pkg + ".fields")
     trace_mod = importlib.import_module(pkg + ".models.fibonacci_device")
     stark = importlib.import_module(pkg + ".stark")
-    engine_mod = importlib.import_module(pkg + ".stark.engine")
     proof_io = importlib.import_module(pkg + ".stark.proof_io")
     sf = {"goldilocks": fields.Goldilocks, "babybear": fields.BabyBear}[field]
     trace = trace_mod.fibonacci_device_trace(sf, steps, on_device=True, device=device)
+    if mode == "stir":
+        fast = importlib.import_module(pkg + ".stark.fast")
+        prover = fast.FastStark(fast.FastStarkConfig(sf, steps, queries=32, arity=4,
+                                                     lde_backend="stir"), device=device)
+        return (prover, lambda: prover.prove_many([trace]), lambda proof: hashlib.sha256(
+            proof_io.fast_proof_to_bytes(sf, proof)).hexdigest())
+    engine_mod = importlib.import_module(pkg + ".stark.engine")
     cfg = stark.StarkConfig(sf, 20, 2, steps, trace.constrain_number())
-    engine = engine_mod.DeviceEngine(cfg, device=device, **engine_kw)
-    return engine, trace, lambda proof: proof_io.proof_digests(sf, proof)
+    prover = engine_mod.DeviceEngine(cfg, device=device, **engine_kw)
+    return (prover, lambda: prover.prove(trace),
+            lambda proof: proof_io.proof_digests(sf, proof))
 
 
-def run(steps, pairs, field="goldilocks", device="cuda", root=None, tail=False):
+def run(steps, pairs, field="goldilocks", device="cuda", root=None, tail=False,
+        mode="parity"):
     import torch
 
     on_card = torch.device(device).type == "cuda"
@@ -85,17 +98,17 @@ def run(steps, pairs, field="goldilocks", device="cuda", root=None, tail=False):
     else:
         load_package(root, "ministark_tpu_torch_other")
         probe, names = "parent_change_ab", ("parent", "change")
-        sides = {"parent": _side("ministark_tpu_torch_other", field, steps, device),
-                 "change": _side("ministark_tpu_torch", field, steps, device)}
+        sides = {"parent": _side("ministark_tpu_torch_other", field, steps, device, mode),
+                 "change": _side("ministark_tpu_torch", field, steps, device, mode)}
 
     def prove(name):
         """(wall seconds, proof); the proof's digests (seconds of Python at
         2^20 - 1) are taken outside the timed prove, and only here below."""
-        engine, trace, _ = sides[name]
+        prove_fn = sides[name][1]
         if on_card:
             torch.cuda.synchronize()
         t0 = time.time()
-        proof = engine.prove(trace)
+        proof = prove_fn()
         if on_card:
             torch.cuda.synchronize()
         return time.time() - t0, proof
@@ -123,8 +136,8 @@ def run(steps, pairs, field="goldilocks", device="cuda", root=None, tail=False):
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    out = {"probe": probe, "field": field, "steps": steps, "pairs": pairs,
-           "gpu": smi, "device": device}
+    out = {"probe": probe, "field": field, "mode": mode, "steps": steps,
+           "pairs": pairs, "gpu": smi, "device": device}
     if root is None and not tail:
         out["query_phase_labels"] = {
             name: sum(k.startswith("fri_query_round_")
@@ -148,7 +161,11 @@ def main():
                     help="another checkout, proved against this one")
     ap.add_argument("--tail", action="store_true",
                     help="the hashlib host-tail trees against the native ones")
+    ap.add_argument("--mode", choices=("parity", "stir"), default="parity",
+                    help="with --root, the prover both sides run")
     args = ap.parse_args()
+    if args.mode != "parity" and args.root is None:
+        ap.error("--mode stir compares two checkouts: give --root")
 
     import torch
 
@@ -156,7 +173,7 @@ def main():
         print("no CUDA device (pass --device cpu for a dry run)", file=sys.stderr)
         sys.exit(1)
     print(json.dumps(run(args.steps, args.pairs, args.field, args.device, args.root,
-                         args.tail)),
+                         args.tail, args.mode)),
           flush=True)
 
 

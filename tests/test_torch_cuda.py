@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card (the
 NTT passes and levels up to the main path's 2^21, in Goldilocks and in
-BabyBear), the engine's proof on the card against the host oracle, and the
+BabyBear, the division scan and pow_dot in Fp2 and Fp4), the engine's proof on the card against the host oracle, and the
 fast mode's proof on the card against its golden fixture and the CPU's
 bytes, the prove core (stark/core.py) and batch_inverse_full on the card
 against the CPU's. Marked ``cuda``: they skip on a host without a
@@ -476,6 +476,88 @@ def test_digit_and_stream_wrappers_refuse_cpu_tensors(dev):
         stream.stream_add1_cuda(torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         nd.level_cuda(x.to(dev), vd)            # the matrix left on the CPU
+
+
+def _rand_ext(E, shape, seed):
+    """(*shape, K) components of the extension E, below its prime."""
+    v = np.random.default_rng(seed).integers(0, E.p, size=tuple(shape) + (E.extension_degree,),
+                                             dtype=np.uint64)
+    return torch.from_numpy(v.view(np.int64))
+
+
+def _ext(field):
+    from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2
+
+    E = {"gl2": GOLDILOCKS_FP2, "bb4": BABYBEAR_FP4}[field]
+    return E, gl.get_ops(E)
+
+
+def _points(E, k, count, seed):
+    """(z, 1/z) stacked, (count, K) each, z nonzero."""
+    zs = [E.from_base_coeffs(tuple(int(c) for c in row.numpy().view(np.uint64)))
+          for row in _rand_ext(E, (count,), seed)]
+    return k.pack(zs), k.pack([E.inv(z) for z in zs])
+
+
+# one tile (2048 elements) and its edges, several tiles, more than 128 tiles
+DIV_SCAN_SIZES = [1, 2, 5, 2047, 2048, 2049, 300001]
+
+
+@pytest.mark.parametrize("field", ["gl2", "bb4"])
+@pytest.mark.parametrize("m", DIV_SCAN_SIZES)
+def test_div_scan_kernel_matches_plain(dev, field, m):
+    """Every form (fold, head, carry) at a start, three rows, the head over
+    one broadcast polynomial too; the plain version on the card."""
+    from ministark_tpu_torch.ops import div_scan as ds
+
+    E, k = _ext(field)
+    B = 3
+    z, zinv = (t.to(dev) for t in _points(E, k, B, m))
+    for flags in range(8):
+        fold, head, carry = bool(flags & 1), bool(flags & 2), bool(flags & 4)
+        c = _rand_ext(E, (B, 2 * m if fold else m), 10 * m + flags).to(dev)
+        kw = {"start": 12345 if carry else 0,
+              "carry": _rand_ext(E, (B,), flags).to(dev) if carry else None,
+              "head": _rand_ext(E, (B, 3), flags + 1).to(dev) if head else None,
+              "fold": _rand_ext(E, (), flags + 2).to(dev) if fold else None}
+        before = ds.launches["div_scan_" + field]
+        got = ds.div_scan(k, c, z, zinv, **kw)
+        # tile totals, their carries and the finish; one launch within a tile
+        assert ds.launches["div_scan_" + field] == before + (3 if m > ds.TILE else 1)
+        assert torch.equal(got, ds.div_scan_plain(k, c, z, zinv, **kw)), flags
+        one = c[:1].expand(B, -1, -1)
+        assert torch.equal(ds.div_scan_cuda(k, one, z, zinv, **kw),
+                           ds.div_scan_plain(k, one, z, zinv, **kw)), flags
+
+
+@pytest.mark.parametrize("field", ["gl2", "bb4"])
+@pytest.mark.parametrize("n", [0, 1, 7, 2048, 4097, 300001])
+def test_pow_dot_kernel_matches_plain(dev, field, n):
+    from ministark_tpu_torch.ops import div_scan as ds
+
+    E, k = _ext(field)
+    c = _rand_ext(E, (2, n), n).to(dev)
+    z, _ = (t.to(dev) for t in _points(E, k, 2, n + 1))
+    for stride, offset, start in [(1, 0, 0), (2, 0, 5), (2, 1, 1 << 40), (3, 2, 77)]:
+        for zz in (z, z[:1].expand(2, -1)):
+            before = ds.launches["pow_dot_" + field]
+            got = ds.pow_dot(k, c, zz, start, stride, offset)
+            assert ds.launches["pow_dot_" + field] == before + 2   # tiles, then rows
+            assert torch.equal(got, ds.pow_dot_plain(k, c, zz, start, stride, offset))
+
+
+def test_div_scan_wrappers_refuse(dev):
+    from ministark_tpu_torch.ops import div_scan as ds
+
+    E, k = _ext("gl2")
+    c = _rand_ext(E, (2, 8), 0).to(dev)
+    z, zinv = (t.to(dev) for t in _points(E, k, 2, 0))
+    with pytest.raises(ValueError):
+        ds.div_scan_cuda(k, c, z.cpu(), zinv)               # z left on the CPU
+    with pytest.raises(ValueError):
+        ds.div_scan_cuda(k, c[:, :7], z, zinv, fold=z[0])   # an odd count does not fold
+    with pytest.raises(ValueError):
+        ds.pow_dot_cuda(k, c.movedim(-1, 0).contiguous().movedim(0, -1), z)
 
 
 # ---- the sharded paths (parallel/): two ranks sharing this card in a gloo
