@@ -7,9 +7,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
 
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
-               leaf_hash, ntt, ntt_four_step, ntt_pipe, stream, digit level
-               and digit dot instantiation has a 0-byte stack frame and no
-               spill, and the digit kernels' SASS holds the warpgroup MMA
+               leaf_hash, ntt, ntt_four_step, ntt_pipe, stream, digit level,
+               digit dot, div_scan and pow_dot instantiation has a 0-byte
+               stack frame and no spill, and the digit kernels' SASS holds the warpgroup MMA
                (IGMMA) and no mma.sync (IMMA)
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
@@ -25,7 +25,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                and the leaf hash's lines split the host's time per call
                from the card's; the division scan and pow_dot
                (csrc/div_scan.cu) in Fp2 and Fp4 at the FRI and query
-               rounds' shapes, with device ms and bound_frac
+               rounds' shapes, with device ms and bound_frac, one launch a
+               call, 50 calls back to back and 3 CUDA-graph replays equal
+               to the plain result
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 over
                Goldilocks and steps 7 and 13 over BabyBear, with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
@@ -123,7 +125,8 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                rank 0's, every rank checked; the division scan on every
                parity path, STIR's and the resident parity and STIR
                ranks', pow_dot where eval_even_odd or the block deep and
-               divide run), the MiMC prove, the prove core at 2^20 (core) and
+               divide run; each of the two launched once a call on every
+               path and rank), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
                the kernel bench and the bench's proves
  16. processes no process that the script started is left: every child of
@@ -371,7 +374,8 @@ def phase_build():
                          ("ntt_four_step", "four_step_pass"),
                          ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel"),
                          ("digit_level", "digit_level_kernel"),
-                         ("digit_dot", "digit_dot_kernel")):
+                         ("digit_dot", "digit_dot_kernel"),
+                         ("div_scan", "div_scan_kernel"), ("pow_dot", "pow_dot_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -904,6 +908,11 @@ def phase_kernels_digit(results):
     int_mm_col(rec, lambda: torch._int_mm(a8_rows, b8_col))
 
 
+# phase 3's back-to-back division calls and CUDA-graph replays
+DIV_SCAN_RACE_CALLS = 50
+DIV_SCAN_GRAPH_REPLAYS = 3
+
+
 def _ext_points(rng, E, count):
     """(z, 1/z) on the card, (count, K) each: random nonzero elements of the
     extension E and their inverses from the host field."""
@@ -925,12 +934,17 @@ def phase_kernels_div_scan(results):
     query round's two divisions at the parity configuration's Q (one
     polynomial broadcast against Q lines in the head, then Q rows), a
     resident 2^19 block with its start and carry; pow_dot at stride 2 over
-    2^21 coefficients (eval_even_odd's even half) and a 2^19 block's total
-    from its start. Each against its plain version on the card (exact), with
-    device ms, bound_frac and the launches one call counts (fails unless 3
-    for a division over more than one tile, 2 for pow_dot); no PyTorch call
-    computes either function."""
+    2^21 coefficients (the even half), both halves at once (parts=2,
+    eval_even_odd's call) and a 2^19 block's total from its start. Each
+    against its plain version on the card (exact), with device ms,
+    bound_frac and the launches one call counts (fails unless 1); no
+    PyTorch call computes either function. Then DIV_SCAN_RACE_CALLS calls
+    back to back at the fold-divide and the (Q, 2^20) query shapes, each
+    equal to the plain result (the look-back's flags and ticket written back
+    to zero by each call), and one CUDA graph of the Goldilocks fold-divide
+    replayed DIV_SCAN_GRAPH_REPLAYS times, equal each time."""
     import numpy as np
+    import torch
 
     from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2, Goldilocks
     from ministark_tpu_torch.ops import div_scan as ds
@@ -949,41 +963,77 @@ def phase_kernels_div_scan(results):
         cq = _rand_u64(rng, (Q, n20, K), E.p)
         blk = _rand_u64(rng, (1, n19, K), E.p)
         alpha, small = _rand_u64(rng, (K,), E.p), _rand_u64(rng, (Q, 2, K), E.p)
+        fold_kw = dict(head=small[:1, :1], fold=alpha)
         divisions = [
-            ("fold-divide 2^21 -> 2^20 (fold, head 1)", c21, n20, z1, zi1,
-             dict(head=small[:1, :1], fold=alpha)),
+            ("fold-divide 2^21 -> 2^20 (fold, head 1)", c21, n20, z1, zi1, fold_kw),
             ("(1, 2^20)", cq[:1], n20, z1, zi1, {}),
             (f"query ({Q}, 2^20), one polynomial broadcast, head 2",
              cq[:1].expand(Q, -1, -1), n20, z, zinv, dict(head=small)),
             (f"query ({Q}, 2^20)", cq, n20, z, zinv, {}),
             ("block 2^19 from 2^19 with its carry", blk, n19, z1, zi1,
              dict(start=n19, carry=small[:1, 0]))]
-        def per_call(name, label, rec, kern, want):
-            """The launches one call counts (ops/div_scan.py::launches)."""
+        def per_call(name, label, rec, kern):
+            """The launches one call counts (ops/div_scan.py::launches): 1."""
             before = ds.launches[name]
             kern()
             rec["launches_per_call"] = got = ds.launches[name] - before
             say("kernels", f"{name} {label}: {got} launch(es) per call")
-            if got != want:
-                fail(f"{name} {label}: {got} launches per call, expected {want}")
+            if got != 1:
+                fail(f"{name} {label}: {got} launches per call, expected 1")
 
         for label, c, m, zz, zi, kw in divisions:
-            work = rf.div_scan_work(c, m, "fold" in kw, tag, zz, zi, kw.get("head"),
-                                    kw.get("carry"), kw.get("fold"))
+            small = (zz, zi, kw.get("head"), kw.get("carry"), kw.get("fold"))
+            count = dict(start=kw.get("start", 0), carry="carry" in kw)
+            work = rf.div_scan_work(c, m, "fold" in kw, tag, *small, **count)
             kern = lambda: ds.div_scan_cuda(k, c, zz, zi, **kw)   # noqa: E731
             rec = compare("div_scan_" + tag, label, kern,
                           lambda: ds.div_scan_plain(k, c, zz, zi, **kw), work,
                           plain_reps=1, device=True)
-            per_call("div_scan_" + tag, label, rec, kern, 3 if m > ds.TILE else 1)
-        dots = [("eval_even_odd 2^21, stride 2 (even half)", c21, z1, 0, 2),
-                ("block total 2^19 from 2^19", blk, z1, n19, 1)]
-        for label, c, zz, start, stride in dots:
-            work = rf.pow_dot_work(c[:, ::stride], zz, tag)
-            kern = lambda: ds.pow_dot_cuda(k, c, zz, start, stride)   # noqa: E731
+            # the most bound_frac the parallel scan can reach: its own work
+            # (two Horner steps an output) against the bound's
+            scan = rf.bound(*rf.div_scan_work(c, m, "fold" in kw, tag, *small, **count,
+                                              scan=True))[0]
+            rec["ceiling"] = rec["bound_ms"] / scan
+            say("kernels", f"div_scan_{tag} {label}: the scan's ceiling "
+                           f"{rec['ceiling']:.3f} of the bound")
+            per_call("div_scan_" + tag, label, rec, kern)
+        dots = [("eval_even_odd 2^21, stride 2 (even half)", c21, z1, 0, 2, 1),
+                ("eval_even_odd 2^21, both halves (parts=2)", c21, z1, 0, 1, 2),
+                ("block total 2^19 from 2^19", blk, z1, n19, 1, 1)]
+        for label, c, zz, start, stride, parts in dots:
+            work = rf.pow_dot_work(c[:, ::stride], zz, tag, parts, start)
+            kern = lambda: ds.pow_dot_cuda(k, c, zz, start, stride, 0, parts)   # noqa: E731
             rec = compare("pow_dot_" + tag, label, kern,
-                          lambda: ds.pow_dot_plain(k, c, zz, start, stride), work,
-                          plain_reps=1, device=True)
-            per_call("pow_dot_" + tag, label, rec, kern, 2)
+                          lambda: ds.pow_dot_plain(k, c, zz, start, stride, 0, parts),
+                          work, plain_reps=1, device=True)
+            per_call("pow_dot_" + tag, label, rec, kern)
+        for label, c, zz, zi, kw in (("fold-divide 2^21 -> 2^20", c21, z1, zi1, fold_kw),
+                                      (f"query ({Q}, 2^20)", cq, z, zinv, {})):
+            want = ds.div_scan_plain(k, c, zz, zi, **kw)
+            outs = [ds.div_scan_cuda(k, c, zz, zi, **kw) for _ in range(DIV_SCAN_RACE_CALLS)]
+            bad = [i for i, o in enumerate(outs) if not torch.equal(o, want)]
+            if bad:
+                fail(f"div_scan_{tag} {label}: calls {bad} of {DIV_SCAN_RACE_CALLS} "
+                     "back to back differ from the plain result")
+            say("kernels", f"div_scan_{tag} {label}: {DIV_SCAN_RACE_CALLS} calls back "
+                           "to back, each equal to the plain result")
+            del outs
+        if tag == "gl2":
+            want = ds.div_scan_plain(k, c21, z1, zi1, **fold_kw)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = ds.div_scan_cuda(k, c21, z1, zi1, **fold_kw)
+            for i in range(DIV_SCAN_GRAPH_REPLAYS):
+                got.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"div_scan_gl2 fold-divide: CUDA graph replay {i} differs "
+                         "from the plain result")
+            say("kernels", f"div_scan_gl2 fold-divide: one CUDA graph replayed "
+                           f"{DIV_SCAN_GRAPH_REPLAYS} times, equal each time")
+            del graph, got
         del c21, cq, blk
 
 
@@ -1122,7 +1172,7 @@ def reset_counts():
     from ministark_tpu_torch.ops import stream
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
-                   fs.pass2_launches, pp.launches, nd.launches, ds.launches):
+                   fs.pass2_launches, pp.launches, nd.launches, ds.launches, ds.calls):
         for key in counts:
             counts[key] = 0
     sh.launches = sh.row_launches = gl.launches = gl.ext_launches = 0
@@ -1147,7 +1197,8 @@ def read_counts():
               "gl_mul": gl.launches, "gl_ext_mul": gl.ext_launches,
               "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
-              **nd.launches, **ds.launches}
+              **nd.launches, **ds.launches,
+              **{f"{name} calls": n for name, n in ds.calls.items()}}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
         counts["ntt" + suffix] = ntt.launches[tag]
         counts["ntt_four_step_pass1" + suffix] = fs.pass1_launches[tag]
@@ -1156,10 +1207,19 @@ def read_counts():
     return counts, dict(sh.fan_launches)
 
 
+def one_launch_a_call(launches, where):
+    """Fails unless each division scan and pow_dot kernel launched once for
+    each of its wrapper's calls (the "<kernel> calls" counts)."""
+    for key, n in launches.items():
+        if key.endswith(" calls") and launches[key[:-6]] != n:
+            fail(f"{key[:-6]}: {launches[key[:-6]]} launches for {n} calls on {where}")
+
+
 def record(results, path, launches):
     """The kernels a path's run launched, under that path."""
+    one_launch_a_call(launches, f"the {path} path")
     for name, count in launches.items():
-        if count:
+        if count and name in results:
             results[name]["paths"][path] = count
 
 
@@ -1897,6 +1957,7 @@ def phase_sharded(results, parity_digests, fast_sha, fast_many_sha, ldt_sha):
                      f"over {SHARDED_FAST_GATHER_BYTES}")
             say(label, f"{what} rank {r['rank']} launches "
                        + json.dumps({k: v for k, v in launches.items() if v}))
+            one_launch_a_call(launches, f"rank {r['rank']} of the {what} path")
             for name, (_, _, paths) in KERNELS.items():
                 if what in paths and launches.get(name, 0) <= 0:
                     fail(f"{name} was not launched by rank {r['rank']} of the "

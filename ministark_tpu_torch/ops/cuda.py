@@ -45,7 +45,7 @@ _NTT = [_P, _P, _I, _I, _I64P, _P, _P, _P, _P, _P, _P, _U64, _I64P, _P]
 _PASS1 = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
 _PASS2 = [_P, _P, _I, _I, _I, _P, _P, _P, _U64, _P]
 _LEVEL = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _U64, _P]
-_POW_DOT = [_P, _P, _P, _P, _I64P, _P]
+_POW_DOT = [_P] * 5 + [_I64P, _P]
 _DIV_SCAN = [_P] * 9 + [_I64P, _P]
 # name -> argtypes; every function returns int (a cudaError_t). The NTT
 # kernels have one symbol per field, suffixed _gl (Goldilocks) or _bb
@@ -85,11 +85,12 @@ _SIGNATURES = {
     "ms_digit_level_gl": [_P, _P, _P, _I, _I, _I, _P, _I, _U64, _U64, _P],
     # x, out, n, threads, per_thread, stream
     "ms_stream_add1": [_P, _P, _I64, _I, _I, _P],
-    # c, z, out, tile totals, plan (int64[ops/div_scan.py::PLAN_LEN]), stream;
-    # _gl2 Goldilocks Fp2, _bb4 BabyBear Fp4
+    # c, z, out, counts, values (ops/div_scan.py::_scratch_for), plan
+    # (int64[ops/div_scan.py::PLAN_LEN]), stream; _gl2 Goldilocks Fp2, _bb4
+    # BabyBear Fp4
     "ms_pow_dot_gl2": _POW_DOT, "ms_pow_dot_bb4": _POW_DOT,
-    # c, z, zinv, alpha, head, carry (null where unused), out, tile totals,
-    # tile carries, plan, stream
+    # c, z, zinv, alpha, head, carry (null where unused), out, counts,
+    # values, plan, stream
     "ms_div_scan_gl2": _DIV_SCAN, "ms_div_scan_bb4": _DIV_SCAN,
 }
 

@@ -27,33 +27,57 @@ Dispatch by the tensors' device, as ``ops/field.py::mul``: CPU tensors take
 the plain versions, the closed form in torch ops (``powers`` ladders,
 ``field_sum`` and ``suffix_sums``, which live here and which ops/poly.py
 re-exports), which needs z != 0 and raises on it; a CUDA
-tensor launches the kernel (Horner's scan, which checks no z: a check would
-wait for the card; the callers take the host path on a zero challenge) or
-raises.
+tensor launches the kernel or raises: one launch a call for either
+function (``launches`` counts it). The division kernel is a single-pass
+scan (a tile of the row in shared memory, Horner in each thread's chunk,
+warp shuffles across the chunks, decoupled look-back across the tiles from
+the top; no check of z: a check would wait for the card, and the callers
+take the host path on a zero challenge); pow_dot sums its tiles and the
+last block of a row adds their partials. Both keep their look-back flags
+and counters in a scratch buffer per device (``_scratch``), zero when made
+and written back to zero by each call's last block. ``div_scan_replay`` and
+``pow_dot_replay`` follow the kernels' route in torch ops for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import bb, cuda
 from .field import P as GL_P
 from .field import FieldOps
 
-TILE = 2048          # csrc/div_scan.cu's TILE: the elements one block scans
-MAX_ROWS = 65535     # rows a launch takes (the grid's y extent)
+# csrc/div_scan.cu's tiles: a division's block of THREADS compute threads
+# (and a helper warp) scans THREADS x E elements; GEOMETRY: (E, 16-byte
+# units an element) by the kernels' field suffix and the fold; pow_dot's
+# block sums DOT_TILE = 128 x 32 terms (with parts=2, pairs)
+THREADS = 128
+GEOMETRY = {("gl2", False): (32, 1), ("gl2", True): (16, 1),
+            ("bb4", False): (16, 2), ("bb4", True): (16, 2)}
+DOT_TILE = THREADS * 32
+
+
+def tile(sfx: str, fold: bool) -> int:
+    """The elements one block of the division kernel scans."""
+    return THREADS * GEOMETRY[(sfx, fold)][0]
+MAX_ROWS = 65535     # rows a launch takes
 FOLD, HEAD, CARRY = 1, 2, 4
 # csrc/div_scan.cu's plan: rows, n, c's batch and coefficient strides, z's,
-# zinv's, head's batch strides, H, carry's batch stride, start, tiles, flags
-PLAN_LEN = 12
+# zinv's, head's batch strides, H, carry's batch stride, start, tiles,
+# flags, parts
+PLAN_LEN = 13
 _PlanArray = ctypes.c_int64 * PLAN_LEN
 _SUFFIX = {((2,), GL_P): "gl2", ((4,), bb.P): "bb4"}
 
-# Incremented once per kernel launch, by the wrapper's kernel name: two a
-# pow_dot call, three a div_scan call over more than one tile, else one.
+# Incremented once per kernel launch, by the wrapper's kernel name: one a
+# call of either function.
 launches = {"pow_dot_gl2": 0, "pow_dot_bb4": 0, "div_scan_gl2": 0, "div_scan_bb4": 0}
+# Incremented once per call of a kernel wrapper, launched or refused: a run
+# whose launches equal its calls launched once a call.
+calls = dict.fromkeys(launches, 0)
 
 
 # ----------------------------------------------------------------- plain
@@ -105,9 +129,16 @@ def _check_nonzero(z):
         raise ValueError("div_scan: z = 0 has no inverse; divide on the host")
 
 
-def pow_dot_plain(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0):
+def pow_dot_plain(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0,
+                  parts: int = 1):
     """``pow_dot`` in torch ops: the powers of z by doubling, one product,
-    a pairwise sum, and z^start."""
+    a pairwise sum, and z^start. With ``parts=2`` the terms' even and odd
+    halves, (B, 2, *elem)."""
+    if parts == 2:
+        return torch.stack([pow_dot_plain(k, c, z, start, 2 * stride, offset + p * stride)
+                            for p in (0, 1)], 1)
+    if parts != 1:
+        raise ValueError(f"pow_dot: parts is 1 or 2, got {parts}")
     terms = c[:, offset::stride]
     if terms.shape[1] == 0:
         return torch.zeros_like(z)
@@ -138,6 +169,223 @@ def div_scan_plain(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=Non
         t = k.add(t, carry.unsqueeze(1).expand_as(t))
     ipw = powers(k, zinv, m)
     return k.mul(t, k.mul(ipw, zinv.unsqueeze(1).expand_as(ipw)))
+
+
+# ----------------------------------------------------------------- replays
+def _elem_pow(k: FieldOps, x, log_n: int):
+    """[x^(2^s) for s < log_n]: the kernels' tables of squarings."""
+    out = [x]
+    for _ in range(log_n - 1):
+        out.append(k.mul(out[-1], out[-1]))
+    return out
+
+
+def _bcast(v, t):
+    """v (B, *elem) against t (B, ..., *elem)."""
+    return v.reshape(v.shape[:1] + (1,) * (t.dim() - v.dim()) + v.shape[1:]).expand_as(t)
+
+
+def _lane_suffix(k: FieldOps, v, mp, ax: int):
+    """The kernels' warp_suffix along axis ``ax`` (the lanes): v[l] +=
+    m^d v[l + d] for d = 1, 2, 4, ... while l + d is a lane, mp[s] = m^(2^s)."""
+    lanes = v.shape[ax]
+    d, s = 1, 0
+    while d < lanes:
+        o = torch.cat([v.narrow(ax, d, lanes - d),
+                       torch.zeros_like(v.narrow(ax, 0, d))], ax)
+        v = k.add(v, k.mul(o, _bcast(mp[s], o)))
+        d, s = 2 * d, s + 1
+    return v
+
+
+def tile_slot(u, log_chunk: int):
+    """csrc/div_scan.cu's swz: 16-byte unit u of a tile (thread t's chunk of
+    2^log_chunk units at t 2^log_chunk) at u ^ (t & 7) in shared memory."""
+    return u ^ ((u >> log_chunk) & 7)
+
+
+def div_scan_replay(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=None,
+                    fold=None, chunk: int = 4, lanes: int = 4, warps: int = 2,
+                    look: int = 2, seed: int = 0):
+    """``div_scan`` by the kernel's route in torch ops, with a tile of
+    ``warps`` x ``lanes`` threads of ``chunk`` elements (the kernel: 4 x 32
+    x 32 for Fp2, x 16 with the fold and for Fp4) and look-back rounds of ``lanes`` x
+    ``look`` tiles (the kernel: 32 x 8): a[j] = c'[j + 1] loaded once with
+    the fold and the head (a[m - 1] the carry's first value); each thread's
+    chunk by Horner; the lanes' suffix scan with z^(chunk 2^s); the warps'
+    totals by Horner in z^(lanes chunk); each tile's absolute partial P =
+    sum_(j in tile) a[j] z^j published, then its look-back (a sum of the P
+    above it up to the first inclusive sum) and its inclusive sum, each step
+    taken in an order drawn from a permutation seeded by ``seed`` among
+    those that would not wait; q at the next tile's base = zinv^(base +
+    tile) times that sum; each lane's carry from the next lane's scan and
+    the table z^(chunk (lanes - l)); Horner down each chunk. Same contract
+    as ``div_scan_plain``."""
+    _check_nonzero(z)
+    if chunk & (chunk - 1) or lanes & (lanes - 1) or warps & (warps - 1):
+        raise ValueError("div_scan_replay: chunk, lanes and warps are powers of two")
+    B, K = c.shape[0], k.elem_axes
+    if fold is not None:
+        odd = c[:, 1::2]
+        c = k.add(c[:, 0::2], k.mul(odd, fold.expand_as(odd)))
+    m = c.shape[1]
+    E, L, W = chunk, lanes, warps
+    T = E * L * W
+    nt = max(1, -(-m // T))
+    # the load: a[j] = c'[j + 1], the head at global indices start + j + 1
+    a = torch.zeros((B, nt * T) + K, dtype=torch.int64, device=c.device)
+    a[:, :m - 1] = c[:, 1:]
+    if head is not None and start + 1 < head.shape[1]:
+        h = min(head.shape[1] - start - 1, m - 1)
+        a[:, :h] = k.sub(a[:, :h], head[:, start + 1:start + 1 + h])
+    if carry is not None:
+        a[:, m - 1] = k.mul(carry, k.pow(zinv, start + m))
+    zp = _elem_pow(k, z, (E * L).bit_length() + 1)
+    log_e, log_l = E.bit_length() - 1, L.bit_length() - 1
+    zc, zw = zp[log_e], zp[log_e + log_l]
+    tiles = a.reshape((B, nt, W, L, E) + K)
+    # chunks: Horner in z
+    w = tiles[:, :, :, :, E - 1]
+    for i in range(E - 2, -1, -1):
+        w = k.add(k.mul(w, _bcast(z, w)), tiles[:, :, :, :, i])
+    s = _lane_suffix(k, w, zp[log_e:], 3)                # (B, nt, W, L, *K)
+    wtot = s[:, :, :, 0]
+    rel = wtot[:, :, W - 1]
+    for v in range(W - 2, -1, -1):
+        rel = k.add(wtot[:, :, v], k.mul(rel, _bcast(zw, rel)))
+    bases = torch.stack([k.pow(z, t * T) for t in range(nt)], 1)
+    agg = k.mul(rel, bases)                              # P: (B, nt, *K)
+    # ftab[l] = zc^(L - l), ftab[L] = 1: the lanes' product scan
+    f = _lane_suffix_mul(k, zc.unsqueeze(1).expand((B, L) + K).clone(), 1)
+    one = torch.zeros_like(zc)
+    one[..., 0] = 1
+    ftab = torch.cat([f, one.unsqueeze(1)], 1)           # (B, L + 1, *K)
+    # the look-back, tile by tile in a seeded order of the steps that would not wait
+    R = L * look
+    flag = np.zeros((B, nt), dtype=np.int64)
+    incl = torch.zeros_like(agg)
+    above = torch.zeros_like(agg)
+    steps = [(b, t, 0) for b in range(B) for t in range(nt - 1)]
+    steps += [(b, t, 1) for b in range(B) for t in range(nt)]
+    rng = np.random.default_rng(seed)
+    while steps:
+        ready = [st for st in steps if _ready(flag, st, nt, R)]
+        b, t, phase = ready[rng.integers(len(ready))]
+        steps.remove((b, t, phase))
+        if phase == 0:
+            flag[b, t] = 1
+            continue
+        lane_sums = torch.zeros((L,) + K, dtype=torch.int64, device=c.device)
+        for u0 in range(t + 1, nt, R):
+            fl = [int(flag[b, u]) if u < nt else 2 for u in range(u0, u0 + R)]
+            first = fl.index(2) if 2 in fl else R
+            for pos in range(min(first + 1, R)):
+                if u0 + pos < nt:
+                    v = incl[b, u0 + pos] if pos == first else agg[b, u0 + pos]
+                    lane_sums[pos % L] = k.add(lane_sums[pos % L], v)
+            if first < R:
+                break
+        acc = field_sum(k, lane_sums)
+        above[b, t] = acc
+        incl[b, t] = k.add(agg[b, t], acc)
+        flag[b, t] = 2
+    # q at the next tile's base, each warp's incoming carry, each lane's
+    nxt_base = torch.stack([k.pow(zinv, (t + 1) * T) for t in range(nt)], 1)
+    xs = [k.mul(above, nxt_base)]
+    for v in range(W - 2, -1, -1):
+        xs.append(k.add(wtot[:, :, v + 1], k.mul(xs[-1], _bcast(zw, xs[-1]))))
+    xin = torch.stack(xs[::-1], 2)                       # (B, nt, W, *K)
+    nxt = torch.cat([s[:, :, :, 1:], torch.zeros_like(s[:, :, :, :1])], 3)
+    fl1 = ftab[:, 1:].reshape((B, 1, 1, L) + K).expand_as(nxt)
+    q = k.add(nxt, k.mul(fl1, xin.unsqueeze(3).expand_as(nxt)))
+    out = torch.empty_like(tiles)
+    for i in range(E - 1, -1, -1):
+        q = k.add(tiles[:, :, :, :, i], k.mul(q, _bcast(z, q)))
+        out[:, :, :, :, i] = q
+    return out.reshape((B, nt * T) + K)[:, :m]
+
+
+def _lane_suffix_mul(k: FieldOps, f, ax: int):
+    """The suffix products along ``ax``: f[l] = prod_(u >= l) f[u]."""
+    lanes = f.shape[ax]
+    d = 1
+    while d < lanes:
+        one = torch.zeros_like(f.narrow(ax, 0, d))
+        one[..., 0] = 1
+        o = torch.cat([f.narrow(ax, d, lanes - d), one], ax)
+        f = k.mul(f, o)
+        d *= 2
+    return f
+
+
+def _ready(flag, step, nt: int, R: int) -> bool:
+    """Whether a replayed step would run without waiting: an aggregate
+    always; a look-back once its own aggregate is out and no round of R
+    tiles it reads shows a 0 below its first inclusive flag."""
+    b, t, phase = step
+    if phase == 0:
+        return True
+    if t < nt - 1 and flag[b, t] == 0:          # its own aggregate comes first
+        return False
+    for u0 in range(t + 1, nt, R):
+        fl = [int(flag[b, u]) if u < nt else 2 for u in range(u0, u0 + R)]
+        first = fl.index(2) if 2 in fl else R
+        if 0 in fl[:first]:
+            return False
+        if first < R:
+            return True
+    return True
+
+
+def pow_dot_replay(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0,
+                   parts: int = 1, per_thread: int = 4, lanes: int = 4, warps: int = 2):
+    """``pow_dot`` by the kernel's route in torch ops: tiles of ``warps`` x
+    ``lanes`` threads x ``per_thread`` terms (the kernel: 4 x 32 x 32),
+    thread t's terms at base + i threads + t in 4 / parts chains (i mod
+    chains) by Horner in z^(chains threads), joined in z^threads, the
+    lanes' shuffle tree with z^(2^s), the warps' by Horner in z^lanes, times
+    z^(start + base); the last tile to finish adds every tile's partial in
+    tile order. Same contract as ``pow_dot_plain``."""
+    B, K = c.shape[0], k.elem_axes
+    if per_thread % (4 // parts):
+        raise ValueError(f"pow_dot_replay: {per_thread} terms a thread do not split "
+                         f"into {4 // parts} chains")
+    terms = c[:, offset::stride]
+    n = terms.shape[1]
+    J = -(-n // parts)
+    TH = lanes * warps
+    T = TH * per_thread
+    nt = max(1, -(-J // T))
+    pad = torch.zeros((B, nt * T * parts) + K, dtype=torch.int64, device=c.device)
+    pad[:, :n] = terms
+    # (B, nt, per_thread, warps, lanes, parts): term base + i TH + thread, part p
+    t6 = pad.reshape((B, nt, per_thread, warps, lanes, parts) + K)
+    zp = _elem_pow(k, z, TH.bit_length() + 2)
+    zth = zp[TH.bit_length() - 1]
+    # ACC chains a part: chain r the terms i = r mod ACC by Horner in
+    # z^(ACC threads), joined by Horner in z^threads
+    ACC = 4 // parts
+    zacc = zp[TH.bit_length() - 1 + ACC.bit_length() - 1]
+    chains = []
+    for r in range(ACC):
+        acc = t6[:, :, per_thread - ACC + r]
+        for i0 in range(per_thread - 2 * ACC, -1, -ACC):
+            acc = k.add(k.mul(acc, _bcast(zacc, acc)), t6[:, :, i0 + r])
+        chains.append(acc)
+    w = chains[-1]
+    for r in range(ACC - 2, -1, -1):
+        w = k.add(chains[r], k.mul(w, _bcast(zth, w)))
+    w = _lane_suffix(k, w, zp, 3)[:, :, :, 0]          # (B, nt, warps, parts, *K)
+    zl = zp[lanes.bit_length() - 1]
+    s = w[:, :, warps - 1]
+    for v in range(warps - 2, -1, -1):
+        s = k.add(w[:, :, v], k.mul(s, _bcast(zl, s)))
+    base = torch.stack([k.pow(z, start + t * T) for t in range(nt)], 1)  # (B, nt, *K)
+    partial = k.mul(s, base.unsqueeze(2).expand_as(s))  # (B, nt, parts, *K)
+    total = partial[:, 0]
+    for t in range(1, nt):
+        total = k.add(total, partial[:, t])
+    return total if parts == 2 else total[:, 0]
 
 
 # ----------------------------------------------------------------- kernels
@@ -173,42 +421,72 @@ def _rows(c, kernel: str) -> int:
     return c.shape[0]
 
 
-def _tiles(n: int) -> int:
-    return max(1, -(-n // TILE))
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def pow_dot_cuda(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0):
+# (kernel, device, part) -> int64 scratch. "counts" (the look-back's
+# ticket, finished count and flags; pow_dot's per-row counts) is zero when
+# made and zero again after every call, its last block writing back what
+# it used; "values" (the tiles' partial sums) needs no reset. A buffer that
+# grows is kept, so a CUDA graph that captured a call keeps its pointer.
+_scratch = {}
+_retired = []
+
+
+def _scratch_for(kind: str, device, counts: int, values: int):
+    """(counts, values) of at least these sizes in int64 words."""
+    out = []
+    for part, words in (("counts", counts), ("values", values)):
+        buf = _scratch.get((kind, device, part))
+        if buf is None or buf.numel() < words:
+            if buf is not None:
+                _retired.append(buf)
+            size = max(words, 2 * buf.numel() if buf is not None else 1 << 12)
+            make = torch.zeros if part == "counts" else torch.empty
+            buf = _scratch[(kind, device, part)] = make(size, dtype=torch.int64,
+                                                        device=device)
+        out.append(buf)
+    return out
+
+
+def pow_dot_cuda(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0,
+                 parts: int = 1):
     """CUDA kernel (csrc/div_scan.cu ``ms_pow_dot_gl2`` / ``_bb4``), same
     contract as ``pow_dot_plain``: the terms c[:, offset::stride] read in
-    place, two launches (the tiles' sums, then one block a row)."""
+    place, each once (``parts=2``: both halves), one launch."""
     name = "pow_dot_" + _suffix(k, "pow_dot")
+    calls[name] += 1
     B, K = _rows(c, name), k.elem_axes[0]
+    if parts not in (1, 2):
+        raise ValueError(f"{name}: parts is 1 or 2, got {parts}")
     terms = c[:, offset::stride]
     n = terms.shape[1]
     sc = _strides(terms, (B, n, K), "c", name, c.device)
     sz = _strides(z, (B, K), "z", name, c.device)
     if start < 0:
         raise ValueError(f"{name}: start must be >= 0, got {start}")
-    out = torch.empty((B, K), dtype=torch.int64, device=c.device)
-    nt = _tiles(n)
-    tot = torch.empty((B, nt, K), dtype=torch.int64, device=c.device)
-    plan = _PlanArray(B, n, sc[0], sc[1], sz[0], 0, 0, 0, 0, start, nt, 0)
+    out = torch.empty((B, parts, K), dtype=torch.int64, device=c.device)
+    nt = max(1, _ceil(_ceil(n, parts), DOT_TILE))
+    counts, values = _scratch_for("pow_dot", c.device, B, B * nt * parts * K)
+    plan = _PlanArray(B, n, sc[0], sc[1], sz[0], 0, 0, 0, 0, start, nt, 0, parts)
     err = getattr(cuda.library(), "ms_" + name)(
-        terms.data_ptr(), z.data_ptr(), out.data_ptr(), tot.data_ptr(), plan,
-        cuda.stream_ptr(out))
+        terms.data_ptr(), z.data_ptr(), out.data_ptr(), counts.data_ptr(),
+        values.data_ptr(), plan, cuda.stream_ptr(out))
     cuda.check(name, err)
-    launches[name] += 2
-    return out
+    launches[name] += 1
+    return out if parts == 2 else out[:, 0]
 
 
 def div_scan_cuda(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=None,
                   fold=None):
     """CUDA kernel (csrc/div_scan.cu ``ms_div_scan_gl2`` / ``_bb4``), same
     contract as ``div_scan_plain`` but for z = 0, which it does not check:
-    Horner's scan from the top, the fold, head and carry read in the scan;
-    three launches for a row longer than one tile (one otherwise). c, z and
+    one single-pass launch, the fold, head and carry read in it. c, z and
     zinv are read in place through their strides."""
-    name = "div_scan_" + _suffix(k, "div_scan")
+    sfx = _suffix(k, "div_scan")
+    name = "div_scan_" + sfx
+    calls[name] += 1
     B, K = _rows(c, name), k.elem_axes[0]
     dev = c.device
     sc = _strides(c, c.shape, "c", name, dev)
@@ -234,18 +512,14 @@ def div_scan_cuda(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=None
         scy = _strides(carry, (B, K), "carry", name, dev)[0]
         flags, ptrs[2] = flags | CARRY, carry.data_ptr()
     out = torch.empty((B, m, K), dtype=torch.int64, device=dev)
-    nt = _tiles(m)
-    tot = cin = None
-    if nt > 1:
-        tot = torch.empty((B, nt, K), dtype=torch.int64, device=dev)
-        cin = torch.empty_like(tot)
-    plan = _PlanArray(B, m, sc[0], sc[1], sz[0], szi[0], sh, H, scy, start, nt, flags)
+    nt = _ceil(m, tile(sfx, fold is not None))
+    counts, values = _scratch_for("div_scan", dev, 2 + B * nt, 2 * B * nt * K)
+    plan = _PlanArray(B, m, sc[0], sc[1], sz[0], szi[0], sh, H, scy, start, nt, flags, 1)
     err = getattr(cuda.library(), "ms_" + name)(
         c.data_ptr(), z.data_ptr(), zinv.data_ptr(), *ptrs, out.data_ptr(),
-        None if tot is None else tot.data_ptr(), None if cin is None else cin.data_ptr(),
-        plan, cuda.stream_ptr(out))
+        counts.data_ptr(), values.data_ptr(), plan, cuda.stream_ptr(out))
     cuda.check(name, err)
-    launches[name] += 3 if nt > 1 else 1
+    launches[name] += 1
     return out
 
 
@@ -254,13 +528,16 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts if t is not None)
 
 
-def pow_dot(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0):
-    """S[b] = sum_j c[b, offset + stride j] z[b]^(start + j). Dispatch by
-    device: CPU tensors -> ``pow_dot_plain``; a CUDA tensor ->
-    ``pow_dot_cuda``, the kernel, or raise."""
+def pow_dot(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int = 0,
+            parts: int = 1):
+    """S[b] = sum_j c[b, offset + stride j] z[b]^(start + j); with
+    ``parts=2`` the terms' even and odd halves (B, 2, *elem), each
+    coefficient read once. Dispatch by device: CPU tensors ->
+    ``pow_dot_plain``; a CUDA tensor -> ``pow_dot_cuda``, the kernel, or
+    raise."""
     if _on_cpu(c, z):
-        return pow_dot_plain(k, c, z, start, stride, offset)
-    return pow_dot_cuda(k, c, z, start, stride, offset)
+        return pow_dot_plain(k, c, z, start, stride, offset, parts)
+    return pow_dot_cuda(k, c, z, start, stride, offset, parts)
 
 
 def div_scan(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=None, fold=None):

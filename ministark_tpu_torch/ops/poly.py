@@ -57,9 +57,10 @@ def _even_odd_split(coeffs):
 
 def eval_even_odd(k: FieldOps, coeffs, zp):
     """(f_even(z), f_odd(z)) for the coefficient-split halves of (n, *elem):
-    ``ops/div_scan.py::pow_dot`` at stride 2, the kernel on a CUDA tensor."""
-    c, z = coeffs.unsqueeze(0), zp.unsqueeze(0)
-    return pow_dot(k, c, z, stride=2)[0], pow_dot(k, c, z, stride=2, offset=1)[0]
+    ``ops/div_scan.py::pow_dot`` with parts=2, one kernel launch reading
+    each coefficient once on a CUDA tensor."""
+    both = pow_dot(k, coeffs.unsqueeze(0), zp.unsqueeze(0), parts=2)[0]
+    return both[0], both[1]
 
 
 def fold_even_odd(k: FieldOps, coeffs, alpha):

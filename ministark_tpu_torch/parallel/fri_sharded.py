@@ -81,8 +81,7 @@ def make_block_fri_fns(field, n: int, mesh: Mesh):
     def deep(block, z):
         check(block, 0)
         # the local even coefficients have global even ranks r*m/2 + j
-        c, zb = block.unsqueeze(0), z.unsqueeze(0)
-        parts = torch.cat([pow_dot(k, c, zb, r * m // 2, 2, offset) for offset in (0, 1)])
+        parts = pow_dot(k, block.unsqueeze(0), z.unsqueeze(0), r * m // 2, parts=2)[0]
         fe, fo = field_sum_over_ranks(k, mesh, parts)
         return fe, fo
 
@@ -100,7 +99,8 @@ def make_block_fri_fns(field, n: int, mesh: Mesh):
         if fold is None:
             total = pow_dot(k, block, z, start)
         else:
-            even, odd = (pow_dot(k, block, z, start, 2, offset) for offset in (0, 1))
+            halves = pow_dot(k, block, z, start, parts=2)
+            even, odd = halves[:, 0], halves[:, 1]
             total = k.add(even, k.mul(odd, fold.expand_as(odd)))
         # the later ranks' totals: E_r = sum_(s > r) total_s
         totals = all_gather_rows(mesh, total)                  # (D, B, *elem)

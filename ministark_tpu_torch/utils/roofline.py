@@ -31,7 +31,8 @@ OPS_SHA_BLOCK = 64 * 14 + 48 * 10 + 8
 OPS_SHA_CONST_BLOCK = 64 * 14 + 8
 # Goldilocks: a product is four 32x32->64 multiplies (two instructions
 # each) with 4 adds, and the reduction of gl.cuh about 17; an add 8, a sub 5
-OPS_GL_MUL = 8 + 4 + 17
+OPS_GL_PROD = 8 + 4                # the 128-bit product alone
+OPS_GL_MUL = OPS_GL_PROD + 17
 OPS_BUTTERFLY = OPS_GL_MUL + 8 + 5
 # an Fp2 product (Karatsuba, u^2 = 7): three products, 7 v1 as three
 # doublings and a sub (29, a product's worth), three adds and two subs
@@ -52,6 +53,17 @@ OPS_BB_FP2_MUL = 4 * OPS_BB_MUL + 5 * 3
 OPS_FP4_MUL = 3 * OPS_BB_FP2_MUL + (2 * OPS_BB_MUL + 2 * 3) + 4 * 3 + 6 * 3
 # an extension product by the kernels' suffix: Goldilocks Fp2, BabyBear Fp4
 EXT_MUL_OPS = {"gl2": OPS_FP2_MUL, "bb4": OPS_FP4_MUL}
+# x + a z by a fixed z, as csrc/div_scan.cu's Fixed<X>::mac does each Horner
+# and fold step: the linear map a -> a z as a matrix over the base field, its
+# rows summed before one reduction each. Goldilocks Fp2: two gl_dot2 (a b +
+# c d + x): two 128-bit products, two 128-bit adds with their carry out (5
+# each), the reduction (17) and the carry's subtraction (a sub and a select,
+# 6). BabyBear Fp4: 16 32x32->64 multiply-adds into 64-bit sums (two each)
+# and four Barrett reductions (the multiply-high 12, a multiply-subtract 2,
+# the conditional subtraction 2).
+OPS_FP2_FIXED_MAC = 2 * (2 * OPS_GL_PROD + 2 * 5 + 17 + 6)
+OPS_FP4_FIXED_MAC = 16 * 2 + 4 * (12 + 2 + 2)
+FIXED_MAC_OPS = {"gl2": OPS_FP2_FIXED_MAC, "bb4": OPS_FP4_FIXED_MAC}
 # (product, butterfly) operations per field, by the kernels' field suffix
 FIELD_OPS = {"gl": (OPS_GL_MUL, OPS_BUTTERFLY), "bb": (OPS_BB_MUL, OPS_BB_BUTTERFLY)}
 OPS_DIGIT = 4                      # one decimal digit: multiply-high, shift, multiply, sub
@@ -240,23 +252,38 @@ def ext_mul_work(a, b):
     return 8 * (reads + 2 * out), out * OPS_FP2_MUL
 
 
-def div_scan_work(c, m, fold: bool, tag, *small):
+def _power_muls(e: int) -> int:
+    """Products of x^e by square and multiply."""
+    return max(e.bit_length() - 1 + bin(e).count("1") - 1, 0) if e else 0
+
+
+def div_scan_work(c, m, fold: bool, tag, *small, start: int = 0, carry: bool = False,
+                  scan: bool = False):
     """A division of c's B rows by (x - z) to m outputs each
     (``ops/div_scan.py::div_scan``): the stored coefficients (a row
     broadcast over the batch counted once) and the ``small`` operands (z, zinv,
     head, carry, alpha; None where absent) read once, the (B, m, K)
-    quotient written once; one extension product per output for Horner's
-    step, one more for the fold. The adds are not counted."""
+    quotient written once; a Horner step a product by the fixed z (the
+    adds in it), the fold one more by the fixed alpha; with ``carry`` a
+    row's carry zinv^(start + m), by square and multiply, and its product.
+    ``scan``: the work of csrc/div_scan.cu's parallel scan instead, two
+    Horner steps an output (up and down each thread's chunk)."""
     B, K = c.shape[0], c.shape[-1]
     reads = _stored(c) + sum(_stored(t) for t in small if t is not None)
-    return 8 * (reads + B * m * K), B * m * (1 + int(fold)) * EXT_MUL_OPS[tag]
+    macs = B * m * (1 + int(scan) + int(fold)) * FIXED_MAC_OPS[tag]
+    chain = B * (_power_muls(start + m) + 1) * EXT_MUL_OPS[tag] if carry else 0
+    return 8 * (reads + B * m * K), macs + chain
 
 
-def pow_dot_work(terms, z, tag):
+def pow_dot_work(terms, z, tag, parts: int = 1, start: int = 0):
     """``pow_dot`` over the (B, n, K) terms it reads: each term and z read
-    once, (B, K) written; one extension product a term."""
+    once, (B, parts, K) written; a Horner step a term by the fixed z (with
+    ``parts=2`` the n terms are both halves' pairs), and with ``start`` each
+    row's sums times z^start, by square and multiply."""
     B, n, K = terms.shape
-    return 8 * (_stored(terms) + _stored(z) + B * K), B * n * EXT_MUL_OPS[tag]
+    chain = B * (_power_muls(start) + parts) * EXT_MUL_OPS[tag] if start else 0
+    return (8 * (_stored(terms) + _stored(z) + B * parts * K),
+            B * n * FIXED_MAC_OPS[tag] + chain)
 
 
 def leaf_hash_work(comps, k, fmt, max_digits=20):

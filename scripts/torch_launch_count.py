@@ -6,7 +6,7 @@ PyTorch/CUDA port (ministark_tpu_torch) with torch.profiler.
                                           [--ntt-backend B]
                                           [--field goldilocks|babybear]
                                           [--mode parity|fast|stir|whir]
-                                          [--match S] [--world N]
+                                          [--match S] [--top N] [--world N]
                                           [--backend gloo|nccl]
 
 Proves Fibonacci over Goldilocks + Fp2, or with ``--field babybear`` over
@@ -24,7 +24,8 @@ without the profiler (``warm_s``) with its peak allocated device memory
 bytes the rank received by collective kind (``received_bytes``,
 ``parallel/mesh.py::received``), the sha256 of the proof's bytes, the
 fast modes' ``phase_seconds``, and with ``--match S`` the launches and summed ms
-of the kernels whose names contain S. ``--root`` names the checkout whose
+of the kernels whose names contain S (``--top N``: the N kernels, by the
+first 80 characters of their names, with the most device time). ``--root`` names the checkout whose
 ministark_tpu_torch is imported (default: the one holding this script), so
 an older commit unpacked beside this one can be measured in the same run;
 ``--ntt-backend`` is passed to the prover only when given. ``--world N``
@@ -57,6 +58,8 @@ def main():
     ap.add_argument("--mode", choices=("parity", "fast", "stir", "whir"),
                     default="parity")
     ap.add_argument("--match", default=None)
+    ap.add_argument("--top", type=int, default=0,
+                    help="also list the N kernels with the most device time")
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     args = ap.parse_args()
@@ -88,6 +91,9 @@ def main():
                       "one_device": one, "ranks": ranks}), flush=True)
     if not equal:
         sys.exit(1)
+
+
+TOP_NAME = 80      # the characters of a kernel's name that --top groups by
 
 
 def measure(mesh, args):
@@ -142,12 +148,14 @@ def measure(mesh, args):
         torch.cuda.synchronize()
         wall = time.time() - t0
 
-    launch_calls, kernels, device_us = {}, 0, 0.0
+    launch_calls, kernels, device_us, by_name = {}, 0, 0.0, {}
     match_kernels, match_us = 0, 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
             device_us += e.time_range.elapsed_us()
+            n, us = by_name.get(e.name[:TOP_NAME], (0, 0.0))
+            by_name[e.name[:TOP_NAME]] = (n + 1, us + e.time_range.elapsed_us())
             if args.match is not None and args.match in e.name:
                 match_kernels += 1
                 match_us += e.time_range.elapsed_us()
@@ -164,6 +172,9 @@ def measure(mesh, args):
         **({} if args.match is None else {"match": {
             "name": args.match, "launches": match_kernels,
             "device_ms": match_us / 1e3}}),
+        **({} if not args.top else {"top": [
+            {"name": name, "launches": n, "device_ms": round(us / 1e3, 4)}
+            for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]]}),
     }
 
 

@@ -499,8 +499,10 @@ def _points(E, k, count, seed):
     return k.pack(zs), k.pack([E.inv(z) for z in zs])
 
 
-# one tile (2048 elements) and its edges, several tiles, more than 128 tiles
-DIV_SCAN_SIZES = [1, 2, 5, 2047, 2048, 2049, 300001]
+# one tile (Fp4 2048 elements, Fp2 4096) and its edges, several tiles, and
+# 74 (Fp2) or 147 (Fp4) tiles: a look-back within its first round of 256
+# tiles (test_div_scan_race_and_graph's 2^20 + 1 takes more than one round)
+DIV_SCAN_SIZES = [1, 2, 5, 2047, 2048, 2049, 4095, 4096, 4097, 300001]
 
 
 @pytest.mark.parametrize("field", ["gl2", "bb4"])
@@ -522,8 +524,7 @@ def test_div_scan_kernel_matches_plain(dev, field, m):
               "fold": _rand_ext(E, (), flags + 2).to(dev) if fold else None}
         before = ds.launches["div_scan_" + field]
         got = ds.div_scan(k, c, z, zinv, **kw)
-        # tile totals, their carries and the finish; one launch within a tile
-        assert ds.launches["div_scan_" + field] == before + (3 if m > ds.TILE else 1)
+        assert ds.launches["div_scan_" + field] == before + 1     # one single-pass launch
         assert torch.equal(got, ds.div_scan_plain(k, c, z, zinv, **kw)), flags
         one = c[:1].expand(B, -1, -1)
         assert torch.equal(ds.div_scan_cuda(k, one, z, zinv, **kw),
@@ -538,12 +539,46 @@ def test_pow_dot_kernel_matches_plain(dev, field, n):
     E, k = _ext(field)
     c = _rand_ext(E, (2, n), n).to(dev)
     z, _ = (t.to(dev) for t in _points(E, k, 2, n + 1))
-    for stride, offset, start in [(1, 0, 0), (2, 0, 5), (2, 1, 1 << 40), (3, 2, 77)]:
+    cases = [(1, 0, 0, 1), (2, 0, 5, 1), (2, 1, 1 << 40, 1), (3, 2, 77, 1),
+             (1, 0, 0, 2), (1, 0, 1 << 40, 2), (2, 1, 5, 2)]
+    for stride, offset, start, parts in cases:
         for zz in (z, z[:1].expand(2, -1)):
             before = ds.launches["pow_dot_" + field]
-            got = ds.pow_dot(k, c, zz, start, stride, offset)
-            assert ds.launches["pow_dot_" + field] == before + 2   # tiles, then rows
-            assert torch.equal(got, ds.pow_dot_plain(k, c, zz, start, stride, offset))
+            got = ds.pow_dot(k, c, zz, start, stride, offset, parts)
+            assert ds.launches["pow_dot_" + field] == before + 1   # one launch a call
+            assert torch.equal(got, ds.pow_dot_plain(k, c, zz, start, stride, offset, parts))
+
+
+@pytest.mark.parametrize("field", ["gl2", "bb4"])
+def test_div_scan_race_and_graph(dev, field):
+    """50 back-to-back calls over 74-147 tiles a row, and over 257-513 (a
+    look-back of more than one round of 256 tiles), the look-back's flags
+    and ticket written back to zero by each call's last block, each equal
+    to the plain result; a CUDA graph of one fold-divide replayed 3 times."""
+    from ministark_tpu_torch.ops import div_scan as ds
+
+    E, k = _ext(field)
+    z, zinv = (t.to(dev) for t in _points(E, k, 3, 7))
+    for m in (300001, (1 << 20) + 1):
+        c = _rand_ext(E, (3, m), 8).to(dev)
+        want = ds.div_scan_plain(k, c, z, zinv)
+        outs = [ds.div_scan_cuda(k, c, z, zinv) for _ in range(50)]
+        assert all(torch.equal(o, want) for o in outs)
+        del outs
+    m = 300001
+    c2, alpha = _rand_ext(E, (1, 2 * m), 9).to(dev), _rand_ext(E, (), 10).to(dev)
+    kw = dict(head=_rand_ext(E, (1, 1), 11).to(dev), fold=alpha)
+    want = ds.div_scan_plain(k, c2, z[:1], zinv[:1], **kw)
+    ds.div_scan_cuda(k, c2, z[:1], zinv[:1], **kw)            # warm: scratch made
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ds.div_scan_cuda(k, c2, z[:1], zinv[:1], **kw)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_div_scan_wrappers_refuse(dev):

@@ -250,3 +250,91 @@ def test_kernel_wrappers_refuse(fn):
         getattr(ds, fn)(k, *args)
     with pytest.raises(ValueError, match="Goldilocks Fp2 and BabyBear Fp4"):
         getattr(ds, fn)(get_ops(BABYBEAR_FP), c[..., 0], z[..., 0], *args[2:])
+
+
+# ---- the kernels' routes replayed in torch ops (ops/div_scan.py's
+# div_scan_replay / pow_dot_replay) against the plain versions, which the
+# tests above hold to the JAX package: small tiles, no JAX compile
+REPLAY_TILES = {8: dict(chunk=2, lanes=2, warps=2, look=1),
+                16: dict(chunk=2, lanes=4, warps=2, look=2),
+                64: dict(chunk=4, lanes=4, warps=4, look=1)}
+
+
+# every size at the 8- and 16-element tiles, the long ones at 64
+REPLAY_CASES = [(tile, size) for tile in (8, 16)
+                for size in ("1", "tile-1", "tile", "tile+1", "5tile+3")]
+REPLAY_CASES += [(64, "tile+1"), (64, "5tile+3")]
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("tile,size", REPLAY_CASES)
+def test_div_scan_replay_matches_plain(name, tile, size):
+    """Every fold/head/carry form over B = 3 rows (one polynomial broadcast
+    to the rows in the odd forms), a start and carry with the carry, a head
+    of tile + 2 coefficients that crosses the first tile's edge, the
+    look-back's steps in a seeded order."""
+    F, _, _ = FIELDS[name]
+    k = get_ops(F)
+    m = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "5tile+3": 5 * tile + 3}[size]
+    rng = _rng(name, 100 + 7 * tile + m)
+    pts = [_point(F, rng) for _ in range(3)]
+    z, zinv = torch.stack([p[0] for p in pts]), torch.stack([p[1] for p in pts])
+    for flags in range(8):
+        fold, head, carry = flags & 1, flags & 2, flags & 4
+        c = _rand(F, rng, (3, 2 * m if fold else m))
+        if flags % 2:
+            c = c[:1].expand(3, -1, -1)
+        kw = dict(start=3 if carry else 0, carry=_rand(F, rng, (3,)) if carry else None,
+                  head=_rand(F, rng, (3, tile + 2)) if head else None,
+                  fold=_rand(F, rng, ()) if fold else None)
+        got = ds.div_scan_replay(k, c, z, zinv, seed=flags, **REPLAY_TILES[tile], **kw)
+        assert torch.equal(got, ds.div_scan_plain(k, c, z, zinv, **kw)), flags
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 161])
+def test_pow_dot_replay_matches_plain(name, parts, n):
+    """Tiles of 2 warps x 4 lanes x 4 terms (2 or 4 chains a thread), B = 3,
+    a start, one z broadcast and three; odd and even lengths."""
+    F, _, _ = FIELDS[name]
+    k = get_ops(F)
+    rng = _rng(name, 200 + 2 * n + parts)
+    c = _rand(F, rng, (3, n))
+    pts = [_point(F, rng)[0] for _ in range(3)]
+    for z, start in ((torch.stack(pts), 0), (pts[0].expand(3, -1), 77)):
+        got = ds.pow_dot_replay(k, c, z, start, parts=parts, per_thread=4)
+        assert torch.equal(got, ds.pow_dot_plain(k, c, z, start, parts=parts))
+    if parts == 2:
+        got = ds.pow_dot_plain(k, c, z, start, parts=2)
+        assert got.shape == (3, 2, F.extension_degree)
+        for p in (0, 1):
+            assert torch.equal(got[:, p], ds.pow_dot_plain(k, c, z, start, 2, p))
+
+
+@pytest.mark.parametrize("name,fold", list(ds.GEOMETRY))
+def test_tile_bank_map(name, fold):
+    """csrc/div_scan.cu's swizzle of a tile's 16-byte units: a bijection; 8
+    threads reading the same offset of their chunks (the chunk passes) and
+    8 neighbouring units (the cp.async fill, the store) fall in 8 distinct
+    4-bank groups; the Fp4 fill through registers (element-wise) is 2-way."""
+    threads = ds.THREADS
+    per_thread, units = ds.GEOMETRY[(name, fold)]
+    log_chunk = (per_thread * units).bit_length() - 1
+    n = threads * per_thread * units
+    u = torch.arange(n)
+    slot = ds.tile_slot(u, log_chunk)
+    assert torch.equal(torch.sort(slot).values, u)
+    chunk = per_thread * units
+    for off in range(chunk):
+        for t0 in range(0, threads, 8):
+            groups = ds.tile_slot(torch.arange(t0, t0 + 8) * chunk + off, log_chunk) % 8
+            assert len(set(groups.tolist())) == 8
+    for u0 in range(0, n, 8):
+        assert len(set((slot[u0:u0 + 8] % 8).tolist())) == 8
+    # element-wise writes: 8 neighbouring threads write unit h of elements e..e+7
+    for e0 in range(0, threads * per_thread, 8):
+        for h in range(units):
+            groups = (ds.tile_slot(torch.arange(e0, e0 + 8) * units + h, log_chunk) % 8).tolist()
+            assert max(groups.count(g) for g in groups) == units
