@@ -8,8 +8,9 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
                leaf_hash, ntt, ntt_four_step, ntt_pipe, stream, digit level,
-               digit dot, div_scan and pow_dot instantiation has a 0-byte
-               stack frame and no spill, and the digit kernels' SASS holds the warpgroup MMA
+               digit dot, div_scan, pow_dot, field_ew (gl_ew, bb_ew) and
+               bb_fp4_mul instantiation has a 0-byte stack frame and no
+               spill, and the digit kernels' SASS holds the warpgroup MMA
                (IGMMA) and no mma.sync (IMMA)
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
                at the main paths' shapes, Goldilocks then BabyBear: exact
@@ -27,7 +28,13 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                (csrc/div_scan.cu) in Fp2 and Fp4 at the FRI and query
                rounds' shapes, with device ms and bound_frac, one launch a
                call, 50 calls back to back and 3 CUDA-graph replays equal
-               to the plain result
+               to the plain result; the field ops (csrc/field_ew.cu:
+               Goldilocks add, sub, neg and their Fp2 forms, BabyBear add,
+               sub, neg, mul and their Fp4 forms, the Fp4 product; the Fp2
+               product by a base scalar on gl_mul) at 2^21 elements, with a
+               broadcast, a strided and a CPU-scalar case each, device ms
+               and bound_frac, one call and one launch through the op the
+               provers call
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 over
                Goldilocks and steps 7 and 13 over BabyBear, with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
@@ -128,7 +135,11 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                divide run; each of the two launched once a call on every
                path and rank), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
-               the kernel bench and the bench's proves
+               the kernel bench and the bench's proves; every field op one
+               launch (the field kernels' launches equal their calls on
+               every path and rank; each path's are printed), gl_ew on
+               every Goldilocks path, bb_ew and bb_fp4_mul on every
+               BabyBear path
  16. processes no process that the script started is left: every child of
                this process has ended and been reaped (the ranks, and the
                resource tracker that the spawn method starts beside them,
@@ -369,13 +380,16 @@ def phase_build():
     # the radix-2 NTT's kernel is csrc/ntt.cu's ntt_pass<gl / bb>, the
     # four-step's csrc/ntt_four_step.cu's four_step_pass{1,2}<gl / bb>, the
     # pipe's csrc/ntt_pipe.cu's pipe_level<gl / bb>, the stream's
-    # stream_add1_kernel<1, 2, 4, 8>
+    # stream_add1_kernel<1, 2, 4, 8>, csrc/field_ew.cu's field_ew_contig /
+    # field_ew_strided<gl / bb, op, ...> and bb_fp4_mul_kernel<...>
     for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
                          ("ntt_four_step", "four_step_pass"),
                          ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel"),
                          ("digit_level", "digit_level_kernel"),
                          ("digit_dot", "digit_dot_kernel"),
-                         ("div_scan", "div_scan_kernel"), ("pow_dot", "pow_dot_kernel")):
+                         ("div_scan", "div_scan_kernel"), ("pow_dot", "pow_dot_kernel"),
+                         ("gl_ew / bb_ew", "field_ew_"),
+                         ("bb_fp4_mul", "bb_fp4_mul_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -755,6 +769,133 @@ def phase_kernels_bb(results):
             lambda: sh.binary_row_digests_cuda(comps),
             lambda: sh.binary_row_digests_plain(comps),
             rf.rows_work(1 << 19, 96), reps=5, plain_reps=1)
+
+
+def phase_kernels_field_ew(results):
+    """Phase 3 for the field ops (csrc/field_ew.cu, and gl_mul.cu's base
+    product under the Fp2 product by a base scalar): ms_gl_ew (add, sub,
+    neg, the Fp2 forms over the whole (..., 2) tensors), ms_bb_ew (add,
+    sub, neg, mul, the Fp4 forms and the product by a base scalar) and
+    ms_bb_fp4_mul, each against its plain version on the card (exact) at
+    2^21 elements (the shapes of the bounds), with one broadcast, one
+    strided and one CPU-scalar case a kernel, the 16-byte path where the
+    operands allow it, device ms and bound_frac (not for a CPU scalar,
+    whose copy to the card waits for it); then each row once through
+    the op the provers call (``field.dispatch``), which must count one call
+    and one launch. No PyTorch call computes a field op mod p."""
+    import numpy as np
+
+    from ministark_tpu_torch.fields import BABYBEAR_FP, GOLDILOCKS_FP, Goldilocks
+    from ministark_tpu_torch.ops import bb
+    from ministark_tpu_torch.ops import field as gl
+    from ministark_tpu_torch.stark import StarkConfig
+
+    rng = np.random.default_rng(SEED + 20)
+    compare = make_compare(results)
+    Q = StarkConfig(Goldilocks, 20, 2, MAIN_STEPS, 6).fri_queries
+    n21 = 1 << 21
+    ew = rf.EW_OPS
+
+    def row(kernel, label, op, cuda_fn, plain, args, work, vec=None, k=None):
+        """One kernel row: the path the wrapper takes (``vec``: 1 the
+        16-byte path, 0 the strided one, None a CPU scalar), the compare,
+        and one call of the dispatcher ``op``."""
+        mod = bb if kernel.startswith("bb_") else gl
+        if vec is not None:
+            x, y = args if len(args) == 2 else (args[0], args[0])
+            aligned = not (x.data_ptr() | y.data_ptr()) & 15
+            plan = (gl._mul_plan(x.shape, x.stride(), y.shape, y.stride(), aligned)
+                    if k is None else
+                    gl._ext_plan(x.shape, x.stride(), y.shape, y.stride(), aligned, k,
+                                 kernel))[1]
+            if plan[2] != vec:
+                fail(f"{kernel} {label}: the wrapper took the other path")
+        # a CPU scalar's copy to the card waits for the card: no device ms
+        on_card = all(t.is_cuda for t in args)
+        # torch ops take no CPU operand but a 0-d one: the plain version gets
+        # the CPU scalar's copy on the card
+        on_dev = tuple(t.cuda() for t in args)
+        rec = compare(kernel, label, lambda: cuda_fn(*args), lambda: plain(*on_dev),
+                      work, reps=10, device=on_card)
+        launches, calls = mod.launches[kernel], mod.calls[kernel]
+        op(*args)
+        got = (mod.launches[kernel] - launches, mod.calls[kernel] - calls)
+        rec["launches_per_call"] = got[0]
+        if got != (1, 1):
+            fail(f"{kernel} {label}: the op counted {got[1]} call(s) and "
+                 f"{got[0]} launch(es), expected 1 and 1")
+
+    p = GOLDILOCKS_FP.p
+    a, b = _rand_u64(rng, (6, n21), p), _rand_u64(rng, (n21,), p)
+    e, f = _rand_u64(rng, (n21, 2), p), _rand_u64(rng, (n21, 2), p)
+    cpu0, cpu2 = gl.pack_u64(p - 1), gl.pack_u64([12345, p - 1])
+    add, sub, neg = ew["gl", "add"], ew["gl", "sub"], ew["gl", "neg"]
+    for args in [
+            ("add (2^21,) x (2^21,), contiguous", gl.add, gl.add_cuda, gl.add_plain,
+             (a[0], b), rf.ew_work(a[0], b, add), 1),
+            ("sub (2^21,) x (2^21,), contiguous", gl.sub, gl.sub_cuda, gl.sub_plain,
+             (a[0], b), rf.ew_work(a[0], b, sub), 1),
+            ("neg (2^21,), contiguous", gl.neg, gl.neg_cuda, gl.neg_plain, (a[1],),
+             rf.ew_work(a[1], None, neg), 1),
+            ("ext_add (2^21, 2) x (2^21, 2), contiguous", gl.ext_add, gl.ext_add_cuda,
+             gl.ext_add_plain, (e, f), rf.ew_work(e, f, add), 1),
+            ("add (6, 2^21) x (2^21,) broadcast, strided", gl.add, gl.add_cuda,
+             gl.add_plain, (a, b), rf.ew_work(a, b, add), 0),
+            ("sub (2^21,) x (2^21,), strided (offset 1)", gl.sub, gl.sub_cuda,
+             gl.sub_plain, (a[0, 1:], a[1, :-1]), rf.ew_work(a[0, 1:], a[1, :-1], sub), 0),
+            ("ext_sub even / odd stride-2 slices (2^20, 2)", gl.ext_sub, gl.ext_sub_cuda,
+             gl.ext_sub_plain, (e[0::2], e[1::2]), rf.ew_work(e[0::2], e[1::2], sub), 0),
+            ("add (2^21,) x 0-d CPU scalar", gl.add, gl.add_cuda, gl.add_plain,
+             (a[2], cpu0), rf.ew_work(a[2], cpu0, add), None),
+            ("ext_add (2^21, 2) x (2,) CPU scalar", gl.ext_add, gl.ext_add_cuda,
+             gl.ext_add_plain, (e, cpu2), rf.ew_work(e, cpu2, add), None)]:
+        row("gl_ew", *args)
+    row("gl_mul", "ext_scale_base (2^21, 2) x (2^21,)", gl.ext_scale_base,
+        gl.ext_scale_base_cuda, gl.ext_scale_base_plain, (e, b),
+        rf.ew_work(e, b.unsqueeze(-1), rf.OPS_GL_MUL))
+    del a, b, e, f
+
+    p = BABYBEAR_FP.p
+    a, b = _rand_u64(rng, (6, n21), p), _rand_u64(rng, (n21,), p)
+    g, h = _rand_u64(rng, (n21, 4), p), _rand_u64(rng, (n21, 4), p)
+    cpu0, cpu4 = gl.pack_u64(p - 1), gl.pack_u64([1, 12345, p - 1, p - 2])
+    add, mul, neg = ew["bb", "add"], ew["bb", "mul"], ew["bb", "neg"]
+    for args in [
+            ("mul (2^21,) x (2^21,), contiguous", bb.mul, bb.mul_cuda, bb.mul_plain,
+             (a[0], b), rf.ew_work(a[0], b, mul), 1),
+            ("add (2^21,) x (2^21,), contiguous", bb.add, bb.add_cuda, bb.add_plain,
+             (a[0], b), rf.ew_work(a[0], b, add), 1),
+            ("sub (2^21,) x (2^21,), contiguous", bb.sub, bb.sub_cuda, bb.sub_plain,
+             (a[0], b), rf.ew_work(a[0], b, ew["bb", "sub"]), 1),
+            ("neg (2^21,), contiguous", bb.neg, bb.neg_cuda, bb.neg_plain, (a[1],),
+             rf.ew_work(a[1], None, neg), 1),
+            ("fp4_add (2^21, 4) x (2^21, 4), contiguous", bb.fp4_add, bb.fp4_add_cuda,
+             bb.fp4_add_plain, (g, h), rf.ew_work(g, h, add), 1),
+            ("fp4_scale_base (2^21, 4) x (2^21,)", bb.fp4_scale_base,
+             bb.fp4_scale_base_cuda, bb.fp4_scale_base_plain, (g, b),
+             rf.ew_work(g, b.unsqueeze(-1), mul)),
+            ("mul (6, 2^21) x (2^21,) broadcast, strided", bb.mul, bb.mul_cuda,
+             bb.mul_plain, (a, b), rf.ew_work(a, b, mul), 0),
+            ("mul (2^21,) x (2^21,), strided (offset 1)", bb.mul, bb.mul_cuda,
+             bb.mul_plain, (a[0, 1:], a[1, :-1]), rf.ew_work(a[0, 1:], a[1, :-1], mul), 0),
+            ("mul (2^21,) x 0-d CPU scalar", bb.mul, bb.mul_cuda, bb.mul_plain,
+             (a[2], cpu0), rf.ew_work(a[2], cpu0, mul), None),
+            ("fp4_add (2^21, 4) x (4,) CPU scalar", bb.fp4_add, bb.fp4_add_cuda,
+             bb.fp4_add_plain, (g, cpu4), rf.ew_work(g, cpu4, add), None)]:
+        row("bb_ew", *args)
+
+    qa, qb = _rand_u64(rng, (Q, 1 << 20, 4), p), _rand_u64(rng, (Q, 1 << 20, 4), p)
+    for label, x, y, vec in [
+            ("(2^21, 4) x (2^21, 4)", g, h, 1),
+            (f"query round ({Q}, 2^20, 4) x ({Q}, 2^20, 4)", qa, qb, 1),
+            (f"powers ({Q}, 2^19, 4) x ({Q}, 1, 4) broadcast", qa[:, : 1 << 19],
+             qb[:, :1], 1),
+            ("even / odd stride-2 slices (2^20, 4)", g[0::2], g[1::2], 1),
+            ("component-strided (2^21, 4) x (2^21, 4)", g.T.contiguous().T, h, 0),
+            ("(2^21, 4) x (4,) CPU scalar", g, cpu4, None)]:
+        row("bb_fp4_mul", label, bb.fp4_mul, bb.fp4_mul_cuda, bb.fp4_mul_plain,
+            (x, y), rf.ext_mul_work(x, y, "bb4"), vec, k=4)
+    del a, b, g, h, qa, qb
 
 
 def phase_kernels_digit(results):
@@ -1160,7 +1301,9 @@ def _reference_commits(engine, trace):
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and the call counts of
+    the field ops and the division scan."""
+    from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
@@ -1172,17 +1315,20 @@ def reset_counts():
     from ministark_tpu_torch.ops import stream
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
-                   fs.pass2_launches, pp.launches, nd.launches, ds.launches, ds.calls):
+                   fs.pass2_launches, pp.launches, nd.launches, ds.launches, ds.calls,
+                   gl.launches, gl.calls, bb.launches, bb.calls):
         for key in counts:
             counts[key] = 0
-    sh.launches = sh.row_launches = gl.launches = gl.ext_launches = 0
+    sh.launches = sh.row_launches = 0
     stream.launches = 0
     sh.fan_launches = {}
 
 
 def read_counts():
     """({kernel: launches}, {fan: inner-level launches}) since reset_counts,
-    with each NTT kernel and the leaf hash split by field ("_bb")."""
+    with each NTT kernel and the leaf hash split by field ("_bb"), and the
+    calls of the field ops and the division scan ("<kernel> calls")."""
+    from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
     from ministark_tpu_torch.ops import leaf_hash as lh
@@ -1194,11 +1340,11 @@ def read_counts():
     from ministark_tpu_torch.ops import stream
 
     counts = {"sha256_inner_level": sh.launches, "sha256_rows": sh.row_launches,
-              "gl_mul": gl.launches, "gl_ext_mul": gl.ext_launches,
               "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
-              **nd.launches, **ds.launches,
-              **{f"{name} calls": n for name, n in ds.calls.items()}}
+              **nd.launches, **ds.launches, **gl.launches, **bb.launches,
+              **{f"{name} calls": n
+                 for name, n in {**ds.calls, **gl.calls, **bb.calls}.items()}}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
         counts["ntt" + suffix] = ntt.launches[tag]
         counts["ntt_four_step_pass1" + suffix] = fs.pass1_launches[tag]
@@ -1209,15 +1355,24 @@ def read_counts():
 
 def one_launch_a_call(launches, where):
     """Fails unless each division scan and pow_dot kernel launched once for
-    each of its wrapper's calls (the "<kernel> calls" counts)."""
+    each of its wrapper's calls, and each field kernel (gl_mul, gl_ext_mul,
+    gl_ew, bb_ew, bb_fp4_mul) once for each field op that took it (the
+    "<kernel> calls" counts)."""
     for key, n in launches.items():
         if key.endswith(" calls") and launches[key[:-6]] != n:
             fail(f"{key[:-6]}: {launches[key[:-6]]} launches for {n} calls on {where}")
 
 
+FIELD_KERNELS = ("gl_mul", "gl_ext_mul", "gl_ew", "bb_ew", "bb_fp4_mul")
+
+
 def record(results, path, launches):
-    """The kernels a path's run launched, under that path."""
+    """The kernels a path's run launched, under that path; prints the field
+    kernels' launches and calls."""
     one_launch_a_call(launches, f"the {path} path")
+    say("launches", f"{path}: field ops " + json.dumps(
+        {k: [launches[k], launches[f"{k} calls"]] for k in FIELD_KERNELS
+         if launches[k] or launches[f"{k} calls"]}) + " ([launches, calls])")
     for name, count in launches.items():
         if count and name in results:
             results[name]["paths"][path] = count
@@ -2144,7 +2299,7 @@ def _core_digest(out):
 def _core_plain(cols, shift, weights):
     """The Goldilocks Fibonacci core with every kernel's plain version:
     ntt.transform_plain for the iFFT and the coset LDE, the transitions,
-    mix and fold with the plain product (torch ops, no kernel)."""
+    mix and fold with the plain field ops (torch ops, no kernel)."""
     import dataclasses
 
     import torch
@@ -2158,7 +2313,9 @@ def _core_plain(cols, shift, weights):
     from ministark_tpu_torch.poly import Radix2EvaluationDomain
 
     F = GOLDILOCKS_FP
-    kp = dataclasses.replace(get_ops(F), mul=gl.mul_plain, scale_base=gl.mul_plain)
+    kp = dataclasses.replace(get_ops(F), add=gl.add_plain, sub=gl.sub_plain,
+                             neg=gl.neg_plain, mul=gl.mul_plain,
+                             scale_base=gl.mul_plain)
     n = cols.shape[1]
     tp = ntt.transform_plain(cols, inverse=True, field=F)
     trans = _fib_transitions(kp, Radix2EvaluationDomain(F, n).group_gen)
@@ -2411,6 +2568,12 @@ _CORE_PATHS = ("core", "sharded_core")
 _PARITY_PATHS = ("parity", "mimc", "bench_prove") + tuple(
     f"parity_{b}" for b in NTT_BACKENDS)
 _PARITY_BB_PATHS = ("parity_bb",) + tuple(f"parity_bb_{b}" for b in NTT_BACKENDS)
+# every Goldilocks and every BabyBear 2^20 - 1 prove (the sharded and core
+# ones Goldilocks)
+_GL_PATHS = (("parity", "fast") + _BACKEND_PATHS + _LDT_PATHS + ("mimc", "bench_prove")
+             + _SHARDED_PATHS + _CORE_PATHS)
+_ALL_BB_PATHS = (_BB_PATHS + _LDT_BB_PATHS
+                 + tuple(f"{p}_bb_{b}" for p in ("parity", "fast") for b in NTT_BACKENDS))
 # name -> (source, the TPU kernel it replaces, the paths whose 2^20 - 1 prove
 # must launch it). The BabyBear entries are the same sources' bb
 # instantiations (the NTTs) and 10-digit path (the leaf hash).
@@ -2483,6 +2646,15 @@ KERNELS = {
                     "ministark_tpu/ops/poly_device.py:279", _PARITY_BB_PATHS),
     "div_scan_bb4": ("ministark_tpu_torch/csrc/div_scan.cu",
                      "ministark_tpu/ops/planar.py:391", _PARITY_BB_PATHS + ("stir_bb",)),
+    # the field ops XLA fused (ROADMAP X6, X7): Goldilocks add / sub / neg
+    # and their Fp2 forms; BabyBear add / sub / neg / mul and the Fp4 forms;
+    # the Fp4 product
+    "gl_ew": ("ministark_tpu_torch/csrc/field_ew.cu", "ministark_tpu/ops/gl.py:82",
+              _GL_PATHS),
+    "bb_ew": ("ministark_tpu_torch/csrc/field_ew.cu", "ministark_tpu/ops/bb.py:40",
+              _ALL_BB_PATHS),
+    "bb_fp4_mul": ("ministark_tpu_torch/csrc/field_ew.cu",
+                   "ministark_tpu/ops/bb.py:127", _ALL_BB_PATHS),
 }
 
 
@@ -2499,6 +2671,7 @@ def main():
                for name in KERNELS}
     phase_kernels(results)
     phase_kernels_bb(results)
+    phase_kernels_field_ew(results)
     phase_kernels_digit(results)
     phase_kernels_div_scan(results)
     phase_parity()

@@ -7,38 +7,101 @@ u)) over Fp2 = Fp[u] / (u^2 - 11) (reference src/field.rs:64-109). The CUDA
 kernels read the same storage as ``uint64_t`` (csrc/bb.cuh).
 
 The JAX package computes BabyBear arithmetic in XLA, outside any Pallas
-kernel, so these are plain torch ops on every device: a product of two
-values below 2^31 fits int64, so ``mul`` is a product and a remainder, and
-``add``/``sub`` a sum and a remainder (torch's ``%`` takes the sign of the
-divisor, so the result is canonical). The outputs are the exact field values
-the JAX package computes, whatever the formula.
+kernel, which fuses each op into one kernel. Here every op dispatches by the
+tensors' device, as ops/field.py's do (``field.dispatch``): CPU tensors take
+its plain version, torch ops that launch no kernel (a product of two values
+below 2^31 fits int64, so ``mul_plain`` is a product and a remainder, and
+``add_plain`` / ``sub_plain`` a sum and a remainder; torch's ``%`` takes the
+sign of the divisor, so the result is canonical); a CUDA operand launches
+one kernel or raises: ``add``, ``sub``, ``neg``, ``mul`` and the Fp4
+``fp4_add``, ``fp4_sub``, ``fp4_neg`` and ``fp4_scale_base`` are
+csrc/field_ew.cu's ``ms_bb_ew`` (bb.cuh's 32-bit add and sub, its Barrett
+product), ``fp4_mul`` its ``ms_bb_fp4_mul``. The kernels take canonical
+operands. The outputs are the exact field values the JAX package computes,
+whatever the formula.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import field
+
 P = 2013265921
 NR_FP2 = 11                 # Fp2 = Fp[u] / (u^2 - 11)
 NR_FP4_C0 = 2013265910      # Fp4 nonresidue = Fp2(2013265910, 1)
 
+# Incremented once per launch of each kernel (csrc/field_ew.cu).
+launches = {"bb_ew": 0, "bb_fp4_mul": 0}
+# Incremented once per call of an op that takes a kernel with an output to
+# compute (``field.dispatch``).
+calls = dict.fromkeys(launches, 0)
+
 
 # --------------------------------------------------------------- base field
-def add(a, b):
+def add_plain(a, b):
     return (a + b) % P
 
 
-def sub(a, b):
+def sub_plain(a, b):
     return (a - b) % P
 
 
-def neg(a):
+def neg_plain(a):
     return (-a) % P
 
 
-def mul(a, b):
+def mul_plain(a, b):
     """(a * b) mod p for canonical operands (the product is below 2^62)."""
     return (a * b) % P
+
+
+def add_cuda(a, b, scalar_dim=0):
+    """CUDA kernel (csrc/field_ew.cu ``ms_bb_ew``, ADD), same contract as
+    ``add_plain`` on canonical operands: broadcast, strided operands read in
+    place (``field.ew_cuda``), one launch, a contiguous output. Replaces
+    ``ministark_tpu/ops/bb.py::add`` (:40), which XLA fused on the TPU.
+    Bound on this card: device-memory bandwidth (24 bytes an element
+    against ~3 integer operations)."""
+    return field.ew_cuda("bb_ew", field.ADD, a, b, launches, scalar_dim)
+
+
+def sub_cuda(a, b, scalar_dim=0):
+    """``add_cuda`` with SUB (``ministark_tpu/ops/bb.py::sub`` :45)."""
+    return field.ew_cuda("bb_ew", field.SUB, a, b, launches, scalar_dim)
+
+
+def neg_cuda(a):
+    """``add_cuda`` with NEG, 0 - a, no second operand read
+    (``ministark_tpu/ops/bb.py::neg`` :49)."""
+    return field.ew_cuda("bb_ew", field.NEG, a, None, launches)
+
+
+def mul_cuda(a, b, scalar_dim=0):
+    """``add_cuda`` with MUL, bb.cuh's Barrett product, no 64-bit division
+    (``ministark_tpu/ops/bb.py::mul`` :53; was a product and an int64 ``%``,
+    a division the card emulates). Bound: bytes (24 an element against ~18
+    integer operations)."""
+    return field.ew_cuda("bb_ew", field.MUL, a, b, launches, scalar_dim)
+
+
+def add(a, b):
+    """(a + b) mod p. Dispatch by device: CPU tensors -> ``add_plain``; a
+    CUDA tensor (with a CUDA tensor or a 0-d scalar) -> ``add_cuda``, the
+    kernel, or raise."""
+    return field.dispatch(add_plain, add_cuda, calls, "bb_ew", a, b)
+
+
+def sub(a, b):
+    return field.dispatch(sub_plain, sub_cuda, calls, "bb_ew", a, b)
+
+
+def neg(a):
+    return field.dispatch(neg_plain, neg_cuda, calls, "bb_ew", a)
+
+
+def mul(a, b):
+    return field.dispatch(mul_plain, mul_cuda, calls, "bb_ew", a, b)
 
 
 def _pow(mul_fn, one, a, e: int):
@@ -60,13 +123,14 @@ def pow(a, e: int):
 
 # --------------------------------------------------------------- Fp2, Fp4
 def fp2_mul(a, b):
-    """(..., 2) tensors: Karatsuba with NR = 11 (``bb.py::fp2_mul``)."""
+    """(..., 2) tensors: Karatsuba with NR = 11 (``bb.py::fp2_mul``), in
+    torch ops (a part of ``fp4_mul_plain``)."""
     a0, a1 = a[..., 0], a[..., 1]
     b0, b1 = b[..., 0], b[..., 1]
-    v0 = mul(a0, b0)
-    v1 = mul(a1, b1)
-    c0 = add(v0, mul(v1, NR_FP2))
-    c1 = sub(mul(add(a0, a1), add(b0, b1)), add(v0, v1))
+    v0 = mul_plain(a0, b0)
+    v1 = mul_plain(a1, b1)
+    c0 = add_plain(v0, mul_plain(v1, NR_FP2))
+    c1 = sub_plain(mul_plain(add_plain(a0, a1), add_plain(b0, b1)), add_plain(v0, v1))
     return torch.stack([c0, c1], -1)
 
 
@@ -74,31 +138,89 @@ def _fp2_mul_nr4(a):
     """Fp2 element times the Fp4 nonresidue (2013265910 + u):
     (a0 + a1 u)(k + u) = (a0 k + 11 a1) + (a1 k + a0) u."""
     a0, a1 = a[..., 0], a[..., 1]
-    c0 = add(mul(a0, NR_FP4_C0), mul(a1, NR_FP2))
-    c1 = add(mul(a1, NR_FP4_C0), a0)
+    c0 = add_plain(mul_plain(a0, NR_FP4_C0), mul_plain(a1, NR_FP2))
+    c1 = add_plain(mul_plain(a1, NR_FP4_C0), a0)
     return torch.stack([c0, c1], -1)
 
 
-fp4_add = add
-fp4_sub = sub
-fp4_neg = neg
+fp4_add_plain = add_plain
+fp4_sub_plain = sub_plain
+fp4_neg_plain = neg_plain
 
 
-def fp4_mul(a, b):
+def fp4_mul_plain(a, b):
     """(..., 4) tensors in tower order, Karatsuba over Fp2
-    (``bb.py::fp4_mul``); the operands broadcast."""
+    (``bb.py::fp4_mul``), in torch ops; the operands broadcast. The plain
+    version of ``fp4_mul_cuda``."""
     a0, a1 = a[..., :2], a[..., 2:]
     b0, b1 = b[..., :2], b[..., 2:]
     v0 = fp2_mul(a0, b0)
     v1 = fp2_mul(a1, b1)
-    c0 = add(v0, _fp2_mul_nr4(v1))
-    c1 = sub(fp2_mul(add(a0, a1), add(b0, b1)), add(v0, v1))
+    c0 = add_plain(v0, _fp2_mul_nr4(v1))
+    c1 = sub_plain(fp2_mul(add_plain(a0, a1), add_plain(b0, b1)), add_plain(v0, v1))
     return torch.cat([c0, c1], -1)
 
 
-def fp4_scale_base(a, s):
+def fp4_scale_base_plain(a, s):
     """Fp4 element times a base scalar (s broadcasts over a[..., 0])."""
-    return mul(a, s.unsqueeze(-1))
+    return mul_plain(a, s.unsqueeze(-1))
+
+
+def fp4_add_cuda(a, b):
+    """Fp4 addition is componentwise: ``add_cuda`` over the whole (..., 4)
+    tensors; a CPU (4,) scalar joins a CUDA operand."""
+    return add_cuda(a, b, scalar_dim=1)
+
+
+def fp4_sub_cuda(a, b):
+    return sub_cuda(a, b, scalar_dim=1)
+
+
+def fp4_scale_base_cuda(a, s):
+    """One ``mul_cuda`` launch on (a, s broadcast over the component axis)."""
+    return mul_cuda(a, s.unsqueeze(-1), scalar_dim=1)
+
+
+def fp4_mul_cuda(a, b):
+    """CUDA kernel (csrc/field_ew.cu ``ms_bb_fp4_mul``), same contract as
+    ``fp4_mul_plain``: (..., 4) operands that broadcast over their leading
+    axes, read in place through their strides (0 on a broadcast axis) and
+    their component strides (``field.ext_cuda`` with k = 4); a CPU (4,)
+    scalar joins a CUDA operand. One launch (was about 80 torch ops); the
+    output is a contiguous (..., 4) tensor.
+
+    Replaces ``ministark_tpu/ops/bb.py::fp4_mul`` (:127), which XLA fused on
+    the TPU; the twin of ``field.ext_mul_cuda``. Bound on this card:
+    device-memory bandwidth (64 bytes read and 32 written per product
+    against ~333 integer operations); operands with adjacent components and
+    16-byte aligned elements take two 16-byte loads per element."""
+    return field.ext_cuda("bb_fp4_mul", 4, a, b, launches)
+
+
+def fp4_add(a, b):
+    """Sum in Fp4, dispatched as ``add``."""
+    return field.dispatch(fp4_add_plain, fp4_add_cuda, calls, "bb_ew", a, b)
+
+
+def fp4_sub(a, b):
+    return field.dispatch(fp4_sub_plain, fp4_sub_cuda, calls, "bb_ew", a, b)
+
+
+def fp4_neg(a):
+    return field.dispatch(fp4_neg_plain, neg_cuda, calls, "bb_ew", a)
+
+
+def fp4_mul(a, b):
+    """Product in Fp4. Dispatch by device: CPU tensors -> ``fp4_mul_plain``;
+    a CUDA tensor (with a CUDA tensor or a CPU scalar) -> ``fp4_mul_cuda``,
+    the kernel, or raise."""
+    return field.dispatch(fp4_mul_plain, fp4_mul_cuda, calls, "bb_fp4_mul", a, b)
+
+
+def fp4_scale_base(a, s):
+    """Fp4 element times a base scalar, dispatched as ``mul``."""
+    return field.dispatch(fp4_scale_base_plain, fp4_scale_base_cuda, calls, "bb_ew",
+                          a, s)
 
 
 def _fp4_one(a):

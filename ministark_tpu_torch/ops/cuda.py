@@ -29,9 +29,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu",
-           "div_scan.cu")
-HEADERS = ("gl.cuh", "bb.cuh", "ext_field.cuh", "ntt_common.cuh", "ntt_stages.cuh",
-           "sha256.cuh", "wgmma_s8.cuh")
+           "div_scan.cu", "field_ew.cu")
+HEADERS = ("gl.cuh", "bb.cuh", "ext_field.cuh", "elementwise.cuh", "ntt_common.cuh",
+           "ntt_stages.cuh", "sha256.cuh", "wgmma_s8.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -64,6 +64,10 @@ _SIGNATURES = {
     # a, b, out, plan (int64[ops/field.py::PLAN_LEN]), stream
     "ms_gl_mul": [_P, _P, _P, _I64P, _P],
     "ms_gl_ext_mul": [_P, _P, _P, _I64P, _P],
+    # csrc/field_ew.cu: a, b, out, plan, op (ops/field.py::ADD, SUB, NEG,
+    # MUL), stream; the Fp4 product a, b, out, plan, stream
+    "ms_gl_ew": [_P, _P, _P, _I64P, _I, _P], "ms_bb_ew": [_P, _P, _P, _I64P, _I, _P],
+    "ms_bb_fp4_mul": [_P, _P, _P, _I64P, _P],
     # x, c, batch, log_n1, log_n2, w2 stage roots, wpow, pre lo / hi
     # (ops/ntt.py::coset_tables), stream
     "ms_ntt_four_step_pass1_gl": _PASS1, "ms_ntt_four_step_pass1_bb": _PASS1,

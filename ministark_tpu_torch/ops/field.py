@@ -8,13 +8,18 @@ canonical u64 bit pattern (values >= 2^63 read as negative), and an Fp2
 element adds a trailing axis of 2 (c0, c1), with u^2 = 7. CUDA kernels
 reinterpret the same storage as ``uint64_t``.
 
-Add and subtract are plain torch ops and run on the CPU and on CUDA alike
-(the JAX package has no Pallas kernel for them). ``mul`` and ``ext_mul``
-dispatch by the tensors' device: on the CPU they take ``mul_plain`` and
-``ext_mul_plain``, on a CUDA tensor they launch csrc/gl_mul.cu's base or
-Fp2 product kernel or raise, so every caller (``pow``, ``ext_pow``,
-ops/poly.py, the engines, the FRI code) gets one kernel launch per product
-on the card. torch has no unsigned 64-bit arithmetic and a
+Every op dispatches by the tensors' device: CPU tensors take its plain
+version (``add_plain``, ``mul_plain``, ``ext_mul_plain``, ...), torch ops
+that launch no kernel; a CUDA operand launches one kernel or raises, with
+no fallback: ``add``, ``sub`` and ``neg`` csrc/field_ew.cu's ``ms_gl_ew``
+(the Fp2 forms over the whole (..., 2) tensors), ``mul`` and
+``ext_scale_base`` csrc/gl_mul.cu's base product, ``ext_mul`` its Fp2
+product. So every caller (``pow``, ``ext_pow``, ops/poly.py, the engines,
+the FRI code) gets one launch per field op on the card, as XLA fused each
+op into one kernel on the TPU. The plan that addresses broadcast, strided
+operands in place (``_plan``) is shared by those kernels and ops/bb.py's.
+
+torch has no unsigned 64-bit arithmetic and a
 64x64 -> 128 product fits no dtype, so the plain ops split their operands
 into 32-bit halves (and the multiply into 16-bit limbs) so that no
 intermediate leaves [-2^63, 2^63): the results do not depend on wrapping
@@ -125,18 +130,19 @@ def _mul_h(alo, ahi, blo, bhi):
 
 
 # --------------------------------------------------------------- base field
-def add(a, b):
-    """(a + b) mod p."""
+def add_plain(a, b):
+    """(a + b) mod p in torch ops: the plain version of ``add_cuda``."""
     return _join(*_add_h(*_split(a), *_split(b)))
 
 
-def sub(a, b):
-    """(a - b) mod p."""
+def sub_plain(a, b):
+    """(a - b) mod p in torch ops: the plain version of ``sub_cuda``."""
     return _join(*_sub_h(*_split(a), *_split(b)))
 
 
-def neg(a):
-    return sub(torch.zeros_like(a), a)
+def neg_plain(a):
+    """-a mod p in torch ops: the plain version of ``neg_cuda``."""
+    return sub_plain(torch.zeros_like(a), a)
 
 
 def mul_plain(a, b):
@@ -144,14 +150,19 @@ def mul_plain(a, b):
     return _join(*_mul_h(*_split(a), *_split(b)))
 
 
-# Incremented once per call that launches the gl_mul kernel (``launches``)
-# or the Fp2 product kernel (``ext_launches``).
-launches = 0
-ext_launches = 0
+# Incremented once per launch of each kernel: csrc/gl_mul.cu's base and Fp2
+# products, csrc/field_ew.cu's add / sub / neg.
+launches = {"gl_mul": 0, "gl_ext_mul": 0, "gl_ew": 0}
+# Incremented once per call of an op (``add``, ``ext_add``, ``mul``, ...)
+# that takes a kernel with an output to compute (``dispatch``): a run whose
+# launches equal its calls launched once an op.
+calls = dict.fromkeys(launches, 0)
+# csrc/field_ew.cu's op codes
+ADD, SUB, NEG, MUL = 0, 1, 2, 3
 
-MUL_MAX_DIMS = 4   # csrc/gl_mul.cu addresses operands with up to 4 strides
-# csrc/gl_mul.cu's plan: numel, ndim, vec, wide, ca, cb, then size, a's and
-# b's strides, magic and shift, MUL_MAX_DIMS each
+MUL_MAX_DIMS = 4   # csrc/elementwise.cuh addresses operands with up to 4 strides
+# csrc/elementwise.cuh's plan: numel, ndim, vec, wide, ca, cb, then size,
+# a's and b's strides, magic and shift, MUL_MAX_DIMS each
 PLAN_LEN = 6 + 5 * MUL_MAX_DIMS
 _PlanArray = ctypes.c_int64 * PLAN_LEN
 _I31 = 1 << 31
@@ -186,29 +197,30 @@ def _broadcast_strides(shape, t_shape, t_stride):
 
 def _magic(d: int):
     """(magic, shift) of the round-up multiply-high division by 0 < d < 2^31
-    that csrc/gl_mul.cu runs on 32-bit indices: for every i < 2^31,
+    that csrc/elementwise.cuh runs on 32-bit indices: for every i < 2^31,
     i // d == ((i * magic >> 32) + i) >> shift."""
     shift = (d - 1).bit_length()                  # the least s with 2^s >= d
     return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
 
 
-def _plan(shape, sa, sb, vec: bool, ca: int = 0, cb: int = 0):
-    """The int64 plan of one csrc/gl_mul.cu launch over the row-major
-    ``shape`` with operand element strides ``sa`` / ``sb`` (and, for the Fp2
-    kernel, component strides ``ca`` / ``cb``): the merged axes, their magic
-    numbers, and whether the call needs 64-bit indices. ``vec`` asks for the
-    16-byte path; it is kept only where the kernel can take it."""
+def _plan(shape, sa, sb, vec: bool, ca: int = 0, cb: int = 0, k: int = 1):
+    """The int64 plan of one elementwise launch (csrc/elementwise.cuh) over
+    the row-major ``shape`` with operand element strides ``sa`` / ``sb``
+    (and, for an extension product of ``k`` components, component strides
+    ``ca`` / ``cb``): the merged axes, their magic numbers, and whether the
+    call needs 64-bit indices. ``vec`` asks for the 16-byte path; it is kept
+    only where the kernel can take it."""
     numel = 1
     for size in shape:
         numel *= size
     sizes, (sa, sb) = _collapse(shape, sa, sb)
     if len(sizes) > MUL_MAX_DIMS:
-        raise ValueError(f"gl_mul: operands of shape {tuple(shape)} need "
-                         f"{len(sizes)} strided axes, the kernel takes "
+        raise ValueError(f"elementwise kernel: operands of shape {tuple(shape)} "
+                         f"need {len(sizes)} strided axes, the kernels take "
                          f"{MUL_MAX_DIMS}")
     if not sizes:                                  # one element
         sizes, sa, sb = [1], [0], [0]
-    reach = max(sum((n - 1) * s for n, s in zip(sizes, st)) + c
+    reach = max(sum((n - 1) * s for n, s in zip(sizes, st)) + (k - 1) * c
                 for st, c in ((sa, ca), (sb, cb)))
     wide = numel >= _I31 or reach >= _I31
     magics = [_magic(n) if n < _I31 else (0, 0) for n in sizes]
@@ -220,8 +232,9 @@ def _plan(shape, sa, sb, vec: bool, ca: int = 0, cb: int = 0):
 
 @functools.lru_cache(maxsize=4096)
 def _mul_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
-    """(output shape, plan or None when the output is empty) of a base
-    product; the 16-byte path when both operands are contiguous over the
+    """(output shape, plan or None when the output is empty) of a launch in
+    the base layout (a product, an add, a sub, or a neg with a in b's
+    place); the 16-byte path when both operands are contiguous over the
     whole output and 16-byte aligned."""
     shape = torch.broadcast_shapes(a_shape, b_shape)
     if shape.numel() == 0:
@@ -234,16 +247,18 @@ def _mul_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
 
 
 @functools.lru_cache(maxsize=4096)
-def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
-    """(output shape, plan or None) of an Fp2 product over the leading axes;
+def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool, k: int = 2,
+              kernel: str = "gl_ext_mul"):
+    """(output shape, plan or None) of an extension product of ``k``
+    components (Fp2; ops/bb.py's Fp4 with k = 4) over the leading axes;
     16-byte loads when both operands' components are adjacent and every
     element starts on a 16-byte boundary (even strides, aligned base)."""
     for t_shape, name in ((a_shape, "a"), (b_shape, "b")):
-        if len(t_shape) < 1 or t_shape[-1] != 2:
-            raise ValueError(f"gl_ext_mul: {name} must have a trailing axis of "
-                             f"2 (c0, c1), got shape {tuple(t_shape)}")
+        if len(t_shape) < 1 or t_shape[-1] != k:
+            raise ValueError(f"{kernel}: {name} must have a trailing axis of "
+                             f"{k} components, got shape {tuple(t_shape)}")
     lead = torch.broadcast_shapes(a_shape[:-1], b_shape[:-1])
-    shape = lead + (2,)
+    shape = lead + (k,)
     if lead.numel() == 0:
         return shape, None
     sa = _broadcast_strides(lead, a_shape[:-1], a_stride[:-1])
@@ -251,16 +266,16 @@ def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
     ca, cb = a_stride[-1], b_stride[-1]
     vec = (aligned and ca == 1 and cb == 1
            and all(s % 2 == 0 for s in sa + sb))
-    return shape, _plan(lead, sa, sb, vec, ca, cb)
+    return shape, _plan(lead, sa, sb, vec, ca, cb, k)
 
 
 def _on_device(t: torch.Tensor, name: str, device, kernel="gl_mul",
                scalar_dim=0) -> torch.Tensor:
-    """t on ``device``: a CPU scalar (0-d, or (2,) for the Fp2 kernel with
-    ``scalar_dim`` 1) is moved there, as torch's own binary ops move a 0-d
-    one; any other tensor elsewhere is refused."""
+    """t on ``device``: a CPU scalar (0-d, or with ``scalar_dim`` 1 one
+    extension element of at most 4 components) is moved there, as torch's
+    own binary ops move a 0-d one; any other tensor elsewhere is refused."""
     if t.device != device:
-        if t.device.type == "cpu" and t.dim() == scalar_dim and t.numel() <= 2:
+        if t.device.type == "cpu" and t.dim() <= scalar_dim and t.numel() <= 4:
             return t.to(device)
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
     return t
@@ -282,7 +297,84 @@ def _operands(a, b, kernel, scalar_dim=0):
     return a, b
 
 
-def mul_cuda(a, b):
+def dispatch(plain, kernel, counts, name, *ts):
+    """One field op by the tensors' device: ``plain(*ts)`` when every tensor
+    is on the CPU, else ``kernel(*ts)``, which launches kernel ``name`` once
+    or raises; the call counts in ``counts[name]`` unless its output is
+    empty (an operand with no element: nothing to launch)."""
+    if all(t.device.type == "cpu" for t in ts):
+        return plain(*ts)
+    if all(t.numel() for t in ts):
+        counts[name] += 1
+    return kernel(*ts)
+
+
+def ew_cuda(name, op, a, b, counts, scalar_dim=0):
+    """One launch of the elementwise kernel ``ms_<name>`` over the broadcast
+    operands, read in place through their element strides (0 on a broadcast
+    axis), with op code ``op`` (csrc/field_ew.cu's ``gl_ew`` / ``bb_ew``;
+    None for gl_mul.cu's ``gl_mul``, which takes none); for NEG ``b`` is
+    None and a takes its place in the plan, unread. A CPU scalar
+    (``_on_device``, ``scalar_dim``) joins a CUDA operand; the output is
+    contiguous. Counted in ``counts[name]``."""
+    a, b = _operands(a, a if b is None else b, name, scalar_dim)
+    pa, pb = a.data_ptr(), b.data_ptr()
+    shape, plan = _mul_plan(a.shape, a.stride(), b.shape, b.stride(),
+                            not (pa | pb) & 15)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if plan is None:
+        return out
+    args = () if op is None else (op,)
+    err = getattr(cuda.library(), "ms_" + name)(pa, pb, out.data_ptr(), plan, *args,
+                                                cuda.stream_ptr(out))
+    cuda.check(name, err)
+    counts[name] += 1
+    return out
+
+
+def ext_cuda(name, k, a, b, counts):
+    """One launch of the extension product ``ms_<name>`` (``gl_ext_mul``,
+    k = 2; ops/bb.py's ``bb_fp4_mul``, k = 4) over (..., k) operands that
+    broadcast over their leading axes, read in place through their strides
+    and component strides (``_ext_plan``); a CPU (k,) scalar joins a CUDA
+    operand; the output is a contiguous (..., k) tensor. Counted in
+    ``counts[name]``."""
+    a, b = _operands(a, b, name, scalar_dim=1)
+    pa, pb = a.data_ptr(), b.data_ptr()
+    shape, plan = _ext_plan(a.shape, a.stride(), b.shape, b.stride(),
+                            not (pa | pb) & 15, k, name)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if plan is None:
+        return out
+    err = getattr(cuda.library(), "ms_" + name)(pa, pb, out.data_ptr(), plan,
+                                                cuda.stream_ptr(out))
+    cuda.check(name, err)
+    counts[name] += 1
+    return out
+
+
+def add_cuda(a, b, scalar_dim=0):
+    """CUDA kernel (csrc/field_ew.cu ``ms_gl_ew``, ADD), same contract as
+    ``add_plain`` and ``mul_cuda``: broadcast, strided operands read in
+    place, one launch, a contiguous output. Replaces ``ministark_tpu/ops/
+    gl.py::add`` (:82), which XLA fused on the TPU. Bound on this card:
+    device-memory bandwidth (24 bytes an element against ~8 integer
+    operations)."""
+    return ew_cuda("gl_ew", ADD, a, b, launches, scalar_dim)
+
+
+def sub_cuda(a, b, scalar_dim=0):
+    """``add_cuda`` with SUB (``ministark_tpu/ops/gl.py::sub`` :103)."""
+    return ew_cuda("gl_ew", SUB, a, b, launches, scalar_dim)
+
+
+def neg_cuda(a):
+    """``add_cuda`` with NEG, 0 - a, no second operand read
+    (``ministark_tpu/ops/gl.py::neg`` :109)."""
+    return ew_cuda("gl_ew", NEG, a, None, launches)
+
+
+def mul_cuda(a, b, scalar_dim=0):
     """CUDA kernel (csrc/gl_mul.cu ``ms_gl_mul``), same contract as
     ``mul_plain``: the operands broadcast, may be strided views (an Fp2
     component ``a[..., 0]`` has stride 2) and are read in place through
@@ -295,27 +387,31 @@ def mul_cuda(a, b):
     written per product against ~30 integer operations); contiguous aligned
     operands take 16-byte vectors, the others 32-bit multiply-high index
     arithmetic. The plan of a shape is built once (``_mul_plan``)."""
-    global launches
-    a, b = _operands(a, b, "gl_mul")
-    pa, pb = a.data_ptr(), b.data_ptr()
-    shape, plan = _mul_plan(a.shape, a.stride(), b.shape, b.stride(),
-                            not (pa | pb) & 15)
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
-    if plan is None:
-        return out
-    err = cuda.library().ms_gl_mul(pa, pb, out.data_ptr(), plan, cuda.stream_ptr(out))
-    cuda.check("gl_mul", err)
-    launches += 1
-    return out
+    return ew_cuda("gl_mul", None, a, b, launches, scalar_dim)
+
+
+def add(a, b):
+    """(a + b) mod p. Dispatch by device (``dispatch``): CPU tensors ->
+    ``add_plain``; a CUDA tensor (with a CUDA tensor or a 0-d scalar) ->
+    ``add_cuda``, the kernel, or raise."""
+    return dispatch(add_plain, add_cuda, calls, "gl_ew", a, b)
+
+
+def sub(a, b):
+    """(a - b) mod p, dispatched as ``add``."""
+    return dispatch(sub_plain, sub_cuda, calls, "gl_ew", a, b)
+
+
+def neg(a):
+    """-a mod p, dispatched as ``add``."""
+    return dispatch(neg_plain, neg_cuda, calls, "gl_ew", a)
 
 
 def mul(a, b):
     """(a * b) mod p. Dispatch by device: CPU tensors -> ``mul_plain``; a
     CUDA tensor (with a CUDA tensor or a 0-d scalar) -> ``mul_cuda``, the
     kernel, or raise."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return mul_plain(a, b)
-    return mul_cuda(a, b)
+    return dispatch(mul_plain, mul_cuda, calls, "gl_mul", a, b)
 
 
 def square(a):
@@ -336,24 +432,51 @@ def pow(a, e: int):
 
 
 def _mul_nr(a):
-    """a * 7 as 8a - a with three doublings (``ops/gl.py::_mul_nr``)."""
-    two = add(a, a)
-    four = add(two, two)
-    eight = add(four, four)
-    return sub(eight, a)
+    """a * 7 as 8a - a with three doublings (``ops/gl.py::_mul_nr``), in
+    torch ops."""
+    two = add_plain(a, a)
+    four = add_plain(two, two)
+    eight = add_plain(four, four)
+    return sub_plain(eight, a)
 
 
 # --------------------------------------------------------------- Fp2
+def ext_add_plain(a, b):
+    return torch.stack([add_plain(a[..., 0], b[..., 0]),
+                        add_plain(a[..., 1], b[..., 1])], -1)
+
+
+def ext_sub_plain(a, b):
+    return torch.stack([sub_plain(a[..., 0], b[..., 0]),
+                        sub_plain(a[..., 1], b[..., 1])], -1)
+
+
+def ext_neg_plain(a):
+    return torch.stack([neg_plain(a[..., 0]), neg_plain(a[..., 1])], -1)
+
+
+def ext_add_cuda(a, b):
+    """Fp2 addition is componentwise: ``add_cuda`` over the whole (..., 2)
+    tensors, the component axis one more plan axis; a CPU (2,) scalar joins
+    a CUDA operand. One launch (was two base adds and a ``stack``)."""
+    return add_cuda(a, b, scalar_dim=1)
+
+
+def ext_sub_cuda(a, b):
+    return sub_cuda(a, b, scalar_dim=1)
+
+
 def ext_add(a, b):
-    return torch.stack([add(a[..., 0], b[..., 0]), add(a[..., 1], b[..., 1])], -1)
+    """Sum in Fp2, dispatched as ``add`` (``ext_add_plain`` on the CPU)."""
+    return dispatch(ext_add_plain, ext_add_cuda, calls, "gl_ew", a, b)
 
 
 def ext_sub(a, b):
-    return torch.stack([sub(a[..., 0], b[..., 0]), sub(a[..., 1], b[..., 1])], -1)
+    return dispatch(ext_sub_plain, ext_sub_cuda, calls, "gl_ew", a, b)
 
 
 def ext_neg(a):
-    return torch.stack([neg(a[..., 0]), neg(a[..., 1])], -1)
+    return dispatch(ext_neg_plain, neg_cuda, calls, "gl_ew", a)
 
 
 def ext_mul_plain(a, b):
@@ -363,8 +486,8 @@ def ext_mul_plain(a, b):
     b0, b1 = b[..., 0], b[..., 1]
     v0 = mul_plain(a0, b0)
     v1 = mul_plain(a1, b1)
-    c0 = add(v0, _mul_nr(v1))
-    c1 = sub(mul_plain(add(a0, a1), add(b0, b1)), add(v0, v1))
+    c0 = add_plain(v0, _mul_nr(v1))
+    c1 = sub_plain(mul_plain(add_plain(a0, a1), add_plain(b0, b1)), add_plain(v0, v1))
     return torch.stack([c0, c1], -1)
 
 
@@ -380,33 +503,29 @@ def ext_mul_cuda(a, b):
     device-memory bandwidth (32 bytes read and 16 written per product
     against ~100 integer operations); operands with adjacent components
     take one 16-byte load per element."""
-    global ext_launches
-    a, b = _operands(a, b, "gl_ext_mul", scalar_dim=1)
-    pa, pb = a.data_ptr(), b.data_ptr()
-    shape, plan = _ext_plan(a.shape, a.stride(), b.shape, b.stride(),
-                            not (pa | pb) & 15)
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
-    if plan is None:
-        return out
-    err = cuda.library().ms_gl_ext_mul(pa, pb, out.data_ptr(), plan,
-                                       cuda.stream_ptr(out))
-    cuda.check("gl_ext_mul", err)
-    ext_launches += 1
-    return out
+    return ext_cuda("gl_ext_mul", 2, a, b, launches)
 
 
 def ext_mul(a, b):
     """Product in Fp2. Dispatch by device: CPU tensors -> ``ext_mul_plain``;
     a CUDA tensor (with a CUDA tensor or a CPU scalar) -> ``ext_mul_cuda``,
     the kernel, or raise."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return ext_mul_plain(a, b)
-    return ext_mul_cuda(a, b)
+    return dispatch(ext_mul_plain, ext_mul_cuda, calls, "gl_ext_mul", a, b)
+
+
+def ext_scale_base_plain(a, s):
+    """Fp2 element times a base scalar (s broadcasts over a[..., 0])."""
+    return torch.stack([mul_plain(a[..., 0], s), mul_plain(a[..., 1], s)], -1)
+
+
+def ext_scale_base_cuda(a, s):
+    """One ``mul_cuda`` launch on (a, s broadcast over the component axis)."""
+    return mul_cuda(a, s.unsqueeze(-1), scalar_dim=1)
 
 
 def ext_scale_base(a, s):
-    """Fp2 element times a base scalar (s broadcasts over a[..., 0])."""
-    return torch.stack([mul(a[..., 0], s), mul(a[..., 1], s)], -1)
+    """Fp2 element times a base scalar, dispatched as ``mul``."""
+    return dispatch(ext_scale_base_plain, ext_scale_base_cuda, calls, "gl_mul", a, s)
 
 
 def ext_pow(a, e: int):

@@ -23,10 +23,11 @@ proofs are identical whichever backend runs, and none copies the TPU
 kernels' int8 digit matmul. ``transform`` dispatches by the tensor's device:
 a CPU tensor takes ``transform_plain``, a CUDA tensor launches the kernel at
 every size or raises. Every function takes the prime field (``field=``,
-Goldilocks unless given); the plain versions multiply with ``NttField.mul``
-(``field.mul_plain`` or ``bb.mul``, torch ops), so they launch no kernel on
-a CUDA tensor either. The tables are cached per field: a root of one field
-is never looked up in the other's tables.
+Goldilocks unless given); the plain versions add, subtract and multiply with
+``NttField`` (``field.add_plain`` / ``sub_plain`` / ``mul_plain`` or
+``bb``'s, torch ops), so they launch no kernel on a CUDA tensor either.
+The tables are cached per field: a root of one field is never looked up in
+the other's tables.
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ class NttField:
 
 
 _NTT_FIELDS = {
-    id(GOLDILOCKS_FP): NttField("gl", gl.add, gl.sub, gl.mul_plain),
-    id(BABYBEAR_FP): NttField("bb", bb.add, bb.sub, bb.mul),
+    id(GOLDILOCKS_FP): NttField("gl", gl.add_plain, gl.sub_plain, gl.mul_plain),
+    id(BABYBEAR_FP): NttField("bb", bb.add_plain, bb.sub_plain, bb.mul_plain),
 }
 
 

@@ -53,6 +53,13 @@ OPS_BB_FP2_MUL = 4 * OPS_BB_MUL + 5 * 3
 OPS_FP4_MUL = 3 * OPS_BB_FP2_MUL + (2 * OPS_BB_MUL + 2 * 3) + 4 * 3 + 6 * 3
 # an extension product by the kernels' suffix: Goldilocks Fp2, BabyBear Fp4
 EXT_MUL_OPS = {"gl2": OPS_FP2_MUL, "bb4": OPS_FP4_MUL}
+EXT_K = {"gl2": 2, "bb4": 4}
+# an elementwise op (csrc/field_ew.cu) by field and op: a Goldilocks add 8,
+# a sub or a neg 5 (gl.cuh); a BabyBear add, sub or neg 3, its product
+# OPS_BB_MUL (bb.cuh)
+EW_OPS = {("gl", "add"): 8, ("gl", "sub"): 5, ("gl", "neg"): 5,
+          ("bb", "add"): 3, ("bb", "sub"): 3, ("bb", "neg"): 3,
+          ("bb", "mul"): OPS_BB_MUL}
 # x + a z by a fixed z, as csrc/div_scan.cu's Fixed<X>::mac does each Horner
 # and fold step: the linear map a -> a z as a matrix over the base field, its
 # rows summed before one reduction each. Goldilocks Fp2: two gl_dot2 (a b +
@@ -243,13 +250,23 @@ def _stored(t):
     return n
 
 
-def ext_mul_work(a, b):
-    """An Fp2 product of (..., 2) operands: each operand's stored elements
-    read once (an expanded operand only as stored), the (..., 2) output
-    written once."""
+def ext_mul_work(a, b, tag="gl2"):
+    """An extension product (Fp2, or with ``tag`` "bb4" Fp4) of (..., K)
+    operands: each operand's stored elements read once (an expanded operand
+    only as stored), the (..., K) output written once."""
     out = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]).numel()
     reads = _stored(a) + (0 if _same(a, b) else _stored(b))
-    return 8 * (reads + 2 * out), out * OPS_FP2_MUL
+    return 8 * (reads + EXT_K[tag] * out), out * EXT_MUL_OPS[tag]
+
+
+def ew_work(a, b, ops):
+    """An elementwise op of broadcast operands (b None: a neg): each
+    operand's stored elements read once, the output written once, ``ops``
+    integer operations an output element (``EW_OPS``)."""
+    shape = a.shape if b is None else torch.broadcast_shapes(a.shape, b.shape)
+    out = shape.numel()
+    reads = _stored(a) + (0 if b is None or _same(a, b) else _stored(b))
+    return 8 * (reads + out), out * ops
 
 
 def _power_muls(e: int) -> int:

@@ -10,11 +10,13 @@ against this checkout's.
 
     python3 scripts/torch_ab_prove.py [--steps N] [--pairs N] [--root DIR]
                                       [--tail] [--field goldilocks|babybear]
-                                      [--mode parity|stir] [--device cuda|cpu]
+                                      [--mode parity|fast|stir|whir]
+                                      [--device cuda|cpu]
 
 Proves Fibonacci (security 20, blowup 2, witness on the device; with
-``--root`` and ``--mode stir`` the fast mode's STIR prove, queries 32, arity
-4) once on each side to warm up, checks that both give the same proof, then
+``--root`` and ``--mode fast``, ``stir`` or ``whir`` the fast mode's prove
+with that low-degree test, batched FRI for ``fast``, queries 32, arity 4)
+once on each side to warm up, checks that both give the same proof, then
 ``--pairs`` times A, B, B, A (the order turns so that a drift of the
 machine falls on both alike), and prints one JSON line: the card's name and
 power limit (nvidia-smi), every prove's wall seconds, the median and the
@@ -53,8 +55,9 @@ def load_package(root, alias):
 
 def _side(pkg, field, steps, device, mode="parity", **engine_kw):
     """(prover, prove, digest) of one side, from package ``pkg``: the parity
-    engine, or with ``mode`` "stir" the fast mode's STIR prover in
-    torch_launch_count.py's configuration (queries 32, arity 4); ``prove()``
+    engine, or with ``mode`` "fast", "stir" or "whir" the fast mode's prover
+    with that low-degree test in torch_launch_count.py's configuration
+    (queries 32, arity 4); ``prove()``
     proves the trace, ``digest(proof)`` names its bytes."""
     import hashlib
     import importlib
@@ -65,10 +68,11 @@ def _side(pkg, field, steps, device, mode="parity", **engine_kw):
     proof_io = importlib.import_module(pkg + ".stark.proof_io")
     sf = {"goldilocks": fields.Goldilocks, "babybear": fields.BabyBear}[field]
     trace = trace_mod.fibonacci_device_trace(sf, steps, on_device=True, device=device)
-    if mode == "stir":
+    if mode != "parity":
         fast = importlib.import_module(pkg + ".stark.fast")
+        lde = "fri" if mode == "fast" else mode
         prover = fast.FastStark(fast.FastStarkConfig(sf, steps, queries=32, arity=4,
-                                                     lde_backend="stir"), device=device)
+                                                     lde_backend=lde), device=device)
         return (prover, lambda: prover.prove_many([trace]), lambda proof: hashlib.sha256(
             proof_io.fast_proof_to_bytes(sf, proof)).hexdigest())
     engine_mod = importlib.import_module(pkg + ".stark.engine")
@@ -161,11 +165,12 @@ def main():
                     help="another checkout, proved against this one")
     ap.add_argument("--tail", action="store_true",
                     help="the hashlib host-tail trees against the native ones")
-    ap.add_argument("--mode", choices=("parity", "stir"), default="parity",
+    ap.add_argument("--mode", choices=("parity", "fast", "stir", "whir"),
+                    default="parity",
                     help="with --root, the prover both sides run")
     args = ap.parse_args()
     if args.mode != "parity" and args.root is None:
-        ap.error("--mode stir compares two checkouts: give --root")
+        ap.error(f"--mode {args.mode} compares two checkouts: give --root")
 
     import torch
 

@@ -23,7 +23,10 @@ without the profiler (``warm_s``) with its peak allocated device memory
 (``peak_allocated_bytes``, peak stats reset first) and, on a mesh, the
 bytes the rank received by collective kind (``received_bytes``,
 ``parallel/mesh.py::received``), the sha256 of the proof's bytes, the
-fast modes' ``phase_seconds``, and with ``--match S`` the launches and summed ms
+fast modes' ``phase_seconds``, the port's own counts of the field kernels
+(``field_ops``: launches and calls by kernel, ops/field.py and ops/bb.py;
+an older checkout's launch counts only), and with ``--match S`` the
+launches and summed ms
 of the kernels whose names contain S (``--top N``: the N kernels, by the
 first 80 characters of their names, with the most device time). ``--root`` names the checkout whose
 ministark_tpu_torch is imported (default: the one holding this script), so
@@ -96,6 +99,23 @@ def main():
 TOP_NAME = 80      # the characters of a kernel's name that --top groups by
 
 
+def field_counts():
+    """{kernel: [launches, calls]} of the field kernels from the imported
+    package's counters (ops/field.py, ops/bb.py); a checkout from before the
+    field-op kernels has integer launch counts of the two products and no
+    calls (None)."""
+    from ministark_tpu_torch.ops import bb, field
+
+    out = {}
+    for mod in (field, bb):
+        launches, calls = getattr(mod, "launches", None), getattr(mod, "calls", None)
+        if isinstance(launches, dict):
+            out.update({k: [v, calls[k]] for k, v in launches.items()})
+    if isinstance(field.launches, int):
+        out = {"gl_mul": [field.launches, None], "gl_ext_mul": [field.ext_launches, None]}
+    return out
+
+
 def measure(mesh, args):
     """The readings of one warm prove, sharded over ``mesh`` if given."""
     import torch
@@ -142,11 +162,14 @@ def measure(mesh, args):
     peak = torch.cuda.max_memory_allocated()
     received = None if got is None else {k: v - got[k] for k, v in pm.received.items()}
 
+    before = field_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         prove()
         torch.cuda.synchronize()
         wall = time.time() - t0
+    field_ops = {k: [n - before[k][0], None if c is None else c - before[k][1]]
+                 for k, (n, c) in field_counts().items()}
 
     launch_calls, kernels, device_us, by_name = {}, 0, 0.0, {}
     match_kernels, match_us = 0, 0.0
@@ -169,6 +192,7 @@ def measure(mesh, args):
         "peak_allocated_bytes": peak, "received_bytes": received,
         "proof_sha256": hashlib.sha256(to_bytes(proof)).hexdigest(),
         "phase_seconds": None if phases is None else phases(),
+        "field_ops": field_ops,
         **({} if args.match is None else {"match": {
             "name": args.match, "launches": match_kernels,
             "device_ms": match_us / 1e3}}),

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card (the
 NTT passes and levels up to the main path's 2^21, in Goldilocks and in
-BabyBear, the division scan and pow_dot in Fp2 and Fp4), the engine's proof on the card against the host oracle, and the
+BabyBear, the division scan and pow_dot in Fp2 and Fp4, the field ops of
+csrc/field_ew.cu with one launch a call), the engine's proof on the card
+against the host oracle, and the
 fast mode's proof on the card against its golden fixture and the CPU's
 bytes, the prove core (stark/core.py) and batch_inverse_full on the card
 against the CPU's. Marked ``cuda``: they skip on a host without a
@@ -18,6 +20,7 @@ import ministark_tpu_torch.stark.engine as t_eng
 from ministark_tpu_torch.fields import BABYBEAR_FP, BabyBear, Goldilocks
 from ministark_tpu_torch.models import fibonacci_air
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
+from ministark_tpu_torch.ops import bb
 from ministark_tpu_torch.ops import field as gl
 from ministark_tpu_torch.ops import leaf_hash as lh
 from ministark_tpu_torch.ops import ntt
@@ -112,9 +115,122 @@ def test_gl_ext_mul_kernel_matches_plain(dev, case):
     got = gl.ext_mul_cuda(a, b)
     assert got.device.type == "cuda" and got.is_contiguous()
     assert torch.equal(got.cpu(), gl.ext_mul_plain(a.cpu(), b.cpu()))
-    before = gl.ext_launches
+    before = gl.launches["gl_ext_mul"]
     assert torch.equal(gl.ext_mul(a, b), got)
-    assert gl.ext_launches == before + (got.numel() > 0)
+    assert gl.launches["gl_ext_mul"] == before + (got.numel() > 0)
+
+
+def _k_cases(K, p):
+    """``_EXT_CASES`` over elements of K components (Fp2, Fp4)."""
+    return {
+        "query-round": lambda x: (x, x.flip(0)),
+        "query-scalars": lambda x: (x[:, 0], x[:, 1]),
+        "powers": lambda x: (x, x[:, :1]),
+        "even-odd": lambda x: (x[:, 0::2], x[:, 1::2]),
+        "expand-as": lambda x: (x, x[3, 4].expand_as(x)),
+        "scalar": lambda x: (x, x[5, 6]),
+        "scalars": lambda x: (x[5, 6], x[4, 8]),
+        "cpu-scalar": lambda x: (x, gl.pack_u64([12345, p - 1, 7, 1][:K])),
+        "component-stride": lambda x: (x.movedim(-1, 0).contiguous().movedim(0, -1), x),
+        "unaligned": lambda x: (x.reshape(-1)[1:1 - K].reshape(-1, K),
+                                x.reshape(-1, K)[1:]),
+        "empty": lambda x: (x[:0], x[0]),
+        "4-axes": lambda x: (x.reshape(2, 3, 2, -1, K)[:, :, :, 1:],
+                             x.reshape(2, 3, 2, -1, K)[0, :1, :, :-1]),
+    }
+
+
+# extension op -> (module, kernel name, K, the CUDA wrapper, the plain version,
+# the dispatcher), the second operand of a product by a base scalar its
+# component 0
+_EW_EXT_OPS = {
+    "ext_add": (gl, "gl_ew", 2, gl.ext_add_cuda, gl.ext_add_plain, gl.ext_add),
+    "ext_sub": (gl, "gl_ew", 2, gl.ext_sub_cuda, gl.ext_sub_plain, gl.ext_sub),
+    "ext_neg": (gl, "gl_ew", 2, gl.neg_cuda, gl.ext_neg_plain, gl.ext_neg),
+    "ext_scale_base": (gl, "gl_mul", 2, gl.ext_scale_base_cuda,
+                       gl.ext_scale_base_plain, gl.ext_scale_base),
+    "fp4_add": (bb, "bb_ew", 4, bb.fp4_add_cuda, bb.fp4_add_plain, bb.fp4_add),
+    "fp4_sub": (bb, "bb_ew", 4, bb.fp4_sub_cuda, bb.fp4_sub_plain, bb.fp4_sub),
+    "fp4_neg": (bb, "bb_ew", 4, bb.neg_cuda, bb.fp4_neg_plain, bb.fp4_neg),
+    "fp4_scale_base": (bb, "bb_ew", 4, bb.fp4_scale_base_cuda,
+                       bb.fp4_scale_base_plain, bb.fp4_scale_base),
+    "fp4_mul": (bb, "bb_fp4_mul", 4, bb.fp4_mul_cuda, bb.fp4_mul_plain, bb.fp4_mul),
+}
+
+
+def _rand_p(shape, p, seed):
+    v = np.random.default_rng(seed).integers(0, p, size=shape, dtype=np.uint64)
+    v.reshape(-1)[:3] = [0, 1, p - 1]
+    return torch.from_numpy(v.view(np.int64))
+
+
+@pytest.mark.parametrize("case", list(_EXT_CASES))
+@pytest.mark.parametrize("op", list(_EW_EXT_OPS))
+def test_field_ew_ext_kernels_match_plain(dev, op, case):
+    """csrc/field_ew.cu's kernels (and gl_mul under the Fp2 product by a
+    base scalar) on the extension ops at ``_EXT_CASES``' shapes, against
+    the plain versions; one call and one launch through the dispatcher."""
+    mod, name, K, kern, plain, disp = _EW_EXT_OPS[op]
+    x = _rand_p((6, 1000, K), mod.P, 11).to(dev)
+    a, b = _k_cases(K, mod.P)[case](x)
+    args = (a,) if op.endswith("_neg") else (a, b[..., 0]) if "scale" in op else (a, b)
+    got = kern(*args)
+    assert got.device.type == "cuda" and got.is_contiguous()
+    assert torch.equal(got.cpu(), plain(*(t.cpu() for t in args)))
+    launches, calls = mod.launches[name], mod.calls[name]
+    assert torch.equal(disp(*args), got)
+    one = int(got.numel() > 0)
+    assert (mod.launches[name] - launches, mod.calls[name] - calls) == (one, one)
+
+
+# base op -> (module, kernel, the CUDA wrapper, plain version, dispatcher)
+_EW_BASE_OPS = {
+    "gl.add": (gl, "gl_ew", gl.add_cuda, gl.add_plain, gl.add),
+    "gl.sub": (gl, "gl_ew", gl.sub_cuda, gl.sub_plain, gl.sub),
+    "gl.neg": (gl, "gl_ew", gl.neg_cuda, gl.neg_plain, gl.neg),
+    "bb.add": (bb, "bb_ew", bb.add_cuda, bb.add_plain, bb.add),
+    "bb.sub": (bb, "bb_ew", bb.sub_cuda, bb.sub_plain, bb.sub),
+    "bb.neg": (bb, "bb_ew", bb.neg_cuda, bb.neg_plain, bb.neg),
+    "bb.mul": (bb, "bb_ew", bb.mul_cuda, bb.mul_plain, bb.mul),
+}
+
+
+@pytest.mark.parametrize("case", ["flat", "broadcast", "fp2-component", "scalar",
+                                  "scalars", "empty", "cpu-scalar"])
+@pytest.mark.parametrize("op", list(_EW_BASE_OPS))
+def test_field_ew_base_kernels_match_plain(dev, op, case):
+    """The base-field ops at ``test_gl_mul_kernel_matches_plain``'s shapes."""
+    mod, name, kern, plain, disp = _EW_BASE_OPS[op]
+    x = _rand_p((6, 1000, 2), mod.P, 13).to(dev)
+    a, b = {
+        "flat": lambda: (x.reshape(-1), x.flip(0).reshape(-1)),
+        "broadcast": lambda: (x[..., 0], x[0, :, 1]),
+        "fp2-component": lambda: (x[..., 0], x[..., 1]),
+        "scalar": lambda: (x, x[2, 3, 1]),
+        "scalars": lambda: (x[0, 0, 0], x[1, 1, 1]),
+        "empty": lambda: (x[:0], x[0, :, :]),
+        "cpu-scalar": lambda: (x[..., 1], gl.pack_u64(mod.P - 1)),
+    }[case]()
+    args = (a,) if op.endswith("neg") else (a, b)
+    got = kern(*args)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), plain(*(t.cpu() for t in args)))
+    launches, calls = mod.launches[name], mod.calls[name]
+    assert torch.equal(disp(*args), got)
+    one = int(got.numel() > 0)
+    assert (mod.launches[name] - launches, mod.calls[name] - calls) == (one, one)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4097, 1 << 16])
+@pytest.mark.parametrize("op", list(_EW_BASE_OPS))
+def test_field_ew_contiguous_path_matches_plain(dev, op, n):
+    """The 16-byte path (aligned contiguous operands, odd tails) and the
+    same data one element off the boundary (the strided path)."""
+    mod, _, kern, plain, _ = _EW_BASE_OPS[op]
+    x = _rand_p((2, n + 1), mod.P, n).to(dev)
+    for a, b in ((x[0, :n], x[1, :n]), (x[0, 1:], x[1, :n]), (x[0, 1:], x[1, 1:])):
+        args = (a,) if op.endswith("neg") else (a, b)
+        assert torch.equal(kern(*args).cpu(), plain(*(t.cpu() for t in args)))
 
 
 @pytest.mark.parametrize("log_n", [14, 17, 20, 21])
