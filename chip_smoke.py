@@ -8,8 +8,8 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
   1. gpu       no CUDA device -> exit 1; else the card's name and power limit
   2. build     nvcc builds the kernels from ministark_tpu_torch/csrc; every
                leaf_hash, ntt, ntt_four_step, ntt_pipe, stream, digit level,
-               digit dot, div_scan, pow_dot, field_ew (gl_ew, bb_ew) and
-               bb_fp4_mul instantiation has a 0-byte stack frame and no
+               digit dot, div_scan, pow_dot, field_ew (gl_ew, bb_ew),
+               bb_fp4_mul and first_match instantiation has a 0-byte stack frame and no
                spill, and the digit kernels' SASS holds the warpgroup MMA
                (IGMMA) and no mma.sync (IMMA)
   3. kernels   each CUDA kernel against its plain PyTorch version, on the card,
@@ -26,9 +26,18 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                and the leaf hash's lines split the host's time per call
                from the card's; the division scan and pow_dot
                (csrc/div_scan.cu) in Fp2 and Fp4 at the FRI and query
-               rounds' shapes, with device ms and bound_frac, one launch a
-               call, 50 calls back to back and 3 CUDA-graph replays equal
-               to the plain result; the field ops (csrc/field_ew.cu:
+               rounds' shapes and the point evaluations' (eval_many's one
+               point over 6 and 24 rows, STIR's eval_points and WHIR's
+               sumcheck_evals over their broadcast polynomial, each one
+               launch through the function), with device ms and bound_frac,
+               one launch a call, 50 calls back to back and 3 CUDA-graph
+               replays equal to the plain result; the first-occurrence leaf
+               search (csrc/leaf_search.cu) at the query rounds' (2^21, 2)
+               and (2^21, 4) with 6 rows, a resident block (2^20, 2) and 64
+               rows, planted rows (first matches before later copies in
+               other blocks and in one warp, indices 0 and n - 1, absent
+               rows), device ms and bound_frac, one launch a call, 50 calls
+               back to back and 3 graph replays; the field ops (csrc/field_ew.cu:
                Goldilocks add, sub, neg and their Fp2 forms, BabyBear add,
                sub, neg, mul and their Fp4 forms, the Fp4 product; the Fp2
                product by a base scalar on gl_mul) at 2^21 elements, with a
@@ -131,9 +140,11 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                sharded_parity, sharded_fast, sharded_stir and sharded_whir,
                rank 0's, every rank checked; the division scan on every
                parity path, STIR's and the resident parity and STIR
-               ranks', pow_dot where eval_even_odd or the block deep and
-               divide run; each of the two launched once a call on every
-               path and rank), the MiMC prove, the prove core at 2^20 (core) and
+               ranks', pow_dot where eval_even_odd, the block deep and
+               divide or the point evaluations run (every parity, fast,
+               STIR and WHIR path); each of the two launched once a call on
+               every path and rank; first_match on every parity path and
+               the resident parity ranks, once a call), the MiMC prove, the prove core at 2^20 (core) and
                sharded over two ranks (sharded_core, rank 0's), the probes,
                the kernel bench and the bench's proves; every field op one
                launch (the field kernels' launches equal their calls on
@@ -381,7 +392,8 @@ def phase_build():
     # four-step's csrc/ntt_four_step.cu's four_step_pass{1,2}<gl / bb>, the
     # pipe's csrc/ntt_pipe.cu's pipe_level<gl / bb>, the stream's
     # stream_add1_kernel<1, 2, 4, 8>, csrc/field_ew.cu's field_ew_contig /
-    # field_ew_strided<gl / bb, op, ...> and bb_fp4_mul_kernel<...>
+    # field_ew_strided<gl / bb, op, ...> and bb_fp4_mul_kernel<...>, the
+    # leaf search's first_match_kernel<1, 2, 4>
     for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
                          ("ntt_four_step", "four_step_pass"),
                          ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel"),
@@ -389,7 +401,8 @@ def phase_build():
                          ("digit_dot", "digit_dot_kernel"),
                          ("div_scan", "div_scan_kernel"), ("pow_dot", "pow_dot_kernel"),
                          ("gl_ew / bb_ew", "field_ew_"),
-                         ("bb_fp4_mul", "bb_fp4_mul_kernel")):
+                         ("bb_fp4_mul", "bb_fp4_mul_kernel"),
+                         ("first_match", "first_match_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -1088,7 +1101,10 @@ def phase_kernels_div_scan(results):
     import torch
 
     from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2, Goldilocks
+    from ministark_tpu_torch.fri.stir import eval_points
+    from ministark_tpu_torch.fri.whir import sumcheck_evals
     from ministark_tpu_torch.ops import div_scan as ds
+    from ministark_tpu_torch.ops import poly
     from ministark_tpu_torch.ops.field import get_ops
     from ministark_tpu_torch.stark import StarkConfig
 
@@ -1138,9 +1154,25 @@ def phase_kernels_div_scan(results):
             say("kernels", f"div_scan_{tag} {label}: the scan's ceiling "
                            f"{rec['ceiling']:.3f} of the bound")
             per_call("div_scan_" + tag, label, rec, kern)
+        # the point evaluations (ROADMAP X8) at 2^20 - 1: eval_many's one
+        # point broadcast over the w + t = 6 polynomials (deep_ali, the fast
+        # mode's point_evals) and over FAST_BATCH traces' 24; STIR's
+        # eval_points and WHIR's sumcheck_evals at their largest broadcast
+        # rounds, 2^18 coefficients at 32 and 34 points
+        pts, _ = _ext_points(rng, E, 34)
+        c6 = _rand_u64(rng, (6 * FAST_BATCH, n20, K), E.p)
+        c18 = _rand_u64(rng, (1, n20 // 4, K), E.p)
         dots = [("eval_even_odd 2^21, stride 2 (even half)", c21, z1, 0, 2, 1),
                 ("eval_even_odd 2^21, both halves (parts=2)", c21, z1, 0, 1, 2),
-                ("block total 2^19 from 2^19", blk, z1, n19, 1, 1)]
+                ("block total 2^19 from 2^19", blk, z1, n19, 1, 1),
+                ("eval_many (6, 2^20), one point broadcast (deep_ali, fast point_evals)",
+                 c6[:6], z1.expand(6, -1), 0, 1, 1),
+                (f"eval_many ({6 * FAST_BATCH}, 2^20), one point broadcast (fast, "
+                 f"{FAST_BATCH} traces)", c6, z1.expand(6 * FAST_BATCH, -1), 0, 1, 1),
+                ("STIR eval_points (32, 2^18), the polynomial broadcast",
+                 c18.expand(32, -1, -1), pts[:32], 0, 1, 1),
+                ("WHIR sumcheck_evals (34, 2^18), the polynomial broadcast (parts=2)",
+                 c18.expand(34, -1, -1), pts, 0, 1, 2)]
         for label, c, zz, start, stride, parts in dots:
             work = rf.pow_dot_work(c[:, ::stride], zz, tag, parts, start)
             kern = lambda: ds.pow_dot_cuda(k, c, zz, start, stride, 0, parts)   # noqa: E731
@@ -1148,6 +1180,19 @@ def phase_kernels_div_scan(results):
                           lambda: ds.pow_dot_plain(k, c, zz, start, stride, 0, parts),
                           work, plain_reps=1, device=True)
             per_call("pow_dot_" + tag, label, rec, kern)
+        # the point evaluations themselves: one pow_dot launch each
+        x8 = [("eval_many", lambda: poly.eval_many(k, c6[:6], z1[0]), dots[3]),
+              ("eval_points", lambda: eval_points(k, c18[0], pts[:32]), dots[5]),
+              ("sumcheck_evals", lambda: sumcheck_evals(k, c18[0], pts), dots[6])]
+        for label, fn, (_, c, zz, start, stride, parts) in x8:
+            before = ds.launches["pow_dot_" + tag]
+            got = fn()
+            per = ds.launches["pow_dot_" + tag] - before
+            if per != 1 or not torch.equal(
+                    got, ds.pow_dot_plain(k, c, zz, start, stride, 0, parts)):
+                fail(f"pow_dot_{tag} {label}: {per} launches, or not the plain result")
+            say("kernels", f"pow_dot_{tag} {label}: one launch, equal to pow_dot_plain")
+        del c6, c18
         for label, c, zz, zi, kw in (("fold-divide 2^21 -> 2^20", c21, z1, zi1, fold_kw),
                                       (f"query ({Q}, 2^20)", cq, z, zinv, {})):
             want = ds.div_scan_plain(k, c, zz, zi, **kw)
@@ -1176,6 +1221,125 @@ def phase_kernels_div_scan(results):
                            f"{DIV_SCAN_GRAPH_REPLAYS} times, equal each time")
             del graph, got
         del c21, cq, blk
+
+
+FIRST_MATCH_RACE_CALLS = 50
+FIRST_MATCH_GRAPH_REPLAYS = 3
+FIRST_MATCH_LAUNCHES_PER_CALL = 1     # up to MATCH_MAX_ROWS rows a call
+
+
+def _planted_search(rng, n, C, q, p):
+    """(comps (n, C), rows (q, C), want (q,)) on the card: random elements
+    below p with planted rows and their expected first indices (the kernel's
+    blocks take 256 threads x 4 elements a pass): index 0 and n - 1; a first
+    match in block 1 with a copy in a later block; one in block 5 with a
+    copy in block 0's second pass (past 1056 blocks x 1024); two copies in
+    one warp's pass (40000, 40003); an absent value (n); beyond 6 rows,
+    elements at random indices (their first index from the host) and every
+    seventh row absent."""
+    import numpy as np
+    import torch
+
+    comps = rng.integers(0, p, size=(n, C), dtype=np.uint64)
+    pairs = [(1500, min(700_000, n - 2)), (5 * 1024 + 7, 1056 * 1024 + 10),
+             (40000, 40003)]
+    for first, later in pairs:
+        if later < n:
+            comps[later] = comps[first]
+    want = [0, n - 1] + [first for first, _ in pairs]
+    rows = [comps[i].copy() for i in want]
+    absent = rng.integers(0, p, size=C, dtype=np.uint64)
+    rows.append(absent)
+    want.append(n)
+    for j in range(6, q):
+        if j % 7 == 0:
+            rows.append(rng.integers(0, p, size=C, dtype=np.uint64))
+            want.append(n)
+        else:
+            i = int(rng.integers(0, n))
+            rows.append(comps[i].copy())
+            want.append(i)
+    rows = np.stack(rows[:q])
+    want = want[:q]
+    # a planted or random row's value may occur earlier (a later copy's first)
+    for j, i in enumerate(want):
+        if i < n:
+            hit = np.flatnonzero((comps == rows[j]).all(1))
+            want[j] = int(hit[0])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).cuda()  # noqa: E731
+    return t(comps), t(rows), torch.tensor(want, dtype=torch.int64)
+
+
+def phase_kernels_first_match(results):
+    """Phase 3 for the first-occurrence leaf search (csrc/leaf_search.cu,
+    commit/packed_tree.py; ROADMAP X4) at the parity prover's query rounds:
+    GL Fp2 (2^21, 2) and BB Fp4 (2^21, 4) with q = 6 rows (two a query,
+    fri_queries 3), a resident rank's block (2^20, 2) and q = 64 rows (over
+    the plain version's SEARCH_CHUNK), the rows planted (_planted_search).
+    Each against its plain version on the card and the planted indices
+    (exact), with device ms, the bytes bound and bound_frac; one launch a
+    call (FIRST_MATCH_LAUNCHES_PER_CALL); no PyTorch call computes a first
+    occurrence (library_ms null). Then FIRST_MATCH_RACE_CALLS calls back to
+    back at (2^21, 2) with q 6 and 64, each equal to the plain result (the
+    minima and the ticket reset by each call's last block), and one CUDA
+    graph of a call replayed FIRST_MATCH_GRAPH_REPLAYS times."""
+    import numpy as np
+    import torch
+
+    from ministark_tpu_torch.commit import packed_tree as pt
+    from ministark_tpu_torch.fields import BABYBEAR_FP, Goldilocks
+
+    rng = np.random.default_rng(SEED + 21)
+    compare = make_compare(results)
+    gl_p, bb_p = Goldilocks.base.p, BABYBEAR_FP.p
+    n21 = 1 << 21
+    cases = [("GL Fp2 (2^21, 2), q 6", n21, 2, 6, gl_p),
+             ("BB Fp4 (2^21, 4), q 6", n21, 4, 6, bb_p),
+             ("resident block (2^20, 2), q 6", n21 // 2, 2, 6, gl_p),
+             ("(2^21, 2), q 64", n21, 2, 64, gl_p)]
+    race = []
+    for label, n, C, q, p in cases:
+        comps, rows, want = _planted_search(rng, n, C, q, p)
+        kern = lambda: pt.first_match_cuda(comps, rows)   # noqa: E731
+        got = kern().cpu()
+        if not torch.equal(got, want):
+            fail(f"first_match {label}: {got.tolist()} against the planted "
+                 f"{want.tolist()}")
+        rec = compare("first_match", label, kern,
+                      lambda: pt._first_match_find_plain(comps, rows),
+                      rf.first_match_work(comps, rows), plain_reps=1, device=True)
+        before = pt.launches["first_match"]
+        kern()
+        rec["launches_per_call"] = per = pt.launches["first_match"] - before
+        say("kernels", f"first_match {label}: {per} launch(es) per call")
+        if per != FIRST_MATCH_LAUNCHES_PER_CALL:
+            fail(f"first_match {label}: {per} launches per call, expected "
+                 f"{FIRST_MATCH_LAUNCHES_PER_CALL}")
+        if n == n21 and C == 2:
+            race.append((label, comps, rows, want))
+    for label, comps, rows, want in race:
+        outs = [pt.first_match_cuda(comps, rows) for _ in range(FIRST_MATCH_RACE_CALLS)]
+        bad = [i for i, o in enumerate(outs) if not torch.equal(o.cpu(), want)]
+        if bad:
+            fail(f"first_match {label}: calls {bad} of {FIRST_MATCH_RACE_CALLS} back "
+                 "to back differ from the plain result")
+        say("kernels", f"first_match {label}: {FIRST_MATCH_RACE_CALLS} calls back to "
+                       "back, each equal to the plain result")
+    label, comps, rows, want = race[0]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pt.first_match_cuda(comps, rows)
+    for i in range(FIRST_MATCH_GRAPH_REPLAYS):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            fail(f"first_match {label}: CUDA graph replay {i} differs from the "
+                 "plain result")
+    say("kernels", f"first_match {label}: one CUDA graph replayed "
+                   f"{FIRST_MATCH_GRAPH_REPLAYS} times, equal each time")
+    del graph, got, race
 
 
 def _host_proof(sf, steps):
@@ -1302,7 +1466,8 @@ def _reference_commits(engine, trace):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0, and the call counts of
-    the field ops and the division scan."""
+    the field ops, the division scan and the leaf search."""
+    from ministark_tpu_torch.commit import packed_tree as pt
     from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
@@ -1316,7 +1481,7 @@ def reset_counts():
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
                    fs.pass2_launches, pp.launches, nd.launches, ds.launches, ds.calls,
-                   gl.launches, gl.calls, bb.launches, bb.calls):
+                   gl.launches, gl.calls, bb.launches, bb.calls, pt.launches, pt.calls):
         for key in counts:
             counts[key] = 0
     sh.launches = sh.row_launches = 0
@@ -1327,7 +1492,9 @@ def reset_counts():
 def read_counts():
     """({kernel: launches}, {fan: inner-level launches}) since reset_counts,
     with each NTT kernel and the leaf hash split by field ("_bb"), and the
-    calls of the field ops and the division scan ("<kernel> calls")."""
+    calls of the field ops, the division scan and the leaf search ("<kernel>
+    calls")."""
+    from ministark_tpu_torch.commit import packed_tree as pt
     from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
     from ministark_tpu_torch.ops import field as gl
@@ -1343,8 +1510,9 @@ def read_counts():
               "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
               **nd.launches, **ds.launches, **gl.launches, **bb.launches,
+              **pt.launches,
               **{f"{name} calls": n
-                 for name, n in {**ds.calls, **gl.calls, **bb.calls}.items()}}
+                 for name, n in {**ds.calls, **gl.calls, **bb.calls, **pt.calls}.items()}}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
         counts["ntt" + suffix] = ntt.launches[tag]
         counts["ntt_four_step_pass1" + suffix] = fs.pass1_launches[tag]
@@ -1354,10 +1522,10 @@ def read_counts():
 
 
 def one_launch_a_call(launches, where):
-    """Fails unless each division scan and pow_dot kernel launched once for
-    each of its wrapper's calls, and each field kernel (gl_mul, gl_ext_mul,
-    gl_ew, bb_ew, bb_fp4_mul) once for each field op that took it (the
-    "<kernel> calls" counts)."""
+    """Fails unless each division scan, pow_dot and first_match kernel
+    launched once for each of its wrapper's calls, and each field kernel
+    (gl_mul, gl_ext_mul, gl_ew, bb_ew, bb_fp4_mul) once for each field op
+    that took it (the "<kernel> calls" counts)."""
     for key, n in launches.items():
         if key.endswith(" calls") and launches[key[:-6]] != n:
             fail(f"{key[:-6]}: {launches[key[:-6]]} launches for {n} calls on {where}")
@@ -2552,6 +2720,9 @@ def phase_bench(results):
 
 _BACKEND_PATHS = tuple(f"{p}_{b}" for p in ("parity", "fast") for b in NTT_BACKENDS)
 _BB_PATHS = ("parity_bb", "fast_bb")
+# the fast prover's 2^20 - 1 proves on each NTT backend, both fields
+_FAST_BACKEND_PATHS = tuple(f"fast_{b}" for b in NTT_BACKENDS)
+_FAST_BB_BACKEND_PATHS = tuple(f"fast_bb_{b}" for b in NTT_BACKENDS)
 # the fast prover's 2^20 - 1 proves with the STIR and WHIR low-degree tests
 _LDT_PATHS = ("stir", "whir")
 _LDT_BB_PATHS = ("stir_bb", "whir_bb")
@@ -2633,17 +2804,20 @@ KERNELS = {
                      "scripts/tpu_fused_stage_probe.py:165", ("probes",)),
     "digit_level_gl": ("ministark_tpu_torch/csrc/ntt_digit.cu",
                        "scripts/tpu_f32_pad_probe.py:54", ("probes", "bench_kernels")),
-    # array code the JAX package left to XLA (ROADMAP X3, X1): the FRI
-    # round's eval_even_odd and the block totals (pow_dot), the fold-divide,
-    # the query quotients and STIR's quotients (div_scan)
+    # array code the JAX package left to XLA (ROADMAP X3, X1, X8): the FRI
+    # round's eval_even_odd, the block totals and the point evaluations
+    # (eval_many, STIR's eval_points, WHIR's sumcheck_evals) on pow_dot, the
+    # fold-divide, the query quotients and STIR's quotients (div_scan)
     "pow_dot_gl2": ("ministark_tpu_torch/csrc/div_scan.cu",
                     "ministark_tpu/ops/poly_device.py:279",
-                    _PARITY_PATHS + ("sharded_parity", "sharded_stir")),
+                    _PARITY_PATHS + ("fast",) + _FAST_BACKEND_PATHS + _LDT_PATHS
+                    + _SHARDED_PATHS),
     "div_scan_gl2": ("ministark_tpu_torch/csrc/div_scan.cu",
                      "ministark_tpu/ops/planar.py:391",
                      _PARITY_PATHS + ("stir", "sharded_parity", "sharded_stir")),
     "pow_dot_bb4": ("ministark_tpu_torch/csrc/div_scan.cu",
-                    "ministark_tpu/ops/poly_device.py:279", _PARITY_BB_PATHS),
+                    "ministark_tpu/ops/poly_device.py:279",
+                    _PARITY_BB_PATHS + ("fast_bb",) + _FAST_BB_BACKEND_PATHS + _LDT_BB_PATHS),
     "div_scan_bb4": ("ministark_tpu_torch/csrc/div_scan.cu",
                      "ministark_tpu/ops/planar.py:391", _PARITY_BB_PATHS + ("stir_bb",)),
     # the field ops XLA fused (ROADMAP X6, X7): Goldilocks add / sub / neg
@@ -2655,6 +2829,11 @@ KERNELS = {
               _ALL_BB_PATHS),
     "bb_fp4_mul": ("ministark_tpu_torch/csrc/field_ew.cu",
                    "ministark_tpu/ops/bb.py:127", _ALL_BB_PATHS),
+    # the first-occurrence leaf search of the parity prover's query rounds
+    # (ROADMAP X4), on one device and a resident rank's block
+    "first_match": ("ministark_tpu_torch/csrc/leaf_search.cu",
+                    "ministark_tpu/commit/packed_tree.py:87",
+                    _PARITY_PATHS + _PARITY_BB_PATHS + ("sharded_parity",)),
 }
 
 
@@ -2674,6 +2853,7 @@ def main():
     phase_kernels_field_ew(results)
     phase_kernels_digit(results)
     phase_kernels_div_scan(results)
+    phase_kernels_first_match(results)
     phase_parity()
     parity_digests = phase_main(results)
     fast_blob, fast_many_blob = phase_fast(results)

@@ -28,6 +28,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..ops import cuda
 from ..ops.field import pack_u64, unpack_u64
 from ..ops.leaf_hash import digits_for, leaf_hash
 from ..ops.sha256 import digests_to_bytes, merkle_inner_levels
@@ -41,9 +42,18 @@ from ..parallel.mesh import all_gather_rows, min_over_ranks, owner_select
 from ..utils import LeafNotFound, logarithm_of_two_k
 from .merkle import MerklePath, MerkleTreeConfig
 
-# queries per chunk of the (q x n) first-match compare: bounds its
+# queries per chunk of the plain (q x n) first-match compare: bounds its
 # temporaries to a few times SEARCH_CHUNK * n elements
 SEARCH_CHUNK = 8
+# csrc/leaf_search.cu: the rows one launch takes (MAX_ROWS there; the
+# block's shared memory holds them); more rows take one launch a chunk
+MATCH_MAX_ROWS = 1024
+_NONE = -1                     # 0xFFFFFFFF: the kernel's "no hit yet" minimum
+# Incremented once per launch of ms_first_match, and once per call of its
+# wrapper with at least one row, launched or refused (one launch a call up
+# to MATCH_MAX_ROWS rows).
+launches = {"first_match": 0}
+calls = {"first_match": 0}
 
 
 def field_fmt(field) -> int:
@@ -69,7 +79,7 @@ def unpack_scalar(field, row) -> object:
     return field.from_base_coeffs(tuple(int(x) for x in row))
 
 
-def _first_match_find(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def _first_match_find_plain(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """(q,) first indices where (n, C) ``comps`` equals each of (q, C)
     ``rows``; n where absent. The (q x n) compare runs SEARCH_CHUNK
     queries at a time; nothing is pulled to the host."""
@@ -86,6 +96,64 @@ def _first_match_find(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.cat(out)
 
 
+# device -> the kernel's int32 scratch: word 0 the last-block ticket (0),
+# words 1..MATCH_MAX_ROWS the per-row minima (_NONE); each call's last block
+# leaves them so, and a buffer is never replaced, so a CUDA graph that
+# captured a call replays right
+_match_scratch = {}
+
+
+def _match_scratch_for(device):
+    buf = _match_scratch.get(device)
+    if buf is None:
+        buf = torch.full((1 + MATCH_MAX_ROWS,), _NONE, dtype=torch.int32, device=device)
+        buf[0] = 0
+        _match_scratch[device] = buf
+    return buf
+
+
+def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel (csrc/leaf_search.cu ``ms_first_match``), same contract
+    as ``_first_match_find_plain``: every element read once, one launch for
+    up to MATCH_MAX_ROWS rows (one a chunk beyond); no rows, no launch.
+    ``comps`` (n, C) and ``rows`` (q, C): contiguous int64 on one CUDA
+    device, C 1, 2 or 4, n < 2^31 - 1; raises on anything else."""
+    cuda.require(comps, "first_match comps", torch.int64, 2)
+    n, C = comps.shape
+    if rows.device != comps.device or rows.dim() != 2 or rows.shape[1] != C:
+        raise ValueError(f"first_match: rows {tuple(rows.shape)} on {rows.device} "
+                         f"against comps {tuple(comps.shape)} on {comps.device}")
+    q = rows.shape[0]
+    out = torch.empty((q,), dtype=torch.int64, device=comps.device)
+    if q == 0:
+        return out
+    calls["first_match"] += 1
+    cuda.require(rows, "first_match rows", torch.int64, 2)
+    if C not in (1, 2, 4):
+        raise ValueError(f"first_match: C is 1, 2 or 4, got {C}")
+    if not 1 <= n < (1 << 31) - 1:
+        raise ValueError(f"first_match: n must be in [1, 2^31 - 1), got {n}")
+    if C > 1 and comps.data_ptr() % 16:
+        raise ValueError("first_match: comps must start on a 16-byte boundary")
+    scratch = _match_scratch_for(comps.device)
+    fn, stream = cuda.library().ms_first_match, cuda.stream_ptr(out)
+    for s in range(0, q, MATCH_MAX_ROWS):
+        r = rows[s:s + MATCH_MAX_ROWS]
+        err = fn(comps.data_ptr(), r.data_ptr(), out[s:].data_ptr(), scratch.data_ptr(),
+                 n, r.shape[0], C, stream)
+        cuda.check("first_match", err)
+        launches["first_match"] += 1
+    return out
+
+
+def _first_match_find(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(q,) first indices where (n, C) ``comps`` equals each of (q, C)
+    ``rows``; n where absent (§8.6), un-pulled. Dispatch by device: CPU
+    tensors -> ``_first_match_find_plain``; a CUDA tensor ->
+    ``first_match_cuda``, the kernel, or raise."""
+    if comps.device.type == "cpu" and rows.device.type == "cpu":
+        return _first_match_find_plain(comps, rows)
+    return first_match_cuda(comps, rows.contiguous())
 class PackedMerkleTree:
     """Same commitment as commit/merkle.py MerkleTree, over a tensor."""
 

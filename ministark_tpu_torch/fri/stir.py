@@ -61,8 +61,8 @@ import torch
 
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
 from ..ops.field import get_ops
-from ..ops.div_scan import div_scan
-from ..ops.poly import field_sum, fold_factor, mix_columns, powers
+from ..ops.div_scan import div_scan, pow_dot
+from ..ops.poly import fold_factor, mix_columns
 from ..parallel.fri_sharded import get_block_fri_fns
 from ..parallel.mesh import Rows, field_sum_over_ranks, previous_rows
 from ..parallel.ntt_sharded import block_coset_fits
@@ -187,16 +187,14 @@ def _geom_eval(ext, r, x, e):
 
 # ------------------------------------------------------------- device ops
 def eval_points(ke, coeffs, pts, start: int = 0):
-    """ONE polynomial (n, *elem) at m points (m, *elem) -> (m, *elem), in one
-    batched pass: the powers of every point, one product, one sum
-    (``_eval_points_jit``, a vmap of ``eval_many``). With ``start``, the
-    coefficients are those of x^start .. x^(start+n-1): a block's partial
-    sums, which a field sum across the blocks completes."""
-    n = coeffs.shape[0]
-    pw = powers(ke, pts, n)                                  # (m, n, *elem)
-    if start:
-        pw = ke.mul(pw, ke.pow(pts, start).unsqueeze(1).expand_as(pw))
-    return field_sum(ke, ke.mul(pw, coeffs.unsqueeze(0)), axis=1)
+    """ONE polynomial (n, *elem) at m points (m, *elem) -> (m, *elem)
+    (``_eval_points_jit``, a vmap of ``eval_many``): one ``pow_dot`` call,
+    the coefficients broadcast over the m rows (batch stride 0), a point a
+    row. With ``start``, the coefficients are those of x^start ..
+    x^(start+n-1): a block's partial sums, which a field sum across the
+    blocks completes."""
+    return pow_dot(ke, coeffs.unsqueeze(0).expand(pts.shape[0], *coeffs.shape), pts,
+                   start)
 
 
 def quot_degcor(ke, coeffs, ans, roots, scales, rcor_pows):

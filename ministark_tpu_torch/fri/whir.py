@@ -59,10 +59,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List
 
-import torch
-
 from ..commit.index_tree import IndexMerklePath, IndexMerkleTree
-from ..ops.poly import field_sum, fold_even_odd, powers
+from ..ops.div_scan import pow_dot
+from ..ops.poly import fold_even_odd
 from ..parallel.mesh import Rows, field_sum_over_ranks
 from .batched import FastTranscript, _row_values, _scalar_bytes
 from .stir import CosetRowLdt, StirResult
@@ -138,12 +137,10 @@ def sumcheck_evals(ke, cur, pts, start: int = 0):
     [even-half eval, odd-half eval]. With ``start``, each half's
     coefficients are those of x^start, x^(start+1), ... (a block whose
     first coefficient is 2 * start): partial sums, which a field sum across
-    the blocks completes."""
-    both = torch.stack([cur[0::2], cur[1::2]])               # (2, L/2, *elem)
-    pw = powers(ke, pts, both.shape[1])                      # (m, L/2, *elem)
-    if start:
-        pw = ke.mul(pw, ke.pow(pts, start).unsqueeze(1).expand_as(pw))
-    return field_sum(ke, ke.mul(pw.unsqueeze(1), both.unsqueeze(0)), axis=2)
+    the blocks completes. One ``pow_dot(..., parts=2)`` call, ``cur``
+    broadcast over the m rows (batch stride 0), a point a row."""
+    return pow_dot(ke, cur.unsqueeze(0).expand(pts.shape[0], *cur.shape), pts, start,
+                   parts=2)
 
 
 # iteration-schedule cache keyed by every parameter _schedule reads; holds

@@ -29,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu",
-           "div_scan.cu", "field_ew.cu")
+           "div_scan.cu", "field_ew.cu", "leaf_search.cu")
 HEADERS = ("gl.cuh", "bb.cuh", "ext_field.cuh", "elementwise.cuh", "ntt_common.cuh",
            "ntt_stages.cuh", "sha256.cuh", "wgmma_s8.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -96,6 +96,9 @@ _SIGNATURES = {
     # c, z, zinv, alpha, head, carry (null where unused), out, counts,
     # values, plan, stream
     "ms_div_scan_gl2": _DIV_SCAN, "ms_div_scan_bb4": _DIV_SCAN,
+    # comps, rows, out, scratch (commit/packed_tree.py::_match_scratch_for),
+    # n, q, C, stream
+    "ms_first_match": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -16,10 +16,11 @@ block of a division over a mesh: its start index, and the later blocks'
 pow_dot totals summed (parallel/fri_sharded.py). c, z and zinv may be
 broadcast views (batch stride 0): one polynomial divided by Q points.
 
-The callers: ops/poly.py's synth_div_suffix and eval_even_odd, the parity
-prover's FRI fold-divide and query quotients (stark/engine.py), the block
-divide and deep (parallel/fri_sharded.py) and STIR's quotients
-(fri/stir.py). The JAX package computes these in XLA
+The callers: ops/poly.py's synth_div_suffix, eval_even_odd and eval_many,
+the parity prover's FRI fold-divide and query quotients (stark/engine.py),
+the block divide and deep (parallel/fri_sharded.py), STIR's quotients and
+point evaluations (fri/stir.py) and WHIR's sumcheck evaluations
+(fri/whir.py). The JAX package computes these in XLA
 (``ministark_tpu/ops/planar.py::synth_div_planes`` :391, ``fold_div_planes``
 :419); there is no Pallas kernel to port (ROADMAP X3 and X1).
 
@@ -140,9 +141,14 @@ def pow_dot_plain(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: in
     if parts != 1:
         raise ValueError(f"pow_dot: parts is 1 or 2, got {parts}")
     terms = c[:, offset::stride]
-    if terms.shape[1] == 0:
+    n = terms.shape[1]
+    if n == 0:
         return torch.zeros_like(z)
-    s = field_sum(k, k.mul(terms, powers(k, z, terms.shape[1])), axis=1)
+    if z.shape[0] > 1 and z.stride(0) == 0:     # one point for every row
+        pw = powers(k, z[:1], n).expand(terms.shape)
+    else:
+        pw = powers(k, z, n)
+    s = field_sum(k, k.mul(terms, pw), axis=1)
     return k.mul(s, k.pow(z, start)) if start else s
 
 

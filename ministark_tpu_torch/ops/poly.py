@@ -38,12 +38,9 @@ def eval_poly_base_coeffs_ext_point(k_ext: FieldOps, base_coeffs, x):
 def eval_many(k: FieldOps, coeffs_batch, x, start: int = 0):
     """Evaluate B polynomials at one point: (B, n, *elem), (*elem) -> (B, *elem).
     With ``start``, the coefficients are those of x^start .. x^(start+n-1):
-    a block's partial sums, which a field sum across the blocks completes."""
-    n = coeffs_batch.shape[1]
-    pw = powers(k, x, n)
-    if start:
-        pw = k.mul(pw, k.pow(x, start).unsqueeze(0).expand_as(pw))
-    return field_sum(k, k.mul(coeffs_batch, pw.unsqueeze(0)), axis=1)
+    a block's partial sums, which a field sum across the blocks completes.
+    One ``pow_dot`` call, x broadcast over the rows (batch stride 0)."""
+    return pow_dot(k, coeffs_batch, x.expand(coeffs_batch.shape[0], *x.shape), start)
 
 
 def _even_odd_split(coeffs):

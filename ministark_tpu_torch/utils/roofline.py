@@ -303,6 +303,17 @@ def pow_dot_work(terms, z, tag, parts: int = 1, start: int = 0):
             B * n * FIXED_MAC_OPS[tag] + chain)
 
 
+def first_match_work(comps, rows):
+    """The first-occurrence search of (q, C) rows in (n, C) components:
+    each element and row read once, (q,) int64 written; each element
+    against each row in one word, a 64-bit equality two INT32 compares (an
+    element that differs from a row mostly differs in its first word, so
+    the least work rejects it there)."""
+    n, C = comps.shape
+    q = rows.shape[0]
+    return 8 * (n * C + q * C + q), 2 * n * q
+
+
 def leaf_hash_work(comps, k, fmt, max_digits=20):
     """Bytes and ops of the leaf hash on these inputs: the preimage lengths
     (and so the block counts) depend on the values' decimal digits."""

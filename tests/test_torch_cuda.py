@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card (the
 NTT passes and levels up to the main path's 2^21, in Goldilocks and in
-BabyBear, the division scan and pow_dot in Fp2 and Fp4, the field ops of
-csrc/field_ew.cu with one launch a call), the engine's proof on the card
+BabyBear, the division scan and pow_dot in Fp2 and Fp4, the point
+evaluations on pow_dot and the first-occurrence leaf search with one launch
+a call, the field ops of csrc/field_ew.cu with one launch a call), the engine's proof on the card
 against the host oracle, and the
 fast mode's proof on the card against its golden fixture and the CPU's
 bytes, the prove core (stark/core.py) and batch_inverse_full on the card
@@ -709,6 +710,97 @@ def test_div_scan_wrappers_refuse(dev):
         ds.div_scan_cuda(k, c[:, :7], z, zinv, fold=z[0])   # an odd count does not fold
     with pytest.raises(ValueError):
         ds.pow_dot_cuda(k, c.movedim(-1, 0).contiguous().movedim(0, -1), z)
+
+
+@pytest.mark.parametrize("field", ["gl2", "bb4"])
+def test_point_evals_one_pow_dot_launch(dev, field):
+    """eval_many (a point broadcast over 4 rows), STIR's eval_points and
+    WHIR's sumcheck_evals (the coefficients broadcast over 5 points), with
+    and without a start: one pow_dot launch each, equal to the CPU's."""
+    from ministark_tpu_torch.fri.stir import eval_points
+    from ministark_tpu_torch.fri.whir import sumcheck_evals
+    from ministark_tpu_torch.ops import div_scan as ds
+    from ministark_tpu_torch.ops.poly import eval_many
+
+    E, k = _ext(field)
+    c, pts = _rand_ext(E, (4, 4099), 3), _points(E, k, 5, 4)[0]
+    for start in (0, 12345):
+        for fn, args in ((eval_many, (c, pts[0])), (eval_points, (c[0], pts)),
+                         (sumcheck_evals, (c[0, :4098], pts))):
+            want = fn(k, *args, start)
+            before = ds.launches["pow_dot_" + field]
+            got = fn(k, *(a.to(dev) for a in args), start)
+            assert ds.launches["pow_dot_" + field] == before + 1
+            assert torch.equal(got.cpu(), want)
+
+
+def _planted_comps(n, C, seed):
+    """(n, C) random u64 elements with copies of element 5 at n // 2 and
+    n - 1, and rows (6, C): index 0, n - 1 (a copy), 5, an element at
+    n // 3, one off in its last word, and an absent value."""
+    rng = np.random.default_rng(seed)
+    comps = rng.integers(0, 1 << 64, size=(n, C), dtype=np.uint64)
+    comps[n // 2] = comps[5]
+    comps[n - 1] = comps[5]
+    rows = np.stack([comps[0], comps[n - 1], comps[5], comps[n // 3], comps[n // 3],
+                     rng.integers(0, 1 << 64, size=C, dtype=np.uint64)])
+    rows[4, -1] ^= np.uint64(1)
+    return (torch.from_numpy(comps.view(np.int64)), torch.from_numpy(rows.view(np.int64)))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 7, 1024, 1025, 300001, 1 << 21])
+def test_first_match_kernel_matches_plain(dev, C, n):
+    """ms_first_match against the plain compare at 6 rows, 64 rows (over
+    SEARCH_CHUNK) and 1030 (two launches: MATCH_MAX_ROWS 1024 a launch),
+    one launch a call up to 1024 rows; no rows, no launch."""
+    from ministark_tpu_torch.commit import packed_tree as pt
+
+    comps, rows = _planted_comps(max(n, 8), C, n)
+    comps = comps[:n]
+    for r in (rows, rows.repeat(11, 1)[:64], rows.repeat(172, 1)[:1030]):
+        want = pt._first_match_find_plain(comps, r)
+        before = pt.launches["first_match"]
+        got = pt._first_match_find(comps.to(dev), r.to(dev))
+        assert pt.launches["first_match"] - before == -(-r.shape[0] // pt.MATCH_MAX_ROWS)
+        assert torch.equal(got.cpu(), want)
+    before = pt.launches["first_match"]
+    assert pt._first_match_find(comps.to(dev), rows[:0].to(dev)).shape == (0,)
+    assert pt.launches["first_match"] == before
+
+
+def test_first_match_race_and_graph(dev):
+    """50 calls back to back (the scratch's minima and ticket reset by each
+    call's last block), each equal to the plain result; a CUDA graph of one
+    call replayed 3 times."""
+    from ministark_tpu_torch.commit import packed_tree as pt
+
+    comps, rows = _planted_comps(1 << 21, 2, 50)
+    want = pt._first_match_find_plain(comps, rows)
+    c, r = comps.to(dev), rows.to(dev)
+    outs = [pt.first_match_cuda(c, r) for _ in range(50)]
+    assert all(torch.equal(o.cpu(), want) for o in outs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pt.first_match_cuda(c, r)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_first_match_wrapper_refuses(dev):
+    from ministark_tpu_torch.commit import packed_tree as pt
+
+    comps, rows = _planted_comps(64, 2, 1)
+    c, r = comps.to(dev), rows.to(dev)
+    for bad in ((c, r.cpu()), (c.t(), r), (c.to(torch.int32), r), (c, r[:, :1]),
+                (_planted_comps(64, 3, 1)[0].to(dev), _planted_comps(64, 3, 1)[1].to(dev)),
+                (c.reshape(-1)[1:-1].reshape(63, 2), r)):
+        with pytest.raises(ValueError):
+            pt.first_match_cuda(*bad)
 
 
 # ---- the sharded paths (parallel/): two ranks sharing this card in a gloo

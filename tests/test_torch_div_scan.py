@@ -14,7 +14,12 @@ Then the block forms: D = 2 and 4 blocks,
 each with its start and the later blocks' ``pow_dot`` totals as its carry,
 make the whole division (with the head and the fold); a head over a
 broadcast polynomial equals one over its copies; z = 0 raises; the kernel
-wrappers refuse a CPU tensor and a base field."""
+wrappers refuse a CPU tensor and a base field. The point evaluations, each
+one ``pow_dot`` call (ROADMAP X8): ``eval_many``, STIR's ``eval_points``
+and WHIR's ``sumcheck_evals`` against ``poly_device.eval_many``,
+``_eval_points_jit`` and ``_sumcheck_evals_jit``, with and without a
+start (the JAX functions given the start's zero coefficients in front),
+and ``pow_dot_replay`` on their broadcast shapes."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,8 @@ import torch
 
 from ministark_tpu.fields import BABYBEAR_FP4 as J_BB4
 from ministark_tpu.fields import GOLDILOCKS_FP2 as J_GL2
+from ministark_tpu.fri.stir import _eval_points_jit
+from ministark_tpu.fri.whir import _sumcheck_evals_jit
 from ministark_tpu.ops import poly_device as jp
 from ministark_tpu.ops.registry import get_kernels
 from ministark_tpu.stark.engine import (
@@ -34,6 +41,8 @@ from ministark_tpu.stark.engine import (
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
 from ministark_tpu_torch.fields import BABYBEAR_FP, BABYBEAR_FP4, GOLDILOCKS_FP2
 from ministark_tpu_torch.fields import BabyBear, Goldilocks
+from ministark_tpu_torch.fri import stir as t_stir
+from ministark_tpu_torch.fri import whir as t_whir
 from ministark_tpu_torch.ops import div_scan as ds
 from ministark_tpu_torch.ops import poly
 from ministark_tpu_torch.ops.field import get_ops
@@ -120,6 +129,105 @@ def test_pow_dot_start_matches_eval_many(name):
     padded = torch.cat([torch.zeros((B, start) + k.elem_axes, dtype=torch.int64), c], 1)
     want = _port(F, J_EVAL_MANY(jk, _j(F, padded), _j(F, z)))
     assert torch.equal(ds.pow_dot(k, c, z.expand(B, -1), start), want)
+
+
+def _zeros_in_front(k, c, count: int, axis: int):
+    shape = list(c.shape)
+    shape[axis] = count
+    return torch.cat([torch.zeros(shape, dtype=torch.int64), c], axis)
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("start", [0, 5])
+def test_eval_many_matches_jax(name, start):
+    """B = 4 polynomials of 64 coefficients at one point, from x^start."""
+    F, JF, _ = FIELDS[name]
+    k, jk = get_ops(F), get_kernels(JF)
+    rng = _rng(name, 30 + start)
+    c = _rand(F, rng, (4, 64))
+    z, _ = _point(F, rng)
+    want = _port(F, J_EVAL_MANY(jk, _j(F, _zeros_in_front(k, c, start, 1)), _j(F, z)))
+    assert torch.equal(poly.eval_many(k, c, z, start), want)
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("start", [0, 3])
+@pytest.mark.parametrize("n,m", [(64, 6), (17, 1)])
+def test_eval_points_matches_jax(name, start, n, m):
+    """One polynomial at m points (the coefficients broadcast over the
+    rows), from x^start."""
+    F, JF, _ = FIELDS[name]
+    k, jk = get_ops(F), get_kernels(JF)
+    rng = _rng(name, 40 + n + m + start)
+    c, pts = _rand(F, rng, (n,)), _rand(F, rng, (m,))
+    want = _port(F, _eval_points_jit(jk, _j(F, _zeros_in_front(k, c, start, 0)),
+                                     _j(F, pts)))
+    assert torch.equal(t_stir.eval_points(k, c, pts, start), want)
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("start", [0, 3])
+@pytest.mark.parametrize("n,m", [(64, 5), (18, 1)])
+def test_sumcheck_evals_match_jax(name, start, n, m):
+    """The even and odd halves at m points, each half from x^start (a block
+    whose first coefficient is 2 start)."""
+    F, JF, _ = FIELDS[name]
+    k, jk = get_ops(F), get_kernels(JF)
+    rng = _rng(name, 50 + n + m + start)
+    c, pts = _rand(F, rng, (n,)), _rand(F, rng, (m,))
+    want = _port(F, _sumcheck_evals_jit(jk, _j(F, _zeros_in_front(k, c, 2 * start, 0)),
+                                        _j(F, pts)))
+    got = t_whir.sumcheck_evals(k, c, pts, start)
+    assert got.shape == (m, 2, F.extension_degree) and torch.equal(got, want)
+
+
+def test_point_evals_one_pow_dot_call(monkeypatch):
+    """eval_many, eval_points and sumcheck_evals each make exactly one
+    pow_dot call (so one launch on the card), the last with parts=2."""
+    F, _, _ = FIELDS["gl2"]
+    k = get_ops(F)
+    rng = _rng("gl2", 60)
+    seen = []
+    real = ds.pow_dot
+
+    def counted(*a, **kw):
+        seen.append(kw.get("parts", 1))
+        return real(*a, **kw)
+
+    for mod in (poly, t_stir, t_whir):
+        monkeypatch.setattr(mod, "pow_dot", counted)
+    c, pts = _rand(F, rng, (3, 16)), _rand(F, rng, (4,))
+    for call in (lambda: poly.eval_many(k, c, pts[0]),
+                 lambda: poly.eval_many(k, c, pts[0], 7),
+                 lambda: t_stir.eval_points(k, c[0], pts),
+                 lambda: t_stir.eval_points(k, c[0], pts, 7),
+                 lambda: t_whir.sumcheck_evals(k, c[0], pts),
+                 lambda: t_whir.sumcheck_evals(k, c[0], pts, 7)):
+        before = len(seen)
+        call()
+        assert len(seen) == before + 1
+    assert seen == [1, 1, 1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("parts", [1, 2])
+def test_pow_dot_replay_on_point_eval_shapes(name, parts):
+    """The kernel's route at the point evaluations' views: the coefficients
+    broadcast over the rows (batch stride 0, STIR and WHIR) with a point a
+    row, and one point broadcast over B rows (eval_many), with and without
+    a start; and the plain version's one-point branch against its own
+    point-a-row path."""
+    F, _, _ = FIELDS[name]
+    k = get_ops(F)
+    rng = _rng(name, 70 + parts)
+    c1, c = _rand(F, rng, (70,)), _rand(F, rng, (3, 70))
+    pts = _rand(F, rng, (3,))
+    for cc, zz in ((c1.unsqueeze(0).expand(3, -1, -1), pts), (c, pts[0].expand(3, -1))):
+        for start in (0, 9):
+            want = ds.pow_dot_plain(k, cc, zz, start, parts=parts)
+            assert torch.equal(ds.pow_dot_replay(k, cc, zz, start, parts=parts), want)
+            assert torch.equal(ds.pow_dot_plain(k, cc, zz.contiguous(), start, parts=parts),
+                               want)
 
 
 @pytest.mark.parametrize("name", list(FIELDS))
