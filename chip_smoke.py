@@ -454,6 +454,26 @@ def _rand_u64(rng, shape, p):
     return torch.from_numpy(v.view(np.int64)).cuda()
 
 
+def _rand_bb(rng, shape, p):
+    """``_rand_u64``'s BabyBear twin: the same draws and edge values, as the
+    int32 tensor on the card that the port holds BabyBear in."""
+    import numpy as np
+    import torch
+
+    v = rng.integers(0, p, size=shape, dtype=np.uint64)
+    flat = v.reshape(-1)
+    edge = np.array([e for e in (0, 1, p - 1, p - 2, 9, 10, 10**9 - 1) if 0 <= e < p],
+                    dtype=np.uint64)
+    flat[: min(edge.size, flat.size)] = edge[: flat.size]
+    return torch.from_numpy(v.astype(np.int32)).cuda()
+
+
+def _rand_field(rng, shape, p):
+    """Random values of the field of prime p in its storage: ``_rand_bb``
+    for BabyBear (p < 2^32), ``_rand_u64`` for Goldilocks."""
+    return (_rand_bb if p < (1 << 32) else _rand_u64)(rng, shape, p)
+
+
 # kernels whose lines also carry the host's time per call issued without a
 # synchronize (host_ms), the card's time alone (device_ms: the calls queued
 # behind a device sleep) and torch.profiler's kernel time and kernel records
@@ -517,7 +537,7 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
 
     sfx = "" if tag == "gl" else "_" + tag
     for label, batch, n, kw in radix2_shapes:
-        x = _rand_u64(rng, (batch, n), F.p)
+        x = _rand_field(rng, (batch, n), F.p)
         work = rf.ntt_work(batch, n, "pre" in kw, bool(kw.get("inverse")), tag)
         rec = compare("ntt" + sfx, label, lambda: ntt.transform_cuda(x, **kw, field=F),
                       lambda: ntt.transform_plain(x, **kw, field=F), work)
@@ -533,7 +553,7 @@ def _compare_ntts(compare, rng, F, tag, radix2_shapes, backend_shapes):
         rec["launches_per_call"] = per_call
 
     for label, batch, n, kw in backend_shapes:
-        x = _rand_u64(rng, (batch, n), F.p)
+        x = _rand_field(rng, (batch, n), F.p)
         inverse, pre, post = bool(kw.get("inverse")), kw.get("pre"), kw.get("post")
         scale = ntt.inv_n(F, n) if inverse else None
         n1, n2 = fs._split_sizes(n)
@@ -585,7 +605,7 @@ def _compare_leaf_hash(compare, rng, F, name, shapes):
 
     md = lh.digits_for(F)
     for label, groups, k, fmt in shapes:
-        comps = _rand_u64(rng, (groups * k, lh._FMT_COMPS[fmt]), F.p)
+        comps = _rand_field(rng, (groups * k, lh._FMT_COMPS[fmt]), F.p)
         comps[: groups // 4] %= 1000
         compare(name, label, lambda: lh.leaf_hash_cuda(comps, k, fmt, md),
                 lambda: lh.leaf_hash_plain(comps, k, fmt, md),
@@ -608,8 +628,11 @@ def _check_leaf_boundaries(rng):
         p = (GOLDILOCKS_FP if md == 20 else BABYBEAR_FP).p
         groups = lh.boundary_groups(fmt, k, md, p, lengths).reshape(len(lengths), -1)
         order = rng.permutation(np.tile(np.arange(len(lengths)), 1000))
-        comps = torch.from_numpy(groups[order].reshape(len(order) * k, -1)
-                                 .view(np.int64)).cuda()
+        groups = groups[order].reshape(len(order) * k, -1)
+        # the 10-digit path is BabyBear's, 32-bit words (2^32 - 1 as -1)
+        words = (groups.view(np.int64) if md == 20
+                 else groups.astype(np.uint32).view(np.int32))
+        comps = torch.from_numpy(np.ascontiguousarray(words)).cuda()
         got = lh.leaf_hash_cuda(comps, k, fmt, md)
         err = max_abs_err(got, lh.leaf_hash_plain(comps, k, fmt, md))
         if err != 0:
@@ -776,12 +799,68 @@ def phase_kernels_bb(results):
     ])
 
     # K2b: the fast mode's BabyBear witness rows (6 polynomials x F 4 x 4
-    # components = 96 u64 per row) over 2^19 coset rows
-    comps = _rand_u64(rng, (1 << 19, 96), F.p)
+    # components = 96 int32 per row, each hashed as 8 little-endian bytes)
+    # over 2^19 coset rows
+    comps = _rand_bb(rng, (1 << 19, 96), F.p)
     compare("sha256_rows", "2^19 rows, C 96 (BabyBear witness group)",
             lambda: sh.binary_row_digests_cuda(comps),
             lambda: sh.binary_row_digests_plain(comps),
-            rf.rows_work(1 << 19, 96), reps=5, plain_reps=1)
+            rf.rows_work(1 << 19, 96, 4), reps=5, plain_reps=1)
+    _check_int64_refused()
+
+
+def _check_int64_refused():
+    """Every BabyBear kernel's wrapper refuses an int64 operand (the storage
+    before the 32-bit port) with a ValueError and launches nothing: no
+    cast, no fallback."""
+    import torch
+
+    from ministark_tpu_torch.commit import packed_tree as pt
+    from ministark_tpu_torch.fields import BABYBEAR_FP as F
+    from ministark_tpu_torch.fields import BABYBEAR_FP4 as E
+    from ministark_tpu_torch.ops import bb
+    from ministark_tpu_torch.ops import div_scan as ds
+    from ministark_tpu_torch.ops import leaf_hash as lh
+    from ministark_tpu_torch.ops import ntt
+    from ministark_tpu_torch.ops import ntt_four_step as fs
+    from ministark_tpu_torch.ops import ntt_pipe as pp
+    from ministark_tpu_torch.ops.field import get_ops
+
+    n = 1 << 14
+    x64 = torch.ones((2, n), dtype=torch.int64, device="cuda")
+    e64 = torch.ones((2, n, 4), dtype=torch.int64, device="cuda")
+    z64 = torch.ones((2, 4), dtype=torch.int64, device="cuda")
+    tw1, tw2, wpow = fs._tables(n, False, "cuda", F)
+    levels = pp._tables(n, False, "cuda", F)
+    Fi, tw, W, k_prod = levels[0]
+    k4 = get_ops(E)
+    cases = [("ms_ntt_bb", lambda: ntt.transform_cuda(x64, field=F)),
+             ("ms_ntt_four_step_pass1_bb", lambda: fs.pass1_cuda(x64, tw2, wpow, None, F)),
+             ("ms_ntt_pipe_level_bb", lambda: pp.level_cuda(
+                 x64.reshape(2, Fi, n // Fi), tw, None, W, k_prod, None, F)),
+             ("ms_leaf_hash_bb", lambda: lh.leaf_hash_cuda(x64.reshape(-1, 1), 2, 0, 10)),
+             ("ms_bb_ew", lambda: bb.mul_cuda(x64, x64)),
+             ("ms_bb_fp4_mul", lambda: bb.fp4_mul_cuda(e64, e64)),
+             ("ms_pow_dot_bb4", lambda: ds.pow_dot_cuda(k4, e64, z64)),
+             ("ms_div_scan_bb4", lambda: ds.div_scan_cuda(k4, e64, z64, z64)),
+             ("ms_first_match_bb", lambda: pt.first_match_cuda(
+                 e64.reshape(-1, 4).to(torch.int32), e64[0, :2].contiguous()))]
+    before = read_counts()[0]
+    for name, call in cases:
+        try:
+            call()
+        except ValueError as e:
+            say("kernels", f"int64_refused {name}: ValueError ({e})")
+            continue
+        fail(f"{name}: an int64 BabyBear operand was taken, not refused")
+    torch.cuda.synchronize()
+    after = read_counts()[0]
+    moved = {k: after[k] - before[k] for k in after
+             if not k.endswith(" calls") and after[k] != before[k]}
+    if moved:
+        fail(f"int64 BabyBear operands launched kernels: {moved}")
+    say("kernels", f"int64_refused: {len(cases)} BabyBear wrappers refuse an int64 "
+                   "operand, no launch")
 
 
 def phase_kernels_field_ew(results):
@@ -820,7 +899,7 @@ def phase_kernels_field_ew(results):
             plan = (gl._mul_plan(x.shape, x.stride(), y.shape, y.stride(), aligned)
                     if k is None else
                     gl._ext_plan(x.shape, x.stride(), y.shape, y.stride(), aligned, k,
-                                 kernel))[1]
+                                 kernel, x.element_size()))[1]
             if plan[2] != vec:
                 fail(f"{kernel} {label}: the wrapper took the other path")
         # a CPU scalar's copy to the card waits for the card: no device ms
@@ -869,9 +948,10 @@ def phase_kernels_field_ew(results):
     del a, b, e, f
 
     p = BABYBEAR_FP.p
-    a, b = _rand_u64(rng, (6, n21), p), _rand_u64(rng, (n21,), p)
-    g, h = _rand_u64(rng, (n21, 4), p), _rand_u64(rng, (n21, 4), p)
-    cpu0, cpu4 = gl.pack_u64(p - 1), gl.pack_u64([1, 12345, p - 1, p - 2])
+    a, b = _rand_bb(rng, (6, n21), p), _rand_bb(rng, (n21,), p)
+    g, h = _rand_bb(rng, (n21, 4), p), _rand_bb(rng, (n21, 4), p)
+    cpu0 = gl.pack_words(p - 1, bb.DTYPE)
+    cpu4 = gl.pack_words([1, 12345, p - 1, p - 2], bb.DTYPE)
     add, mul, neg = ew["bb", "add"], ew["bb", "mul"], ew["bb", "neg"]
     for args in [
             ("mul (2^21,) x (2^21,), contiguous", bb.mul, bb.mul_cuda, bb.mul_plain,
@@ -897,7 +977,7 @@ def phase_kernels_field_ew(results):
              bb.fp4_add_plain, (g, cpu4), rf.ew_work(g, cpu4, add), None)]:
         row("bb_ew", *args)
 
-    qa, qb = _rand_u64(rng, (Q, 1 << 20, 4), p), _rand_u64(rng, (Q, 1 << 20, 4), p)
+    qa, qb = _rand_bb(rng, (Q, 1 << 20, 4), p), _rand_bb(rng, (Q, 1 << 20, 4), p)
     for label, x, y, vec in [
             ("(2^21, 4) x (2^21, 4)", g, h, 1),
             (f"query round ({Q}, 2^20, 4) x ({Q}, 2^20, 4)", qa, qb, 1),
@@ -1116,10 +1196,10 @@ def phase_kernels_div_scan(results):
         k, K = get_ops(E), E.extension_degree
         z, zinv = _ext_points(rng, E, Q)
         z1, zi1 = z[:1], zinv[:1]
-        c21 = _rand_u64(rng, (1, 2 * n20, K), E.p)
-        cq = _rand_u64(rng, (Q, n20, K), E.p)
-        blk = _rand_u64(rng, (1, n19, K), E.p)
-        alpha, small = _rand_u64(rng, (K,), E.p), _rand_u64(rng, (Q, 2, K), E.p)
+        c21 = _rand_field(rng, (1, 2 * n20, K), E.p)
+        cq = _rand_field(rng, (Q, n20, K), E.p)
+        blk = _rand_field(rng, (1, n19, K), E.p)
+        alpha, small = _rand_field(rng, (K,), E.p), _rand_field(rng, (Q, 2, K), E.p)
         fold_kw = dict(head=small[:1, :1], fold=alpha)
         divisions = [
             ("fold-divide 2^21 -> 2^20 (fold, head 1)", c21, n20, z1, zi1, fold_kw),
@@ -1160,8 +1240,8 @@ def phase_kernels_div_scan(results):
         # eval_points and WHIR's sumcheck_evals at their largest broadcast
         # rounds, 2^18 coefficients at 32 and 34 points
         pts, _ = _ext_points(rng, E, 34)
-        c6 = _rand_u64(rng, (6 * FAST_BATCH, n20, K), E.p)
-        c18 = _rand_u64(rng, (1, n20 // 4, K), E.p)
+        c6 = _rand_field(rng, (6 * FAST_BATCH, n20, K), E.p)
+        c18 = _rand_field(rng, (1, n20 // 4, K), E.p)
         dots = [("eval_even_odd 2^21, stride 2 (even half)", c21, z1, 0, 2, 1),
                 ("eval_even_odd 2^21, both halves (parts=2)", c21, z1, 0, 1, 2),
                 ("block total 2^19 from 2^19", blk, z1, n19, 1, 1),
@@ -1266,7 +1346,11 @@ def _planted_search(rng, n, C, q, p):
         if i < n:
             hit = np.flatnonzero((comps == rows[j]).all(1))
             want[j] = int(hit[0])
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).cuda()  # noqa: E731
+    # the field's storage: Goldilocks int64, BabyBear int32
+    if p < (1 << 32):
+        t = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa: E731
+    else:
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).cuda()  # noqa: E731
     return t(comps), t(rows), torch.tensor(want, dtype=torch.int64)
 
 
@@ -1457,7 +1541,7 @@ def _reference_commits(engine, trace):
     shift = merlin.challenge_scalar(base)
     tp = ntt.transform_plain(cols, inverse=True, field=base)
     coeffs = torch.cat([tp] + [f(tp)[None] for f in trace.transitions])
-    padded = torch.zeros((coeffs.shape[0], 2 * n), dtype=torch.int64,
+    padded = torch.zeros((coeffs.shape[0], 2 * n), dtype=coeffs.dtype,
                          device=cols.device)
     padded[:, :n] = coeffs
     lde = ntt.transform_plain(padded, pre=shift, field=base)
@@ -1590,8 +1674,9 @@ def phase_main(results, field="gl"):
     t0 = time.time()
     proof2 = engine.prove(trace)
     warm = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     say(label, f"warm prove {warm:.3f} s; peak device memory "
-               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+               f"{peak / 2**30:.2f} GiB ({peak} B); "
                "phase_seconds "
                + json.dumps({k: round(v, 4) for k, v in engine.phase_seconds.items()}))
     d1, d2 = proof_digests(sf, proof), proof_digests(sf, proof2)
@@ -1675,7 +1760,7 @@ def _fast_reference_roots(stark, trace):
     def coset_rows(polys):                       # (B, n, d) coefficients
         B, n = polys.shape[0], polys.shape[1]
         N = cfg.blowup * n
-        padded = torch.zeros((d * B, N), dtype=torch.int64, device=polys.device)
+        padded = torch.zeros((d * B, N), dtype=polys.dtype, device=polys.device)
         padded[:, :n] = polys.movedim(-1, 1).reshape(d * B, n)
         ev = ntt.transform_plain(padded, pre=offset,
                                  field=stark.base).reshape(B, d, N)
@@ -1776,8 +1861,9 @@ def phase_fast(results, field="gl"):
     t0 = time.time()
     proof2 = stark.prove(trace)
     warm = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     say(label, f"steps {MAIN_STEPS}: warm prove {warm:.3f} s; peak device "
-               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+               f"memory {peak / 2**30:.2f} GiB ({peak} B); "
                "phase_seconds "
                + json.dumps({k: round(v, 4) for k, v in stark.phase_seconds.items()}))
     blob = proof_bytes(proof)
@@ -2096,7 +2182,7 @@ def _sharded_full(mesh):
     from ministark_tpu_torch.commit.index_tree import IndexMerkleTree
     from ministark_tpu_torch.commit.packed_tree import PackedMerkleTree
     from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
-    from ministark_tpu_torch.ops.field import pack_u64
+    from ministark_tpu_torch.ops.field import get_ops, pack_words
     from ministark_tpu_torch.ops.ntt import get_ntt_fns
     from ministark_tpu_torch.parallel import get_sharded_ntt_fns
     from ministark_tpu_torch.stark import StarkConfig
@@ -2145,7 +2231,8 @@ def _sharded_full(mesh):
     base = sf.base
 
     def rand(shape):
-        return pack_u64(rng.integers(0, base.p, size=shape, dtype=np.uint64), dev)
+        return pack_words(rng.integers(0, base.p, size=shape, dtype=np.uint64),
+                          get_ops(base).dtype, dev)
 
     x, shift, n = rand(SHARDED_LDE), base.generator, SHARDED_LDE[1]
     dist.barrier()

@@ -34,7 +34,7 @@ from ..parallel.mesh import owner_select
 
 
 def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
-    """(n, C) int64 rows -> (n_nodes, 8) int32 digests of every level,
+    """(n, C) int64 (or int32 BabyBear) rows -> (n_nodes, 8) int32 digests of every level,
     leaves first, root last: one row-leaf call, then one inner-level call
     per level."""
     levels = [binary_row_digests(comps)]
@@ -93,7 +93,7 @@ class IndexMerklePath:
 
 class IndexMerkleTree:
     def __init__(self, comps: torch.Tensor, arity: int = 2, mesh=None):
-        """comps: (n, C) int64 tensor of u64 row components, n a power of
+        """comps: (n, C) tensor of row components (int64 u64 patterns, or int32 BabyBear), n a power of
         two; the tree is built on its device. ``mesh``: a
         ``parallel.Mesh``, the whole rows on every rank; the build shards
         when n splits over it (the same digests)."""

@@ -8,8 +8,10 @@ comps) tensor and all nodes one (n_nodes, 8) digest tensor, on whatever
 device the values were given. A tree over a CUDA tensor hashes on the card
 with the kernels; a tree over a CPU tensor takes their plain versions.
 
-Component layout per field (fields/host.py Display semantics):
-  base field       -> (n, 1) canonical u64          (fmt 0)
+Component layout per field (fields/host.py Display semantics), in the
+field's dtype (int64 Goldilocks, int32 BabyBear; a tensor of the other
+raises):
+  base field       -> (n, 1) canonical value        (fmt 0)
   quadratic ext    -> (n, 2) [c0, c1]               (fmt 1)
   BabyBear Fp4     -> (n, 4) [c00, c01, c10, c11]   (fmt 2)
 
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda
-from ..ops.field import pack_u64, unpack_u64
+from ..ops.field import field_dtype, pack_words, unpack_u64
 from ..ops.leaf_hash import digits_for, leaf_hash
 from ..ops.sha256 import digests_to_bytes, merkle_inner_levels
 from ..parallel.merkle_sharded import (
@@ -69,7 +71,11 @@ def field_fmt(field) -> int:
 
 def to_leaf_comps(field, vals: torch.Tensor) -> torch.Tensor:
     """Field tensor -> (n_elems, comps) component layout of the leaf hash:
-    base (n,) -> (n, 1); Fp2 (n, 2) and Fp4 (n, 4) stay."""
+    base (n,) -> (n, 1); Fp2 (n, 2) and Fp4 (n, 4) stay. A tensor of
+    another dtype than the field's raises."""
+    if vals.dtype != field_dtype(field):
+        raise ValueError(f"a tree over {field!r} takes {field_dtype(field)} "
+                         f"values, got {vals.dtype}")
     return vals.reshape(-1, field.extension_degree)
 
 
@@ -116,9 +122,12 @@ def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """CUDA kernel (csrc/leaf_search.cu ``ms_first_match``), same contract
     as ``_first_match_find_plain``: every element read once, one launch for
     up to MATCH_MAX_ROWS rows (one a chunk beyond); no rows, no launch.
-    ``comps`` (n, C) and ``rows`` (q, C): contiguous int64 on one CUDA
-    device, C 1, 2 or 4, n < 2^31 - 1; raises on anything else."""
-    cuda.require(comps, "first_match comps", torch.int64, 2)
+    ``comps`` (n, C) and ``rows`` (q, C): contiguous on one CUDA device,
+    both int64 (Goldilocks, ``ms_first_match``) or both int32 (BabyBear,
+    ``ms_first_match_bb``: 4-byte words, an Fp4 row one 16-byte load), C
+    1, 2 or 4, n < 2^31 - 1; raises on anything else."""
+    dtype = torch.int32 if comps.dtype == torch.int32 else torch.int64
+    cuda.require(comps, "first_match comps", dtype, 2)
     n, C = comps.shape
     if rows.device != comps.device or rows.dim() != 2 or rows.shape[1] != C:
         raise ValueError(f"first_match: rows {tuple(rows.shape)} on {rows.device} "
@@ -128,7 +137,7 @@ def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if q == 0:
         return out
     calls["first_match"] += 1
-    cuda.require(rows, "first_match rows", torch.int64, 2)
+    cuda.require(rows, "first_match rows", dtype, 2)
     if C not in (1, 2, 4):
         raise ValueError(f"first_match: C is 1, 2 or 4, got {C}")
     if not 1 <= n < (1 << 31) - 1:
@@ -136,7 +145,9 @@ def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if C > 1 and comps.data_ptr() % 16:
         raise ValueError("first_match: comps must start on a 16-byte boundary")
     scratch = _match_scratch_for(comps.device)
-    fn, stream = cuda.library().ms_first_match, cuda.stream_ptr(out)
+    lib = cuda.library()
+    fn = lib.ms_first_match_bb if dtype == torch.int32 else lib.ms_first_match
+    stream = cuda.stream_ptr(out)
     for s in range(0, q, MATCH_MAX_ROWS):
         r = rows[s:s + MATCH_MAX_ROWS]
         err = fn(comps.data_ptr(), r.data_ptr(), out[s:].data_ptr(), scratch.data_ptr(),
@@ -266,7 +277,8 @@ class PackedMerkleTree:
         and one gather for the whole batch."""
         rows = np.asarray([list(self.field.base_coeffs(v)) for v in leafs],
                           dtype=np.uint64).reshape(len(leafs), -1)
-        idxs = self.search_rows_async(pack_u64(rows, self.device))
+        idxs = self.search_rows_async(pack_words(rows, field_dtype(self.field),
+                                                 self.device))
         idxs = [int(i) for i in idxs.cpu()]
         if any(i >= self.n_leafs for i in idxs):
             raise LeafNotFound()

@@ -4,9 +4,11 @@
 numpy/JAX u32 array of shape (..., 2) for the base field and (..., 2, 2)
 for Fp2; a BabyBear element is one u32 word: (...) for the base field and
 (..., 4) for Fp4 (``ministark_tpu/ops/registry.py``). This package holds
-every element component as one int64: (...) for a base field, (..., 2) for
-Goldilocks Fp2 and (..., 4) for BabyBear Fp4. Nothing here imports jax:
-arrays cross as numpy.
+every element component as one word of the field's dtype: a Goldilocks
+component one int64 ((...) for the base field, (..., 2) for Fp2), a
+BabyBear component one int32 of the same value as the JAX u32 word ((...)
+for the base field, (..., 4) for Fp4). Nothing here imports jax: arrays
+cross as numpy.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ def _limbed(field) -> bool:
 
 
 def from_jax_packed(arr, field, device=None) -> torch.Tensor:
-    """JAX packed u32 array -> int64 tensor. ``field``: a host field of
+    """JAX packed u32 array -> int64 (Goldilocks) or int32 (BabyBear,
+    values below p < 2^31) tensor. ``field``: a host field of
     Goldilocks (base (..., 2) input, Fp2 (..., 2, 2)) or BabyBear (base
     (...) input, Fp4 (..., 4)). The JAX ``FastStark._constraint_polys``
     output, (w+t, n, 2) in Goldilocks or (w+t, n) in BabyBear, becomes the
@@ -37,7 +40,9 @@ def from_jax_packed(arr, field, device=None) -> torch.Tensor:
     if not _limbed(field):
         if field.extension_degree == 4:
             assert a.ndim >= 1 and a.shape[-1] == 4, a.shape
-        return torch.from_numpy(a.astype(np.int64)).to(device)
+        if a.size and int(a.max()) >= field.p:
+            raise ValueError("from_jax_packed: a BabyBear word at or above p")
+        return torch.from_numpy(a.astype(np.int32)).to(device)
     assert a.shape[-1] == 2, a.shape
     if field.extension_degree == 2:
         assert a.ndim >= 2 and a.shape[-2] == 2, a.shape
@@ -46,7 +51,9 @@ def from_jax_packed(arr, field, device=None) -> torch.Tensor:
 
 
 def to_jax_packed(t: torch.Tensor, field) -> np.ndarray:
-    """int64 tensor -> the JAX package's packed numpy u32 layout."""
+    """int64 (Goldilocks) or int32 (BabyBear) tensor -> the JAX package's
+    packed numpy u32 layout (BabyBear values given as int64 are taken too:
+    a u64 array's conversion)."""
     if not _limbed(field):
         return t.detach().cpu().numpy().astype(np.uint32)
     u64 = t.detach().cpu().contiguous().numpy().view(np.uint64)

@@ -1,6 +1,9 @@
 // BabyBear field arithmetic (p = 15 * 2^27 + 1 = 2013265921) on canonical
-// values held in uint64_t: the storage of gl.cuh, since the port keeps both
-// fields in int64 tensors.
+// values. The tensors hold a value in 32 bits (bb::word, int32 tensors, as
+// the JAX package holds it in one u32 lane); the kernels load a word into a
+// uint64_t register, run the same arithmetic as Goldilocks' kernels do on
+// gl.cuh, and store the low 32 bits. word_t<F> names a field's storage word:
+// bb::word, or uint64_t for a field that names none (gl.cuh).
 //
 // The device counterpart of ops/bb.py, with gl.cuh's names. A product of two
 // canonical values is below 2^62 and is reduced with one Barrett step:
@@ -12,8 +15,10 @@
 // plain versions read. Add and subtract run on 32 bits (a + b < 2p < 2^32).
 #pragma once
 #include <cstdint>
+#include <type_traits>
 
 struct bb {
+  using word = uint32_t;  // a value's storage in the tensors
   static constexpr uint64_t P = 2013265921ull;
   static constexpr uint32_t P32 = 2013265921u;
   static constexpr uint64_t M = 0xFFFFFFFFFFFFFFFFull / P;  // floor(2^64 / p)
@@ -35,3 +40,17 @@ struct bb {
     return r >= P32 ? r - P32 : r;
   }
 };
+
+template <class F, class = void>
+struct word_of {
+  using type = uint64_t;
+};
+
+template <class F>
+struct word_of<F, std::void_t<typename F::word>> {
+  using type = typename F::word;
+};
+
+// the storage word of field (or extension) F's tensors
+template <class F>
+using word_t = typename word_of<F>::type;

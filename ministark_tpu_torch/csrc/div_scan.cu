@@ -10,7 +10,13 @@
 // with c'[b, j] = c[b, j], or c[b, 2j] + alpha c[b, 2j + 1] (the fold), minus
 // head[b, start + j] where start + j < H. The rows are read in place through
 // a batch stride (0: one polynomial for every row) and a coefficient stride,
-// both in u64 words; q is a contiguous (B, n, K) tensor.
+// both in words of the field's storage (word_t<X>: Goldilocks 64 bits,
+// BabyBear 32, the port's int32 tensors); q is a contiguous (B, n, K) tensor.
+// A BabyBear word is widened to 64 bits on load and narrowed on store: the
+// tile, the look-back's partials and the scratch keep 64-bit words in both
+// fields, as laid out, so BabyBear's tile is filled through registers (a
+// cp.async cannot widen; one 16-byte load an Fp4 element where the rows are
+// contiguous) and leaves in 8-byte stores.
 //
 // Replaces no Pallas kernel: the JAX package leaves this division to XLA
 // (ministark_tpu/ops/planar.py::synth_div_planes :391 and fold_div_planes
@@ -160,18 +166,20 @@ enum PlanField {
 
 enum Flags { FL_FOLD = 1, FL_HEAD = 2, FL_CARRY = 4 };
 // how div_scan fills its tile: cp.async (contiguous 16-byte aligned rows,
-// no fold), 16-byte loads through registers with the fold, u64 loads
+// no fold; BabyBear's 32-bit words take 16-byte loads through registers
+// there), 16-byte loads through registers with the fold, word loads
 // through registers without or with it (any other stride)
 enum Fill { ASYNC = 0, FOLD_VEC, SCALAR, FOLD_SCALAR };
 
+template <class Word>
 struct Args {
-  const uint64_t* c;
-  const uint64_t* z;
-  const uint64_t* zinv;
-  const uint64_t* alpha;
-  const uint64_t* head;
-  const uint64_t* carry;
-  uint64_t* out;
+  const Word* c;
+  const Word* z;
+  const Word* zinv;
+  const Word* alpha;
+  const Word* head;
+  const Word* carry;
+  Word* out;
   uint64_t* counts;   // zero between calls: the last block of a call restores it
   uint64_t* values;
   int64_t B, n, c_sb, c_sj, z_sb, zinv_sb, head_sb, H, carry_sb, start, ntiles, flags;
@@ -227,15 +235,17 @@ __device__ __forceinline__ void mark(int64_t, int) {}
 __device__ __forceinline__ void trace_end(int64_t) {}
 #endif
 
-template <class X>
-__device__ __forceinline__ typename X::V load(const uint64_t* p) {
+// an element's K words, widened
+template <class X, class Word>
+__device__ __forceinline__ typename X::V load(const Word* p) {
   typename X::V v;
 #pragma unroll
   for (int i = 0; i < X::K; ++i) v.c[i] = p[i];
   return v;
 }
 
-// an element from 16-byte aligned memory, one 16-byte load a unit
+// an element from 16-byte aligned memory, one 16-byte load a unit: a
+// Goldilocks Fp2 element one, a BabyBear Fp4 element (4 x 32 bits) one
 template <class X>
 __device__ __forceinline__ typename X::V load16(const uint64_t* p) {
   typename X::V v;
@@ -249,9 +259,21 @@ __device__ __forceinline__ typename X::V load16(const uint64_t* p) {
 }
 
 template <class X>
-__device__ __forceinline__ void store(uint64_t* p, const typename X::V& v) {
+__device__ __forceinline__ typename X::V load16(const uint32_t* p) {
+  static_assert(X::K == 4, "32-bit words: one 16-byte load an Fp4 element");
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  typename X::V v;
+  v.c[0] = u.x;
+  v.c[1] = u.y;
+  v.c[2] = u.z;
+  v.c[3] = u.w;
+  return v;
+}
+
+template <class X, class Word>
+__device__ __forceinline__ void store(Word* p, const typename X::V& v) {
 #pragma unroll
-  for (int i = 0; i < X::K; ++i) p[i] = v.c[i];
+  for (int i = 0; i < X::K; ++i) p[i] = (Word)v.c[i];
 }
 
 // bypassing L1: the look-back's and the partials' values, written by other blocks
@@ -472,18 +494,20 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // q[n - 1] of row b: carry zinv^(start + n)
-template <class X>
-__device__ __forceinline__ typename X::V first_value(const Args& a, int64_t b) {
+template <class X, class Word>
+__device__ __forceinline__ typename X::V first_value(const Args<Word>& a, int64_t b) {
   return fmul<X>(load<X>(a.carry + b * a.carry_sb),
                 power<X>(load<X>(a.zinv + b * a.zinv_sb), (uint64_t)(a.start + a.n)));
 }
 
 // a[j] = c'[j + 1] of row b for j + 1 < n, read through registers
-template <class X, int FILL>
-__device__ __forceinline__ typename X::V coefficient(const Args& a, const uint64_t* row,
+template <class X, int FILL, class Word>
+__device__ __forceinline__ typename X::V coefficient(const Args<Word>& a, const Word* row,
                                                      const Fixed<X>& alpha, int64_t k) {
   if constexpr (FILL == FOLD_VEC) {
     return alpha.mac(load16<X>(row + (2 * k + 1) * X::K), load16<X>(row + 2 * k * X::K));
+  } else if constexpr (FILL == ASYNC) {    // 32-bit words: contiguous rows through registers
+    return load16<X>(row + k * X::K);
   } else if constexpr (FILL == FOLD_SCALAR) {
     return alpha.mac(load<X>(row + (2 * k + 1) * a.c_sj), load<X>(row + 2 * k * a.c_sj));
   } else {
@@ -494,8 +518,8 @@ __device__ __forceinline__ typename X::V coefficient(const Args& a, const uint64
 // The look-back over the tiles above ``tile`` in row b (warp 0): the sum of
 // their absolute partials P_u (inclusive values where published), rounds
 // of 32 x LOOK tiles, lane l reading tiles u0 + 32 i + l; lane 0 returns it.
-template <class X>
-__device__ __forceinline__ typename X::V look_back(const Args& a, const uint64_t* flags,
+template <class X, class Word>
+__device__ __forceinline__ typename X::V look_back(const Args<Word>& a, const uint64_t* flags,
                                                    const uint64_t* agg, const uint64_t* incl,
                                                    int64_t b, int64_t tile, int lane) {
   using V = typename X::V;
@@ -556,9 +580,13 @@ struct MinBlocks {
 };
 
 template <class X, int FILL>
-__global__ void __launch_bounds__(BLOCK, (MinBlocks<X, FILL>::value)) div_scan_kernel(Args a) {
+__global__ void __launch_bounds__(BLOCK, (MinBlocks<X, FILL>::value))
+    div_scan_kernel(Args<word_t<X>> a) {
   using G = Geo<X, FILL == FOLD_VEC || FILL == FOLD_SCALAR>;
   using V = typename X::V;
+  using Word = word_t<X>;
+  // cp.async copies the tile's 64-bit words as they lie: Goldilocks only
+  constexpr bool kAsync = FILL == ASYNC && sizeof(Word) == 8;
   constexpr int NT = G::LOG_E + 6;  // z^(2^s): the warp scan's z^(E 2^s), z^(32 E)
   extern __shared__ ulonglong2 sm[];
   __shared__ V zp[NT];
@@ -587,12 +615,12 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<X, FILL>::value)) div_scan_k
   const bool top = tile == a.ntiles - 1;
   const bool carry = (a.flags & FL_CARRY) != 0;
   const bool in_head = (a.flags & FL_HEAD) != 0 && a.start + base + 1 < a.H;
-  const uint64_t* row = a.c + b * a.c_sb;
+  const Word* row = a.c + b * a.c_sb;
   const V z = load<X>(a.z + b * a.z_sb);
 
   // ---- the compute warps load the tile; the helper warp takes the powers
   if (!helper) {
-    if constexpr (FILL == ASYNC) {
+    if constexpr (kAsync) {
 #pragma unroll 8
       for (int it = 0; it < G::E * G::U; ++it) {
         const int u = it * THREADS + t;
@@ -719,13 +747,20 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<X, FILL>::value)) div_scan_k
     }
     compute_bar();
     mark(ticket, 7);
-    uint64_t* orow = a.out + b * a.n * X::K;
+    Word* orow = a.out + b * a.n * X::K;
 #pragma unroll 8
     for (int it = 0; it < G::E * G::U; ++it) {
       const int u = it * THREADS + t;
       const int64_t j = base + (u >> G::LOG_U);
-      if (j < a.n)
-        reinterpret_cast<ulonglong2*>(orow + j * X::K)[u & (G::U - 1)] = sm[swz<G>(u)];
+      if (j < a.n) {
+        if constexpr (sizeof(Word) == 8) {
+          reinterpret_cast<ulonglong2*>(orow + j * X::K)[u & (G::U - 1)] = sm[swz<G>(u)];
+        } else {                   // a unit's two components, narrowed: 8 bytes
+          const ulonglong2 w2 = sm[swz<G>(u)];
+          reinterpret_cast<uint2*>(orow + j * X::K)[u & (G::U - 1)] =
+              make_uint2((uint32_t)w2.x, (uint32_t)w2.y);
+        }
+      }
     }
     mark(ticket, 8);
     trace_end(ticket);
@@ -740,7 +775,7 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<X, FILL>::value)) div_scan_k
 
 // ------------------------------------------------------------------ pow_dot
 template <class X, int P, bool VEC>
-__global__ void __launch_bounds__(BLOCK) pow_dot_kernel(Args a) {
+__global__ void __launch_bounds__(BLOCK) pow_dot_kernel(Args<word_t<X>> a) {
   using V = typename X::V;
   constexpr int NT = LOG_THREADS + 3;
   __shared__ V zp[NT];                // z^(2^s)
@@ -751,7 +786,7 @@ __global__ void __launch_bounds__(BLOCK) pow_dot_kernel(Args a) {
   const bool helper = t >= THREADS;
   const int h = warp - WARPS;                 // the helpers: 0 the table, 1 z^(start + base)
   const int64_t b = blockIdx.y, tile = blockIdx.x, base = tile * DOT_TILE;
-  const uint64_t* row = a.c + b * a.c_sb;
+  const word_t<X>* row = a.c + b * a.c_sb;
   uint64_t* done = a.counts;                  // B counters
   uint64_t* part = a.values;                  // B x ntiles x P x K
   const int64_t slot = b * a.ntiles + tile;
@@ -851,7 +886,8 @@ __global__ void __launch_bounds__(BLOCK) pow_dot_kernel(Args a) {
 }
 
 // ------------------------------------------------------------------ host
-bool read_plan(const int64_t* plan, Args& a) {
+template <class Word>
+bool read_plan(const int64_t* plan, Args<Word>& a) {
   a.B = plan[PL_B];
   a.n = plan[PL_N];
   a.c_sb = plan[PL_C_SB];
@@ -868,12 +904,14 @@ bool read_plan(const int64_t* plan, Args& a) {
          a.B * a.ntiles <= INT32_MAX;
 }
 
-bool aligned16(const void* p, int64_t words) {
-  return ((uintptr_t)p % 16) == 0 && words % 2 == 0;
+// p 16-byte aligned and a row stride of a multiple of 16 bytes
+template <class Word>
+bool aligned16(const Word* p, int64_t words) {
+  return ((uintptr_t)p % 16) == 0 && (words * (int64_t)sizeof(Word)) % 16 == 0;
 }
 
 template <class X, int FILL>
-int launch_div(const Args& a, cudaStream_t s) {
+int launch_div(const Args<word_t<X>>& a, cudaStream_t s) {
   constexpr int smem = Geo<X, FILL == FOLD_VEC || FILL == FOLD_SCALAR>::SMEM;
   // the whole tile, and as much shared memory as the SM has: three tiles an SM
   cudaError_t err = cudaFuncSetAttribute(
@@ -887,11 +925,11 @@ int launch_div(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <class X>
-int div_scan(const uint64_t* c, const uint64_t* z, const uint64_t* zinv, const uint64_t* alpha,
-             const uint64_t* head, const uint64_t* carry, uint64_t* out, uint64_t* counts,
+template <class X, class Word = word_t<X>>
+int div_scan(const Word* c, const Word* z, const Word* zinv, const Word* alpha,
+             const Word* head, const Word* carry, Word* out, uint64_t* counts,
              uint64_t* values, const int64_t* plan, void* stream) {
-  Args a{};
+  Args<Word> a{};
   const int64_t flags = plan[PL_FLAGS];
   const int64_t tile = flags & FL_FOLD ? Geo<X, true>::TILE : Geo<X, false>::TILE;
   const int64_t tiles = (plan[PL_N] + tile - 1) / tile;
@@ -915,10 +953,10 @@ int div_scan(const uint64_t* c, const uint64_t* z, const uint64_t* zinv, const u
   return vec ? launch_div<X, ASYNC>(a, s) : launch_div<X, SCALAR>(a, s);
 }
 
-template <class X>
-int pow_dot(const uint64_t* c, const uint64_t* z, uint64_t* out, uint64_t* counts,
+template <class X, class Word = word_t<X>>
+int pow_dot(const Word* c, const Word* z, Word* out, uint64_t* counts,
             uint64_t* values, const int64_t* plan, void* stream) {
-  Args a{};
+  Args<Word> a{};
   const int64_t P = plan[PL_PARTS];
   const int64_t terms = P >= 1 ? (plan[PL_N] + P - 1) / P : 0;
   const int64_t tiles = terms > 0 ? (terms + DOT_TILE - 1) / DOT_TILE : 1;
@@ -955,7 +993,9 @@ extern "C" int ms_pow_dot_gl2(const uint64_t* c, const uint64_t* z, uint64_t* ou
   return pow_dot<gl2>(c, z, out, counts, values, plan, stream);
 }
 
-extern "C" int ms_pow_dot_bb4(const uint64_t* c, const uint64_t* z, uint64_t* out,
+// the same over BabyBear Fp4's 32-bit words (c, z, out; the scratch stays
+// 64-bit)
+extern "C" int ms_pow_dot_bb4(const uint32_t* c, const uint32_t* z, uint32_t* out,
                               uint64_t* counts, uint64_t* values, const int64_t* plan,
                               void* stream) {
   return pow_dot<bb4>(c, z, out, counts, values, plan, stream);
@@ -972,9 +1012,11 @@ extern "C" int ms_div_scan_gl2(const uint64_t* c, const uint64_t* z, const uint6
   return div_scan<gl2>(c, z, zinv, alpha, head, carry, out, counts, values, plan, stream);
 }
 
-extern "C" int ms_div_scan_bb4(const uint64_t* c, const uint64_t* z, const uint64_t* zinv,
-                               const uint64_t* alpha, const uint64_t* head,
-                               const uint64_t* carry, uint64_t* out, uint64_t* counts,
+// the same over BabyBear Fp4's 32-bit words (every element operand and out;
+// the scratch stays 64-bit)
+extern "C" int ms_div_scan_bb4(const uint32_t* c, const uint32_t* z, const uint32_t* zinv,
+                               const uint32_t* alpha, const uint32_t* head,
+                               const uint32_t* carry, uint32_t* out, uint64_t* counts,
                                uint64_t* values, const int64_t* plan, void* stream) {
   return div_scan<bb4>(c, z, zinv, alpha, head, carry, out, counts, values, plan, stream);
 }

@@ -22,11 +22,11 @@ constexpr int MAX_BLOCKS = 132 * 16;  // grid-stride beyond 16 blocks per SM
 
 // The plan's int64 layout (ops/field.py::_plan writes the same order).
 enum PlanField {
-  PL_NUMEL = 0,  // output elements (an extension product: elements, not u64 words)
+  PL_NUMEL = 0,  // output elements (an extension product: elements, not words)
   PL_NDIM,       // merged axes, 1..4
   PL_VEC,        // 16-byte loads (base: contiguous path; extension: adjacent components)
   PL_WIDE,       // 64-bit indices
-  PL_CA,         // extension component strides of a and b (u64 units)
+  PL_CA,         // extension component strides of a and b (in words of the field)
   PL_CB,
   PL_SIZE,                         // size[4]
   PL_SA = PL_SIZE + MAX_DIMS,      // a's strides[4]

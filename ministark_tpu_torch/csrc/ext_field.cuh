@@ -1,5 +1,6 @@
 // The extension fields the provers' FRI and STIR rounds work in, on
-// canonical uint64_t components: Goldilocks Fp2 = Fp[u] / (u^2 - 7) (gl2)
+// canonical components held in uint64_t registers (bb4's tensors store them
+// as 32-bit words, bb4::word; gl2's as 64-bit ones, word_t's default): Goldilocks Fp2 = Fp[u] / (u^2 - 7) (gl2)
 // and the BabyBear tower Fp4 = Fp2[v] / (v^2 - (2013265910 + u)) over
 // Fp2 = Fp[u] / (u^2 - 11) (bb4), the tower of ops/bb.py (reference
 // src/field.rs:64-109). An element is a struct of K components in the
@@ -42,6 +43,7 @@ struct gl2 {
 };
 
 struct bb4 {
+  using word = uint32_t;  // a component's storage in the tensors
   static constexpr int K = 4;
   static constexpr uint64_t NR_FP2 = 11;            // u^2 = 11
   static constexpr uint64_t NR_FP4_C0 = 2013265910;  // v^2 = 2013265910 + u

@@ -39,6 +39,11 @@
 //   the remainder by 10^5 on 32 bits, then 32-bit divide-by-10 ladders of at
 //   most 10, 5 and 5 steps. The 10-digit path is one 32-bit ladder over the
 //   low word.
+//
+// Storage: ms_leaf_hash reads Goldilocks' 64-bit components (20 digits, or
+// 10 over the low word), ms_leaf_hash_bb BabyBear's 32-bit ones (int32
+// tensors, 10 digits); the staging copy widens them to the same 64-bit
+// shared-memory words, so both run one kernel body.
 #include <cuda_runtime.h>
 
 #include "sha256.cuh"
@@ -121,9 +126,9 @@ __host__ __device__ constexpr int comps_per_elem() {
 
 // dynamic shared memory: the block's components (THREADS * k * per u64),
 // then nw message words per lane, word-major
-template <int FMT, int MD>
+template <int FMT, int MD, class Word>
 __global__ void __launch_bounds__(THREADS)
-    leaf_hash(const uint64_t* __restrict__ comps, uint4* __restrict__ out,
+    leaf_hash(const Word* __restrict__ comps, uint4* __restrict__ out,
               int n_groups, int k, int nw) {
   extern __shared__ uint64_t smem[];
   constexpr int PER = comps_per_elem<FMT>();
@@ -135,7 +140,7 @@ __global__ void __launch_bounds__(THREADS)
   uint32_t* words = reinterpret_cast<uint32_t*>(smem + THREADS * per_group);
   uint8_t* rows = reinterpret_cast<uint8_t*>(words);
 
-  const uint64_t* src = comps + (size_t)g0 * per_group;
+  const Word* src = comps + (size_t)g0 * per_group;
   for (int j = lane; j < groups * per_group; j += THREADS) cs[j] = src[j];
   for (int w = 0; w < nw; ++w) words[w * THREADS + lane] = 0;
   __syncthreads();
@@ -177,8 +182,8 @@ __global__ void __launch_bounds__(THREADS)
   dst[1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
 
-template <int FMT, int MD>
-int launch(const uint64_t* comps, uint32_t* out, int n_groups, int k,
+template <int FMT, int MD, class Word>
+int launch(const Word* comps, uint32_t* out, int n_groups, int k,
            cudaStream_t s) {
   constexpr int PER = comps_per_elem<FMT>();
   const int per_elem = (FMT == 0 ? 0 : (FMT == 1 ? 21 : 63)) + PER * MD;
@@ -188,11 +193,11 @@ int launch(const uint64_t* comps, uint32_t* out, int n_groups, int k,
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        leaf_hash<FMT, MD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        leaf_hash<FMT, MD, Word>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n_groups + THREADS - 1) / THREADS;
-  leaf_hash<FMT, MD><<<blocks, THREADS, smem, s>>>(
+  leaf_hash<FMT, MD, Word><<<blocks, THREADS, smem, s>>>(
       comps, reinterpret_cast<uint4*>(out), n_groups, k, nw);
   return (int)cudaGetLastError();
 }
@@ -211,14 +216,28 @@ extern "C" int ms_leaf_hash(const uint64_t* comps, uint32_t* out, int n_groups,
   cudaStream_t s = (cudaStream_t)stream;
   if (max_digits == 20) {
     switch (fmt) {
-      case 0: return launch<0, 20>(comps, out, n_groups, k, s);
-      case 1: return launch<1, 20>(comps, out, n_groups, k, s);
-      default: return launch<2, 20>(comps, out, n_groups, k, s);
+      case 0: return launch<0, 20, uint64_t>(comps, out, n_groups, k, s);
+      case 1: return launch<1, 20, uint64_t>(comps, out, n_groups, k, s);
+      default: return launch<2, 20, uint64_t>(comps, out, n_groups, k, s);
     }
   }
   switch (fmt) {
-    case 0: return launch<0, 10>(comps, out, n_groups, k, s);
-    case 1: return launch<1, 10>(comps, out, n_groups, k, s);
-    default: return launch<2, 10>(comps, out, n_groups, k, s);
+    case 0: return launch<0, 10, uint64_t>(comps, out, n_groups, k, s);
+    case 1: return launch<1, 10, uint64_t>(comps, out, n_groups, k, s);
+    default: return launch<2, 10, uint64_t>(comps, out, n_groups, k, s);
+  }
+}
+
+// comps: (n_groups * k, 1 / 4 for fmt 0 / 2) BabyBear components, 32-bit
+// words (fmt 1 takes them too); out: (n_groups, 8), 16-byte aligned; 10
+// digits, as the JAX package's BabyBear path.
+extern "C" int ms_leaf_hash_bb(const uint32_t* comps, uint32_t* out, int n_groups,
+                               int k, int fmt, void* stream) {
+  if (n_groups < 1 || k < 1 || fmt < 0 || fmt > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (fmt) {
+    case 0: return launch<0, 10, uint32_t>(comps, out, n_groups, k, s);
+    case 1: return launch<1, 10, uint32_t>(comps, out, n_groups, k, s);
+    default: return launch<2, 10, uint32_t>(comps, out, n_groups, k, s);
   }
 }

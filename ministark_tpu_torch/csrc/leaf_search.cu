@@ -18,6 +18,11 @@
 // and resets them and the ticket, so each call is one launch and a CUDA
 // graph that captured a call replays right. The scratch: word 0 the ticket
 // (0 between calls), words 1..MAX_ROWS the minima (NONE between calls).
+//
+// Storage: ms_first_match compares Goldilocks' 64-bit words,
+// ms_first_match_bb BabyBear's 32-bit ones (int32 tensors): an Fp4 row is
+// one 16-byte load, a base element one 4-byte load; the rest is the same
+// kernel body on the narrower word.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,6 +34,25 @@ constexpr int UNROLL = 4;          // elements a thread loads before comparing
 constexpr int BLOCKS_PER_SM = 8;   // 2048 resident threads an SM
 constexpr int MAX_ROWS = 1024;     // rows a launch takes (ops: MATCH_MAX_ROWS)
 constexpr unsigned NONE = 0xFFFFFFFFu;
+
+// BabyBear: C 32-bit words an element, C = 1, 2 or 4 (one 4-, 8- or 16-byte load)
+template <int C>
+__device__ __forceinline__ void load(const int32_t* __restrict__ comps, long long i,
+                                     int32_t (&v)[C]) {
+  if constexpr (C == 1) {
+    v[0] = __ldcs(reinterpret_cast<const int*>(comps) + i);
+  } else if constexpr (C == 2) {
+    const int2 a = __ldcs(reinterpret_cast<const int2*>(comps) + i);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(comps) + i);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+}
 
 template <int C>
 __device__ __forceinline__ void load(const int64_t* __restrict__ comps, long long i,
@@ -46,13 +70,13 @@ __device__ __forceinline__ void load(const int64_t* __restrict__ comps, long lon
   }
 }
 
-template <int C>
+template <int C, class Word>
 __global__ void __launch_bounds__(THREADS)
-    first_match_kernel(const int64_t* __restrict__ comps, const int64_t* __restrict__ rows,
+    first_match_kernel(const Word* __restrict__ comps, const Word* __restrict__ rows,
                        int64_t* __restrict__ out, unsigned* __restrict__ scratch, int n,
                        int q) {
-  extern __shared__ int64_t smem[];                      // q * C row words
-  int64_t* srow = smem;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  Word* srow = reinterpret_cast<Word*>(smem_bytes);      // q * C row words
   unsigned* smin = reinterpret_cast<unsigned*>(srow + q * C);   // q minima
   __shared__ bool last;
   for (int j = threadIdx.x; j < q * C; j += THREADS) srow[j] = rows[j];
@@ -62,7 +86,7 @@ __global__ void __launch_bounds__(THREADS)
   const long long step = (long long)gridDim.x * THREADS * UNROLL;
   for (long long base = (long long)blockIdx.x * THREADS * UNROLL + threadIdx.x; base < n;
        base += step) {
-    int64_t v[UNROLL][C];
+    Word v[UNROLL][C];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (base + u * THREADS < n) load<C>(comps, base + u * THREADS, v[u]);
@@ -109,14 +133,15 @@ int sm_count() {
   return count[dev];
 }
 
-template <int C>
-int launch(const int64_t* comps, const int64_t* rows, int64_t* out, unsigned* scratch, int n,
+template <int C, class Word>
+int launch(const Word* comps, const Word* rows, int64_t* out, unsigned* scratch, int n,
            int q, cudaStream_t stream) {
   const long long need = ((long long)n + THREADS * UNROLL - 1) / (THREADS * UNROLL);
   const long long most = (long long)sm_count() * BLOCKS_PER_SM;
   const unsigned blocks = (unsigned)(need < most ? need : most);
-  const size_t shared = (size_t)q * C * sizeof(int64_t) + (size_t)q * sizeof(unsigned);
-  first_match_kernel<C><<<blocks, THREADS, shared, stream>>>(comps, rows, out, scratch, n, q);
+  const size_t shared = (size_t)q * C * sizeof(Word) + (size_t)q * sizeof(unsigned);
+  first_match_kernel<C, Word><<<blocks, THREADS, shared, stream>>>(comps, rows, out, scratch,
+                                                                  n, q);
   return (int)cudaGetLastError();
 }
 
@@ -131,9 +156,23 @@ extern "C" int ms_first_match(const int64_t* comps, const int64_t* rows, int64_t
   if (n < 1 || n == 0x7FFFFFFF || q < 1 || q > MAX_ROWS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 1: return launch<1>(comps, rows, out, scratch, n, q, s);
-    case 2: return launch<2>(comps, rows, out, scratch, n, q, s);
-    case 4: return launch<4>(comps, rows, out, scratch, n, q, s);
+    case 1: return launch<1, int64_t>(comps, rows, out, scratch, n, q, s);
+    case 2: return launch<2, int64_t>(comps, rows, out, scratch, n, q, s);
+    case 4: return launch<4, int64_t>(comps, rows, out, scratch, n, q, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// as ms_first_match over BabyBear's 32-bit words: comps (n, C) and rows (q,
+// C) int32, comps 16-byte aligned for C = 2, 4
+extern "C" int ms_first_match_bb(const int32_t* comps, const int32_t* rows, int64_t* out,
+                                 unsigned* scratch, int n, int q, int C, void* stream) {
+  if (n < 1 || n == 0x7FFFFFFF || q < 1 || q > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 1: return launch<1, int32_t>(comps, rows, out, scratch, n, q, s);
+    case 2: return launch<2, int32_t>(comps, rows, out, scratch, n, q, s);
+    case 4: return launch<4, int32_t>(comps, rows, out, scratch, n, q, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

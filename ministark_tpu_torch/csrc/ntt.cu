@@ -35,6 +35,12 @@
 //
 // Passes after the first run in place in y: a block reads its whole tile
 // before it writes, and no two blocks share an element.
+//
+// Storage: x, y and the tables are the field's words (word_t<F>: 64 bits
+// for Goldilocks, 32 for BabyBear), widened to 64 bits on load and
+// narrowed on store; the tile in shared memory keeps 64-bit words in both
+// fields (its padding and bank map are laid out for them), so a BabyBear
+// run of C = 4 columns is 16 bytes, half a sector.
 #include <cuda_runtime.h>
 
 #include "ntt_stages.cuh"
@@ -48,19 +54,20 @@ constexpr int PLAN_FIELDS = 6;  // s0, L, log_cols, threads, blocks, smem
 
 template <class F>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-    ntt_pass(const uint64_t* x, uint64_t* y, int log_n, int s0, int L,
-             int log_c, int tile_log, int h, const uint64_t* __restrict__ tw,
-             const uint64_t* __restrict__ tile_tw,
-             const uint64_t* __restrict__ pre_lo,
-             const uint64_t* __restrict__ pre_hi,
-             const uint64_t* __restrict__ post_lo,
-             const uint64_t* __restrict__ post_hi, uint64_t scale, int last) {
+    ntt_pass(const word_t<F>* x, word_t<F>* y, int log_n, int s0, int L,
+             int log_c, int tile_log, int h, const word_t<F>* __restrict__ tw,
+             const word_t<F>* __restrict__ tile_tw,
+             const word_t<F>* __restrict__ pre_lo,
+             const word_t<F>* __restrict__ pre_hi,
+             const word_t<F>* __restrict__ post_lo,
+             const word_t<F>* __restrict__ post_hi, uint64_t scale, int last) {
+  using W = word_t<F>;
   extern __shared__ uint64_t s[];
   const uint32_t T = 1u << L, C = 1u << log_c, elems = T << log_c;
   uint64_t* tws = s + ((size_t)(T + (T >> 3)) << log_c);
   const size_t n = (size_t)1 << log_n;
-  const uint64_t* xr = x + blockIdx.y * n;
-  uint64_t* yr = y + blockIdx.y * n;
+  const W* xr = x + blockIdx.y * n;
+  W* yr = y + blockIdx.y * n;
 
   // the stage roots of a 2^L-point transform, w_(2^L)^j for j < 2^(L-1)
   for (uint32_t j = threadIdx.x; j < T / 2; j += blockDim.x) {
@@ -125,15 +132,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
         v = F::mul(v, scale);
       }
     }
-    yr[dst] = v;
+    yr[dst] = (W)v;
   }
 }
 
-template <class F>
-int run_ntt(const uint64_t* x, uint64_t* y, int batch, int log_n,
-            const int64_t* plan, const uint64_t* tw, const uint64_t* tile_tw,
-            const uint64_t* pre_lo, const uint64_t* pre_hi,
-            const uint64_t* post_lo, const uint64_t* post_hi, uint64_t scale,
+template <class F, class W = word_t<F>>
+int run_ntt(const W* x, W* y, int batch, int log_n, const int64_t* plan,
+            const W* tw, const W* tile_tw, const W* pre_lo, const W* pre_hi,
+            const W* post_lo, const W* post_hi, uint64_t scale,
             int64_t* launched, void* stream) {
   if (log_n < 0 || log_n > MAX_LOG_N || batch < 1 || batch > 65535 ||
       plan[0] < 1 || (pre_lo == nullptr) != (pre_hi == nullptr) ||
@@ -188,11 +194,12 @@ extern "C" int ms_ntt_gl(const uint64_t* x, uint64_t* y, int batch, int log_n,
                      post_lo, post_hi, scale, launched, stream);
 }
 
-extern "C" int ms_ntt_bb(const uint64_t* x, uint64_t* y, int batch, int log_n,
-                         const int64_t* plan, const uint64_t* tw,
-                         const uint64_t* tile_tw, const uint64_t* pre_lo,
-                         const uint64_t* pre_hi, const uint64_t* post_lo,
-                         const uint64_t* post_hi, uint64_t scale,
+// the same over BabyBear's 32-bit words (x, y and every table)
+extern "C" int ms_ntt_bb(const uint32_t* x, uint32_t* y, int batch, int log_n,
+                         const int64_t* plan, const uint32_t* tw,
+                         const uint32_t* tile_tw, const uint32_t* pre_lo,
+                         const uint32_t* pre_hi, const uint32_t* post_lo,
+                         const uint32_t* post_hi, uint64_t scale,
                          int64_t* launched, void* stream) {
   return run_ntt<bb>(x, y, batch, log_n, plan, tw, tile_tw, pre_lo, pre_hi,
                      post_lo, post_hi, scale, launched, stream);

@@ -52,8 +52,11 @@
 //    up to 512 threads share an SM (__launch_bounds__(512, 2): at most 64
 //    registers).
 //
-// A BabyBear value takes the same 8 bytes (the port's int64 storage), so
-// both fields share the tiles.
+// Storage: x, c, y and the tables are the field's words (word_t<F>: 64 bits
+// for Goldilocks, 32 for BabyBear, the port's int32 tensors), widened on
+// load and narrowed on store. The tiles keep 64-bit words in both fields,
+// as they were laid out (padding, quarter shifts, bank map), so a
+// BabyBear run of 4 columns is 16 bytes, half a sector.
 #include <cuda_runtime.h>
 
 #include "ntt_stages.cuh"
@@ -80,21 +83,21 @@ struct QuarterRows {
   }
 };
 
-template <class F>
+template <class F, class W = word_t<F>>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-    four_step_pass1(const uint64_t* __restrict__ x, uint64_t* __restrict__ c,
-                    int log_n1, int log_n2, const uint64_t* __restrict__ roots2,
-                    const uint64_t* __restrict__ wpow,
-                    const uint64_t* __restrict__ pre_lo,
-                    const uint64_t* __restrict__ pre_hi) {
+    four_step_pass1(const W* __restrict__ x, W* __restrict__ c,
+                    int log_n1, int log_n2, const W* __restrict__ roots2,
+                    const W* __restrict__ wpow,
+                    const W* __restrict__ pre_lo,
+                    const W* __restrict__ pre_hi) {
   extern __shared__ uint64_t s[];
   const int L = log_n2, log_n = log_n1 + log_n2;
   const uint32_t n1 = 1u << log_n1, n2 = 1u << L, elems = n2 << LOG_C;
   uint64_t* w2 = s + tile_words(L);  // w2^j, j < n2; the stage roots first
   uint64_t* w1 = w2 + n2;            // w^j, j < n1
   const size_t n = (size_t)1 << log_n;
-  const uint64_t* xr = x + blockIdx.y * n;
-  uint64_t* cr = c + blockIdx.y * n;
+  const W* xr = x + blockIdx.y * n;
+  W* cr = c + blockIdx.y * n;
   const uint32_t i0 = blockIdx.x << LOG_C;
 
   for (uint32_t j = threadIdx.x; j < n2 / 2; j += blockDim.x) {
@@ -122,24 +125,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
     const uint32_t col = t & ((1u << LOG_C) - 1), k2 = t >> LOG_C;
     const uint32_t i1 = i0 + col, e = i1 * k2;
     const uint64_t w = F::mul(w1[e & (n1 - 1)], w2[e >> log_n1]);
-    cr[((size_t)k2 << log_n1) + i1] = F::mul(s[(srow(k2) << LOG_C) + col], w);
+    cr[((size_t)k2 << log_n1) + i1] = (W)F::mul(s[(srow(k2) << LOG_C) + col], w);
   }
 }
 
-template <class F>
+template <class F, class W = word_t<F>>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-    four_step_pass2(const uint64_t* __restrict__ c, uint64_t* __restrict__ y,
-                    int log_n1, int log_n2, const uint64_t* __restrict__ roots1,
-                    const uint64_t* __restrict__ post_lo,
-                    const uint64_t* __restrict__ post_hi, uint64_t scale) {
+    four_step_pass2(const W* __restrict__ c, W* __restrict__ y,
+                    int log_n1, int log_n2, const W* __restrict__ roots1,
+                    const W* __restrict__ post_lo,
+                    const W* __restrict__ post_hi, uint64_t scale) {
   extern __shared__ uint64_t s[];
   const int L = log_n1, log_n = log_n1 + log_n2;
   const uint32_t n1 = 1u << L, elems = n1 << LOG_C;
   uint64_t* tws = s + tile_words(L);  // w1^j, j < n1 / 2
   const QuarterRows rows{L - 2};
   const size_t n = (size_t)1 << log_n;
-  const uint64_t* cr = c + blockIdx.y * n;
-  uint64_t* yr = y + blockIdx.y * n;
+  const W* cr = c + blockIdx.y * n;
+  W* yr = y + blockIdx.y * n;
   const uint32_t k0 = blockIdx.x << LOG_C;
 
   for (uint32_t j = threadIdx.x; j < n1 / 2; j += blockDim.x) tws[j] = roots1[j];
@@ -167,7 +170,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
     } else if (scale != 1) {
       v = F::mul(v, scale);
     }
-    yr[idx] = v;
+    yr[idx] = (W)v;
   }
 }
 
@@ -190,35 +193,35 @@ unsigned threads_for(int L) {
   return t < MAX_THREADS ? t : MAX_THREADS;
 }
 
-template <class F>
-int run_pass1(const uint64_t* x, uint64_t* c, int batch, int log_n1,
-              int log_n2, const uint64_t* roots2, const uint64_t* wpow,
-              const uint64_t* pre_lo, const uint64_t* pre_hi, void* stream) {
+template <class F, class W = word_t<F>>
+int run_pass1(const W* x, W* c, int batch, int log_n1, int log_n2,
+              const W* roots2, const W* wpow, const W* pre_lo, const W* pre_hi,
+              void* stream) {
   if (bad_sizes(batch, log_n1, log_n2) || (pre_lo == nullptr) != (pre_hi == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t bytes =
       (tile_words(log_n2) + (1u << log_n2) + (1u << log_n1)) * sizeof(uint64_t);
-  cudaError_t err = smem_limit(four_step_pass1<F>, bytes);
+  cudaError_t err = smem_limit(four_step_pass1<F, W>, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((1u << log_n1) >> LOG_C, batch);
-  four_step_pass1<F><<<grid, threads_for(log_n2), bytes, (cudaStream_t)stream>>>(
+  four_step_pass1<F, W><<<grid, threads_for(log_n2), bytes, (cudaStream_t)stream>>>(
       x, c, log_n1, log_n2, roots2, wpow, pre_lo, pre_hi);
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int run_pass2(const uint64_t* c, uint64_t* y, int batch, int log_n1,
-              int log_n2, const uint64_t* roots1, const uint64_t* post_lo,
-              const uint64_t* post_hi, uint64_t scale, void* stream) {
+template <class F, class W = word_t<F>>
+int run_pass2(const W* c, W* y, int batch, int log_n1, int log_n2,
+              const W* roots1, const W* post_lo, const W* post_hi, uint64_t scale,
+              void* stream) {
   if (bad_sizes(batch, log_n1, log_n2) || (post_lo == nullptr) != (post_hi == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t bytes = (tile_words(log_n1) + (1u << log_n1) / 2) * sizeof(uint64_t);
-  cudaError_t err = smem_limit(four_step_pass2<F>, bytes);
+  cudaError_t err = smem_limit(four_step_pass2<F, W>, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((1u << log_n2) >> LOG_C, batch);
-  four_step_pass2<F><<<grid, threads_for(log_n1), bytes, (cudaStream_t)stream>>>(
+  four_step_pass2<F, W><<<grid, threads_for(log_n1), bytes, (cudaStream_t)stream>>>(
       c, y, log_n1, log_n2, roots1, post_lo, post_hi, scale);
   return (int)cudaGetLastError();
 }
@@ -238,12 +241,13 @@ extern "C" int ms_ntt_four_step_pass1_gl(const uint64_t* x, uint64_t* c,
                        pre_hi, stream);
 }
 
-extern "C" int ms_ntt_four_step_pass1_bb(const uint64_t* x, uint64_t* c,
+// the same over BabyBear's 32-bit words
+extern "C" int ms_ntt_four_step_pass1_bb(const uint32_t* x, uint32_t* c,
                                          int batch, int log_n1, int log_n2,
-                                         const uint64_t* roots2,
-                                         const uint64_t* wpow,
-                                         const uint64_t* pre_lo,
-                                         const uint64_t* pre_hi, void* stream) {
+                                         const uint32_t* roots2,
+                                         const uint32_t* wpow,
+                                         const uint32_t* pre_lo,
+                                         const uint32_t* pre_hi, void* stream) {
   return run_pass1<bb>(x, c, batch, log_n1, log_n2, roots2, wpow, pre_lo,
                        pre_hi, stream);
 }
@@ -263,11 +267,11 @@ extern "C" int ms_ntt_four_step_pass2_gl(const uint64_t* c, uint64_t* y,
                        scale, stream);
 }
 
-extern "C" int ms_ntt_four_step_pass2_bb(const uint64_t* c, uint64_t* y,
+extern "C" int ms_ntt_four_step_pass2_bb(const uint32_t* c, uint32_t* y,
                                          int batch, int log_n1, int log_n2,
-                                         const uint64_t* roots1,
-                                         const uint64_t* post_lo,
-                                         const uint64_t* post_hi,
+                                         const uint32_t* roots1,
+                                         const uint32_t* post_lo,
+                                         const uint32_t* post_hi,
                                          uint64_t scale, void* stream) {
   return run_pass2<bb>(c, y, batch, log_n1, log_n2, roots1, post_lo, post_hi,
                        scale, stream);

@@ -52,6 +52,13 @@
 // At most 512 threads and 2 blocks an SM asked of the compiler (at most 64
 // registers); a tile of 16 KB (F <= 128) to 64 KB (F = 512), so 3 or more
 // blocks share an SM's shared memory.
+//
+// Storage: x, y and the tables are the field's words (word_t<F>: 64 bits
+// for Goldilocks, 32 for BabyBear). The tile keeps 64-bit words in both
+// fields, with the swizzle above; a cp.async cannot widen, so BabyBear's
+// load reads each unit's two 32-bit words (8 bytes, a warp's quarter a
+// 64-byte run) through registers and stores them widened as one 16-byte
+// shared-memory store at the same place; its store narrows each value.
 #include <cuda_runtime.h>
 
 #include "ntt_stages.cuh"
@@ -62,18 +69,19 @@ constexpr int MAX_THREADS = 512;
 constexpr int TILE_LOG = 11;   // F C values a tile (C >= 16)
 constexpr int MIN_LOG_C = 4;   // 16 columns: a row of the tile is 128 bytes
 
+template <class Word>
 struct Level {
   int log_f, log_r, log_c, log_kprod;
   int swz_shift;                  // the tile's swizzle: row bits m >> shift,
   uint32_t swz_mask;              // masked, select the chunk's XOR
   uint32_t tiles_per_row;         // R / C
   int pre_h, w_h;                 // the splits of the coset and W tables
-  const uint64_t* roots;          // w^j, j < F / 2
-  const uint64_t* pre_lo;         // coset tables, or null
-  const uint64_t* pre_hi;
-  const uint64_t* W;              // (R / K, F) twiddles, or null
-  const uint64_t* w_lo;           // W's split tables, or null
-  const uint64_t* w_hi;
+  const Word* roots;              // w^j, j < F / 2
+  const Word* pre_lo;             // coset tables, or null
+  const Word* pre_hi;
+  const Word* W;                  // (R / K, F) twiddles, or null
+  const Word* w_lo;               // W's split tables, or null
+  const Word* w_hi;
   uint64_t scale;                 // 1 for none
 };
 
@@ -104,11 +112,12 @@ __device__ __forceinline__ void wait_all() { asm volatile("cp.async.wait_group 0
 // C = 1) goes to the tile's word 2u (u where C = 1), so that a warp's quarter
 // fills one 128-byte line; row q holds position m = brev(q), and c is the
 // unit's first column before the swizzle.
-__device__ __forceinline__ void load_tile(const uint64_t* __restrict__ x,
+template <class Word>
+__device__ __forceinline__ void load_tile(const Word* __restrict__ x,
                                           uint64_t* tile, uint32_t t,
-                                          const Level& L) {
-  const uint64_t* src = x + ((size_t)(t / L.tiles_per_row) << (L.log_f + L.log_r)) +
-                        ((t % L.tiles_per_row) << L.log_c);
+                                          const Level<Word>& L) {
+  const Word* src = x + ((size_t)(t / L.tiles_per_row) << (L.log_f + L.log_r)) +
+                    ((t % L.tiles_per_row) << L.log_c);
   const int log_unit = L.log_c ? 1 : 0;
   const int log_upr = L.log_c - log_unit;  // units a row
   const uint32_t units = (1u << (L.log_f + L.log_c)) >> log_unit;
@@ -116,11 +125,18 @@ __device__ __forceinline__ void load_tile(const uint64_t* __restrict__ x,
     const uint32_t q = u >> log_upr;
     const uint32_t c = ((u & ((1u << log_upr) - 1)) << log_unit) ^
                        (((q >> L.swz_shift) & L.swz_mask) << 1);
-    const uint64_t* g = src + ((size_t)bit_reverse(q, L.log_f) << L.log_r) + c;
-    if (log_unit) {
-      copy16(tile + (u << 1), g);
+    const Word* g = src + ((size_t)bit_reverse(q, L.log_f) << L.log_r) + c;
+    if constexpr (sizeof(Word) == 8) {
+      if (log_unit) {
+        copy16(tile + (u << 1), g);
+      } else {
+        copy8(tile + u, g);
+      }
+    } else if (log_unit) {  // 32-bit words: through registers, widened
+      const uint2 v = *reinterpret_cast<const uint2*>(g);
+      reinterpret_cast<ulonglong2*>(tile)[u] = make_ulonglong2(v.x, v.y);
     } else {
-      copy8(tile + u, g);
+      tile[u] = *g;
     }
   }
   commit();
@@ -130,8 +146,8 @@ __device__ __forceinline__ void load_tile(const uint64_t* __restrict__ x,
 // brev(q)), column c, as the first stage round reads it
 template <class F>
 struct CosetPre {
-  const uint64_t* lo;
-  const uint64_t* hi;
+  const word_t<F>* lo;
+  const word_t<F>* hi;
   int h, log_f, log_r;
   uint32_t r0;
   __device__ __forceinline__ uint64_t operator()(uint64_t v, uint32_t q, uint32_t c) const {
@@ -142,15 +158,15 @@ struct CosetPre {
 
 // out[b, r0 + c, k] for the tile's columns: lanes take 8 consecutive k of
 // up to 4 columns
-template <class F>
+template <class F, class Word = word_t<F>>
 __device__ __forceinline__ void store_tile(const uint64_t* tile,
-                                           uint64_t* __restrict__ y, uint32_t t,
-                                           const Level& L, Swizzled addr) {
+                                           Word* __restrict__ y, uint32_t t,
+                                           const Level<Word>& L, Swizzled addr) {
   const uint32_t b = t / L.tiles_per_row;
   const uint32_t r0 = (t % L.tiles_per_row) << L.log_c;
   const int lc = L.log_c < 2 ? L.log_c : 2;  // columns a warp: 2^lc
   const uint32_t elems = 1u << (L.log_f + L.log_c);
-  uint64_t* dst = y + ((((size_t)b << L.log_r) + r0) << L.log_f);
+  Word* dst = y + ((((size_t)b << L.log_r) + r0) << L.log_f);
   for (uint32_t e = threadIdx.x; e < elems; e += blockDim.x) {
     const uint32_t k = (e & 7) | (((e >> (3 + lc)) & ((1u << (L.log_f - 3)) - 1)) << 3);
     const uint32_t c = ((e >> 3) & ((1u << lc) - 1)) | ((e >> (L.log_f + lc)) << lc);
@@ -161,15 +177,15 @@ __device__ __forceinline__ void store_tile(const uint64_t* tile,
                            : L.W[((size_t)row << L.log_f) + k]);
     }
     if (L.scale != 1) v = F::mul(v, L.scale);
-    dst[((size_t)c << L.log_f) + k] = v;
+    dst[((size_t)c << L.log_f) + k] = (Word)v;
   }
 }
 
 // kCoset: level 0 of a coset transform (its own instantiation, so that the
 // other levels' stage rounds carry nothing of the coset)
-template <class F, bool kCoset>
+template <class F, bool kCoset, class Word = word_t<F>>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-    pipe_level(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Level L) {
+    pipe_level(const Word* __restrict__ x, Word* __restrict__ y, Level<Word> L) {
   extern __shared__ __align__(16) uint64_t smem[];
   const uint32_t half_f = 1u << (L.log_f - 1);
   uint64_t* roots = smem;                 // F / 2 >= 16 words: the tile
@@ -188,20 +204,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
   } else {
     all_stages_at<F>(tile, roots, L.log_f, L.log_c, addr);
   }
-  store_tile<F>(tile, y, t, L, addr);
+  store_tile<F, Word>(tile, y, t, L, addr);
 }
 
-template <class F>
-int run_level(const uint64_t* x, uint64_t* y, int batch, int log_f, int log_r,
-              const uint64_t* roots, const uint64_t* pre_lo, const uint64_t* pre_hi,
-              const uint64_t* W, const uint64_t* w_lo, const uint64_t* w_hi,
+template <class F, class Word = word_t<F>>
+int run_level(const Word* x, Word* y, int batch, int log_f, int log_r,
+              const Word* roots, const Word* pre_lo, const Word* pre_hi,
+              const Word* W, const Word* w_lo, const Word* w_hi,
               int log_kprod, uint64_t scale, void* stream) {
   if (batch < 1 || log_f < 5 || log_f > 9 || log_r < 0 || log_f + log_r > 30 ||
       log_kprod < 0 || log_kprod > log_r || (pre_lo == nullptr) != (pre_hi == nullptr) ||
       (w_lo == nullptr) != (w_hi == nullptr) || (w_lo != nullptr && W == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Level L;
+  Level<Word> L;
   L.log_f = log_f;
   L.log_r = log_r;
   L.log_c = TILE_LOG - log_f;                 // F C = 2^11 values
@@ -230,8 +246,8 @@ int run_level(const uint64_t* x, uint64_t* y, int batch, int log_f, int log_r,
                            : threads_wanted > MAX_THREADS ? MAX_THREADS
                                                           : (unsigned)threads_wanted;
   const size_t half_f = (size_t)1 << (log_f - 1);
-  void (*kernel)(const uint64_t*, uint64_t*, Level) =
-      pre_lo ? pipe_level<F, true> : pipe_level<F, false>;
+  void (*kernel)(const Word*, Word*, Level<Word>) =
+      pre_lo ? pipe_level<F, true, Word> : pipe_level<F, false, Word>;
   const size_t bytes = (half_f + words) * sizeof(uint64_t);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -258,11 +274,12 @@ extern "C" int ms_ntt_pipe_level_gl(const uint64_t* x, uint64_t* y, int batch,
                        w_hi, log_kprod, scale, stream);
 }
 
-extern "C" int ms_ntt_pipe_level_bb(const uint64_t* x, uint64_t* y, int batch,
-                                    int log_f, int log_r, const uint64_t* roots,
-                                    const uint64_t* pre_lo, const uint64_t* pre_hi,
-                                    const uint64_t* W, const uint64_t* w_lo,
-                                    const uint64_t* w_hi, int log_kprod,
+// the same over BabyBear's 32-bit words (x, y and every table)
+extern "C" int ms_ntt_pipe_level_bb(const uint32_t* x, uint32_t* y, int batch,
+                                    int log_f, int log_r, const uint32_t* roots,
+                                    const uint32_t* pre_lo, const uint32_t* pre_hi,
+                                    const uint32_t* W, const uint32_t* w_lo,
+                                    const uint32_t* w_hi, int log_kprod,
                                     uint64_t scale, void* stream) {
   return run_level<bb>(x, y, batch, log_f, log_r, roots, pre_lo, pre_hi, W, w_lo,
                        w_hi, log_kprod, scale, stream);

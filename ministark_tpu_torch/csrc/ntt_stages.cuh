@@ -32,10 +32,11 @@ struct RowMajor {
   }
 };
 
-// s^i = lo[i mod 2^h] * hi[i >> h] (ops/ntt.py::coset_tables): one product
+// s^i = lo[i mod 2^h] * hi[i >> h] (ops/ntt.py::coset_tables): one product,
+// the tables in the field's storage words
 template <class F>
-__device__ __forceinline__ uint64_t coset_pow(const uint64_t* lo,
-                                              const uint64_t* hi, uint32_t i,
+__device__ __forceinline__ uint64_t coset_pow(const word_t<F>* lo,
+                                              const word_t<F>* hi, uint32_t i,
                                               int h) {
   return F::mul(lo[i & ((1u << h) - 1)], hi[i >> h]);
 }

@@ -13,7 +13,9 @@
 //   row leaves   one thread per row reads its C u64 components; word 2k is
 //                bswap32(lo_k), word 2k+1 bswap32(hi_k) (the raw little-endian
 //                bytes as big-endian SHA words), then 0x80000000, zeros and
-//                the 64-bit bit length; (8C + 9 + 63) / 64 blocks, C at run time
+//                the 64-bit bit length; (8C + 9 + 63) / 64 blocks, C at run time.
+//                ms_sha256_rows_bb reads BabyBear's 32-bit components (int32
+//                tensors): the same preimage, each component's high word 0
 //
 // Bound on the H100: integer ALU throughput (about 1.4k 32-bit operations per
 // 64-byte block, against 64 bytes read). Rows are read one thread per row,
@@ -55,11 +57,12 @@ __global__ void inner_level(const uint32_t* __restrict__ child,
   for (int i = 0; i < 8; ++i) dst[i] = st[i];
 }
 
-__global__ void row_digests(const uint64_t* __restrict__ comps,
+template <class Word>
+__global__ void row_digests(const Word* __restrict__ comps,
                             uint32_t* __restrict__ digests, int n_rows, int C) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
-  const uint64_t* src = comps + (size_t)r * C;
+  const Word* src = comps + (size_t)r * C;
   const uint64_t bits = (uint64_t)C * 64;
   const int n_blocks = (8 * C + 9 + 63) / 64;
   uint32_t st[8];
@@ -113,8 +116,18 @@ extern "C" int ms_sha256_rows(const uint64_t* comps, uint32_t* digests,
                               int n_rows, int C, void* stream) {
   if (n_rows < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (n_rows + THREADS - 1) / THREADS;
-  row_digests<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(comps, digests,
-                                                           n_rows, C);
+  row_digests<uint64_t><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(comps, digests,
+                                                                     n_rows, C);
+  return (int)cudaGetLastError();
+}
+
+// comps: (n_rows, C) BabyBear components, 32-bit words; digests: (n_rows, 8).
+extern "C" int ms_sha256_rows_bb(const uint32_t* comps, uint32_t* digests,
+                                 int n_rows, int C, void* stream) {
+  if (n_rows < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rows + THREADS - 1) / THREADS;
+  row_digests<uint32_t><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(comps, digests,
+                                                                     n_rows, C);
   return (int)cudaGetLastError();
 }
 

@@ -226,7 +226,7 @@ class BatchedFri:
         m = coeffs.shape[lead]
         comp = coeffs.movedim(-1, lead)                   # (..., d, m)
         rows = comp.reshape(-1, m)
-        flat = torch.zeros((rows.shape[0], domain_size), dtype=torch.int64,
+        flat = torch.zeros((rows.shape[0], domain_size), dtype=coeffs.dtype,
                            device=coeffs.device)
         flat[:, :m] = rows
         fns = select_ntt_fns(self._ntt_base, domain_size, self.mesh, self.ntt_backend)

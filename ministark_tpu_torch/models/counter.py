@@ -64,7 +64,8 @@ def _counter_cols_on_device(stark_field, steps, start, step, a, b,
     """Witness generation on ``device``: the counter trace is closed-form
     (col0[i] = start + i*step, col1[i] = a*col0[i] + b), so the whole
     witness is a few broadcast field ops over ``arange``, with no host loop
-    and no upload. Returns the (2, n) int64 column evaluations."""
+    and no upload. Returns the (2, n) column evaluations in the field's
+    dtype."""
     base = stark_field.base
     kb = get_ops(base)
     n = Radix2EvaluationDomain(base, steps + 1).size()
@@ -72,7 +73,7 @@ def _counter_cols_on_device(stark_field, steps, start, step, a, b,
     def scalar(v):
         return kb.pack_scalar(base.from_int(v), device)
 
-    idx = torch.arange(n, dtype=torch.int64, device=device)   # i < p: canonical
+    idx = torch.arange(n, dtype=kb.dtype, device=device)      # i < p: canonical
     col0 = kb.add(scalar(start).expand(n), kb.mul(idx, scalar(step)))
     col1 = kb.add(kb.mul(col0, scalar(a)), scalar(b).expand(n))
     cols = torch.stack([col0, col1])

@@ -24,7 +24,7 @@ def fibonacci_trace_cols_on_device(stark_field, steps: int, secret_b: int = 2,
     exponent-bit ladder of 2x2 matrix powers in log2(n) steps, with no host
     loop and no upload of the trace.
 
-    Returns the (3, n) int64 column evaluations (rows >= steps carry the
+    Returns the (3, n) column evaluations in the field's dtype (rows >= steps carry the
     deterministic ZK padding), bit-identical to the host path."""
     base = stark_field.base
     kb = get_ops(base)
@@ -38,7 +38,7 @@ def fibonacci_trace_cols_on_device(stark_field, steps: int, secret_b: int = 2,
                  for c in range(2)] for r in range(2)]
 
     idx = torch.arange(n, device=device)
-    one = torch.ones(n, dtype=torch.int64, device=device)
+    one = torch.ones(n, dtype=kb.dtype, device=device)
     zero = torch.zeros_like(one)
     Mp = [[one, zero], [zero, one]]                       # M^(idx & (2^b - 1))
     M2 = [[scalar(0), scalar(1)], [scalar(1), scalar(1)]]  # M^(2^b)

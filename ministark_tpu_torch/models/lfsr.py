@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..air import Provable, TraceTable
-from ..ops.field import get_ops, pack_u64
+from ..ops.field import get_ops, pack_words
 from ..poly import Radix2EvaluationDomain
 from ..stark.engine import DeviceTrace
 from ..utils.rng import ark_test_rng
@@ -87,7 +87,7 @@ def lfsr_device_trace(stark_field, steps: int, seed: int = 7,
         rows[i] = s
         s = [sum(A[j][k] * s[k] for k in range(WIDTH)) % p for j in range(WIDTH)]
     rows[steps:, :] = base.rand(ark_test_rng())
-    cols_dev = pack_u64(np.ascontiguousarray(rows.T), device)
+    cols_dev = pack_words(np.ascontiguousarray(rows.T), kb.dtype, device)
 
     def make_t(j):
         def t(tp, rows=None):      # coefficientwise: a block maps to its block

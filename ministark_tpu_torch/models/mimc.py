@@ -29,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..air import Provable, TraceTable
-from ..ops.field import get_ops, pack_u64
+from ..ops.field import get_ops, pack_words
 from ..ops.ntt import get_ntt_fns
 from ..parallel.ntt_sharded import get_block_ntt_fns
 from ..poly import DensePolynomial, Radix2EvaluationDomain
@@ -125,8 +125,8 @@ def mimc_device_trace(stark_field, steps: int, s0: int = 3,
         rows[i] = (s, u)
         s = u
     rows[steps:, :] = base.rand(ark_test_rng())
-    cols_dev = pack_u64(np.ascontiguousarray(rows.T), device)
-    k_dev = pack_u64(_round_constants(n, p), device)
+    cols_dev = pack_words(np.ascontiguousarray(rows.T), kb.dtype, device)
+    k_dev = pack_words(_round_constants(n, p), kb.dtype, device)
 
     def cubic(tp, rows=None):
         """On a mesh (``rows``, a ``parallel.Rows``) tp is this rank's

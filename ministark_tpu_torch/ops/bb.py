@@ -1,24 +1,31 @@
 """BabyBear (p = 15 * 2^27 + 1 = 2013265921) and its quartic tower on tensors.
 
-Port of ``ministark_tpu/ops/bb.py``. A base element is an ``int64`` tensor
-holding the canonical value (below 2^31); an Fp4 element adds a trailing axis
+Port of ``ministark_tpu/ops/bb.py``. A base element is an ``int32`` tensor
+holding the canonical value (below p < 2^31, so never negative), as the JAX
+package holds it in one ``uint32`` lane; an Fp4 element adds a trailing axis
 of 4 in tower order (c00, c01, c10, c11): Fp4 = Fp2[v] / (v^2 - (2013265910 +
 u)) over Fp2 = Fp[u] / (u^2 - 11) (reference src/field.rs:64-109). The CUDA
-kernels read the same storage as ``uint64_t`` (csrc/bb.cuh).
+kernels read the same storage as ``uint32_t`` (csrc/bb.cuh's ``bb::word``).
+
+torch's int32 arithmetic wraps silently, and a Python int beside an int32
+tensor keeps int32, so the plain versions never form a value outside
+(-p, p): ``add`` is a - (p - b), ``sub`` a - b and ``neg`` -a, each brought
+into [0, p) by adding p where the sign bit is set (``_canon``); ``mul``
+widens to int64 for the product (below 2^62) and its remainder, then
+narrows. An int64 operand beside an int32 one promotes the result to int64
+without a word: the kernels refuse it (``field._operands``), the tests
+assert the dtype on the CPU.
 
 The JAX package computes BabyBear arithmetic in XLA, outside any Pallas
 kernel, which fuses each op into one kernel. Here every op dispatches by the
 tensors' device, as ops/field.py's do (``field.dispatch``): CPU tensors take
-its plain version, torch ops that launch no kernel (a product of two values
-below 2^31 fits int64, so ``mul_plain`` is a product and a remainder, and
-``add_plain`` / ``sub_plain`` a sum and a remainder; torch's ``%`` takes the
-sign of the divisor, so the result is canonical); a CUDA operand launches
+its plain version, torch ops that launch no kernel; a CUDA operand launches
 one kernel or raises: ``add``, ``sub``, ``neg``, ``mul`` and the Fp4
 ``fp4_add``, ``fp4_sub``, ``fp4_neg`` and ``fp4_scale_base`` are
 csrc/field_ew.cu's ``ms_bb_ew`` (bb.cuh's 32-bit add and sub, its Barrett
 product), ``fp4_mul`` its ``ms_bb_fp4_mul``. The kernels take canonical
-operands. The outputs are the exact field values the JAX package computes,
-whatever the formula.
+int32 operands. The outputs are the exact field values the JAX package
+computes, whatever the formula.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from . import field
 
 P = 2013265921
+DTYPE = torch.int32         # the storage of a component (field.FieldOps.dtype)
 NR_FP2 = 11                 # Fp2 = Fp[u] / (u^2 - 11)
 NR_FP4_C0 = 2013265910      # Fp4 nonresidue = Fp2(2013265910, 1)
 
@@ -39,21 +47,32 @@ calls = dict.fromkeys(launches, 0)
 
 
 # --------------------------------------------------------------- base field
+def _canon(d):
+    """d in (-p, p) -> d mod p: p added where the sign bit is set."""
+    return d + ((d >> 31) & P)
+
+
+def _wide(x):
+    return x.to(torch.int64) if isinstance(x, torch.Tensor) else x
+
+
 def add_plain(a, b):
-    return (a + b) % P
+    """(a + b) mod p without leaving (-p, p): a - (p - b)."""
+    return _canon(a - (P - b))
 
 
 def sub_plain(a, b):
-    return (a - b) % P
+    return _canon(a - b)
 
 
 def neg_plain(a):
-    return (-a) % P
+    return _canon(-a)
 
 
 def mul_plain(a, b):
-    """(a * b) mod p for canonical operands (the product is below 2^62)."""
-    return (a * b) % P
+    """(a * b) mod p for canonical operands: the product (below 2^62) and
+    its remainder in int64, narrowed to int32."""
+    return ((_wide(a) * _wide(b)) % P).to(DTYPE)
 
 
 def add_cuda(a, b, scalar_dim=0):
@@ -61,28 +80,28 @@ def add_cuda(a, b, scalar_dim=0):
     ``add_plain`` on canonical operands: broadcast, strided operands read in
     place (``field.ew_cuda``), one launch, a contiguous output. Replaces
     ``ministark_tpu/ops/bb.py::add`` (:40), which XLA fused on the TPU.
-    Bound on this card: device-memory bandwidth (24 bytes an element
+    Bound on this card: device-memory bandwidth (12 bytes an element
     against ~3 integer operations)."""
-    return field.ew_cuda("bb_ew", field.ADD, a, b, launches, scalar_dim)
+    return field.ew_cuda("bb_ew", field.ADD, a, b, launches, scalar_dim, DTYPE)
 
 
 def sub_cuda(a, b, scalar_dim=0):
     """``add_cuda`` with SUB (``ministark_tpu/ops/bb.py::sub`` :45)."""
-    return field.ew_cuda("bb_ew", field.SUB, a, b, launches, scalar_dim)
+    return field.ew_cuda("bb_ew", field.SUB, a, b, launches, scalar_dim, DTYPE)
 
 
 def neg_cuda(a):
     """``add_cuda`` with NEG, 0 - a, no second operand read
     (``ministark_tpu/ops/bb.py::neg`` :49)."""
-    return field.ew_cuda("bb_ew", field.NEG, a, None, launches)
+    return field.ew_cuda("bb_ew", field.NEG, a, None, launches, 0, DTYPE)
 
 
 def mul_cuda(a, b, scalar_dim=0):
     """``add_cuda`` with MUL, bb.cuh's Barrett product, no 64-bit division
     (``ministark_tpu/ops/bb.py::mul`` :53; was a product and an int64 ``%``,
-    a division the card emulates). Bound: bytes (24 an element against ~18
+    a division the card emulates). Bound: bytes (12 an element against ~18
     integer operations)."""
-    return field.ew_cuda("bb_ew", field.MUL, a, b, launches, scalar_dim)
+    return field.ew_cuda("bb_ew", field.MUL, a, b, launches, scalar_dim, DTYPE)
 
 
 def add(a, b):
@@ -191,10 +210,10 @@ def fp4_mul_cuda(a, b):
 
     Replaces ``ministark_tpu/ops/bb.py::fp4_mul`` (:127), which XLA fused on
     the TPU; the twin of ``field.ext_mul_cuda``. Bound on this card:
-    device-memory bandwidth (64 bytes read and 32 written per product
+    device-memory bandwidth (32 bytes read and 16 written per product
     against ~333 integer operations); operands with adjacent components and
-    16-byte aligned elements take two 16-byte loads per element."""
-    return field.ext_cuda("bb_fp4_mul", 4, a, b, launches)
+    16-byte aligned elements take one 16-byte load per element."""
+    return field.ext_cuda("bb_fp4_mul", 4, a, b, launches, DTYPE)
 
 
 def fp4_add(a, b):

@@ -9,7 +9,9 @@ imported or built until a CUDA tensor reaches a kernel wrapper.
 
 Every entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launches;
-``check`` raises on anything but 0.
+``check`` raises on anything but 0. A BabyBear entry point reads and
+writes 32-bit words (``int32`` tensors), a Goldilocks one 64-bit words;
+``require`` refuses a tensor of the other dtype.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ _SIGNATURES = {
     "ms_ntt_gl": _NTT, "ms_ntt_bb": _NTT,
     # children, parents, n_parents, fan, stream
     "ms_sha256_inner_level": [_P, _P, _I, _I, _P],
-    # comps, digests, n_rows, C, stream
-    "ms_sha256_rows": [_P, _P, _I, _I, _P],
+    # comps, digests, n_rows, C, stream; _bb: 32-bit components
+    "ms_sha256_rows": [_P, _P, _I, _I, _P], "ms_sha256_rows_bb": [_P, _P, _I, _I, _P],
     # comps, digests, n_groups, leafs_per_node, fmt, max_digits, stream
     "ms_leaf_hash": [_P, _P, _I, _I, _I, _I, _P],
+    # the same over 32-bit BabyBear components, 10 digits: no max_digits
+    "ms_leaf_hash_bb": [_P, _P, _I, _I, _I, _P],
     # a, b, out, plan (int64[ops/field.py::PLAN_LEN]), stream
     "ms_gl_mul": [_P, _P, _P, _I64P, _P],
     "ms_gl_ext_mul": [_P, _P, _P, _I64P, _P],
@@ -97,8 +101,9 @@ _SIGNATURES = {
     # values, plan, stream
     "ms_div_scan_gl2": _DIV_SCAN, "ms_div_scan_bb4": _DIV_SCAN,
     # comps, rows, out, scratch (commit/packed_tree.py::_match_scratch_for),
-    # n, q, C, stream
+    # n, q, C, stream; _bb: 32-bit words
     "ms_first_match": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ms_first_match_bb": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -194,7 +199,8 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and rank."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and rank:
+    the field's (int64 Goldilocks, int32 BabyBear), with no cast."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

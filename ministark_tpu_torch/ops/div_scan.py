@@ -239,7 +239,7 @@ def div_scan_replay(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=No
     T = E * L * W
     nt = max(1, -(-m // T))
     # the load: a[j] = c'[j + 1], the head at global indices start + j + 1
-    a = torch.zeros((B, nt * T) + K, dtype=torch.int64, device=c.device)
+    a = torch.zeros((B, nt * T) + K, dtype=k.dtype, device=c.device)
     a[:, :m - 1] = c[:, 1:]
     if head is not None and start + 1 < head.shape[1]:
         h = min(head.shape[1] - start - 1, m - 1)
@@ -281,7 +281,7 @@ def div_scan_replay(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=No
         if phase == 0:
             flag[b, t] = 1
             continue
-        lane_sums = torch.zeros((L,) + K, dtype=torch.int64, device=c.device)
+        lane_sums = torch.zeros((L,) + K, dtype=k.dtype, device=c.device)
         for u0 in range(t + 1, nt, R):
             fl = [int(flag[b, u]) if u < nt else 2 for u in range(u0, u0 + R)]
             first = fl.index(2) if 2 in fl else R
@@ -362,7 +362,7 @@ def pow_dot_replay(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: i
     TH = lanes * warps
     T = TH * per_thread
     nt = max(1, -(-J // T))
-    pad = torch.zeros((B, nt * T * parts) + K, dtype=torch.int64, device=c.device)
+    pad = torch.zeros((B, nt * T * parts) + K, dtype=k.dtype, device=c.device)
     pad[:, :n] = terms
     # (B, nt, per_thread, warps, lanes, parts): term base + i TH + thread, part p
     t6 = pad.reshape((B, nt, per_thread, warps, lanes, parts) + K)
@@ -403,13 +403,14 @@ def _suffix(k: FieldOps, kernel: str) -> str:
     return sfx
 
 
-def _strides(t, shape, name: str, kernel: str, device):
-    """t's strides in u64 words: an int64 tensor of ``shape`` on ``device``
+def _strides(t, shape, name: str, kernel: str, device, dtype):
+    """t's strides in words of the field's ``dtype`` (int64 Goldilocks,
+    int32 BabyBear): a tensor of that dtype and ``shape`` on ``device``
     whose element components are adjacent."""
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int64:
-        raise ValueError(f"{kernel}: {name} must be int64, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -441,7 +442,9 @@ _retired = []
 
 
 def _scratch_for(kind: str, device, counts: int, values: int):
-    """(counts, values) of at least these sizes in int64 words."""
+    """(counts, values) of at least these sizes in int64 words: the
+    kernels keep their flags and partial sums in 64-bit words in either
+    field (csrc/div_scan.cu widens a BabyBear value on load)."""
     out = []
     for part, words in (("counts", counts), ("values", values)):
         buf = _scratch.get((kind, device, part))
@@ -468,11 +471,11 @@ def pow_dot_cuda(k: FieldOps, c, z, start: int = 0, stride: int = 1, offset: int
         raise ValueError(f"{name}: parts is 1 or 2, got {parts}")
     terms = c[:, offset::stride]
     n = terms.shape[1]
-    sc = _strides(terms, (B, n, K), "c", name, c.device)
-    sz = _strides(z, (B, K), "z", name, c.device)
+    sc = _strides(terms, (B, n, K), "c", name, c.device, k.dtype)
+    sz = _strides(z, (B, K), "z", name, c.device, k.dtype)
     if start < 0:
         raise ValueError(f"{name}: start must be >= 0, got {start}")
-    out = torch.empty((B, parts, K), dtype=torch.int64, device=c.device)
+    out = torch.empty((B, parts, K), dtype=k.dtype, device=c.device)
     nt = max(1, _ceil(_ceil(n, parts), DOT_TILE))
     counts, values = _scratch_for("pow_dot", c.device, B, B * nt * parts * K)
     plan = _PlanArray(B, n, sc[0], sc[1], sz[0], 0, 0, 0, 0, start, nt, 0, parts)
@@ -495,29 +498,29 @@ def div_scan_cuda(k: FieldOps, c, z, zinv, start: int = 0, carry=None, head=None
     calls[name] += 1
     B, K = _rows(c, name), k.elem_axes[0]
     dev = c.device
-    sc = _strides(c, c.shape, "c", name, dev)
+    sc = _strides(c, c.shape, "c", name, dev, k.dtype)
     m = c.shape[1] // 2 if fold is not None else c.shape[1]
     if m < 1 or (fold is not None and c.shape[1] % 2):
         raise ValueError(f"{name}: {c.shape[1]} coefficients"
                          + (" do not fold in pairs" if fold is not None else ""))
     if start < 0:
         raise ValueError(f"{name}: start must be >= 0, got {start}")
-    sz = _strides(z, (B, K), "z", name, dev)
-    szi = _strides(zinv, (B, K), "zinv", name, dev)
+    sz = _strides(z, (B, K), "z", name, dev, k.dtype)
+    szi = _strides(zinv, (B, K), "zinv", name, dev, k.dtype)
     flags, ptrs, H, sh, scy = 0, [None, None, None], 0, 0, 0
     if fold is not None:
         fold = fold.contiguous()
-        _strides(fold, (K,), "fold", name, dev)
+        _strides(fold, (K,), "fold", name, dev, k.dtype)
         flags, ptrs[0] = flags | FOLD, fold.data_ptr()
     if head is not None:
         head = head.contiguous()
         H = head.shape[1] if head.dim() == 3 else -1
-        sh = _strides(head, (B, H, K), "head", name, dev)[0]
+        sh = _strides(head, (B, H, K), "head", name, dev, k.dtype)[0]
         flags, ptrs[1] = flags | HEAD, head.data_ptr()
     if carry is not None:
-        scy = _strides(carry, (B, K), "carry", name, dev)[0]
+        scy = _strides(carry, (B, K), "carry", name, dev, k.dtype)[0]
         flags, ptrs[2] = flags | CARRY, carry.data_ptr()
-    out = torch.empty((B, m, K), dtype=torch.int64, device=dev)
+    out = torch.empty((B, m, K), dtype=k.dtype, device=dev)
     nt = _ceil(m, tile(sfx, fold is not None))
     counts, values = _scratch_for("div_scan", dev, 2 + B * nt, 2 * B * nt * K)
     plan = _PlanArray(B, m, sc[0], sc[1], sz[0], szi[0], sh, H, scy, start, nt, flags, 1)

@@ -6,7 +6,10 @@ Port of ``ministark_tpu/ops/{u32,gl,registry}.py``. The TPU's u32 limb-pair
 layout stays behind: a base element is an ``int64`` tensor holding the
 canonical u64 bit pattern (values >= 2^63 read as negative), and an Fp2
 element adds a trailing axis of 2 (c0, c1), with u^2 = 7. CUDA kernels
-reinterpret the same storage as ``uint64_t``.
+reinterpret the same storage as ``uint64_t``. BabyBear is held in ``int32``
+(ops/bb.py), as the JAX package holds it in one u32 lane: ``FieldOps.dtype``
+says which, and ``pack_words`` / ``unpack_u64`` carry host values either
+way.
 
 Every op dispatches by the tensors' device: CPU tensors take its plain
 version (``add_plain``, ``mul_plain``, ``ext_mul_plain``, ...), torch ops
@@ -248,11 +251,12 @@ def _mul_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool):
 
 @functools.lru_cache(maxsize=4096)
 def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool, k: int = 2,
-              kernel: str = "gl_ext_mul"):
+              kernel: str = "gl_ext_mul", width: int = 8):
     """(output shape, plan or None) of an extension product of ``k``
-    components (Fp2; ops/bb.py's Fp4 with k = 4) over the leading axes;
-    16-byte loads when both operands' components are adjacent and every
-    element starts on a 16-byte boundary (even strides, aligned base)."""
+    components of ``width`` bytes (Fp2, 8; ops/bb.py's Fp4, k = 4 and 4)
+    over the leading axes; 16-byte loads when both operands' components are
+    adjacent and every element starts on a 16-byte boundary (strides of a
+    multiple of 16 bytes, aligned base)."""
     for t_shape, name in ((a_shape, "a"), (b_shape, "b")):
         if len(t_shape) < 1 or t_shape[-1] != k:
             raise ValueError(f"{kernel}: {name} must have a trailing axis of "
@@ -265,7 +269,7 @@ def _ext_plan(a_shape, a_stride, b_shape, b_stride, aligned: bool, k: int = 2,
     sb = _broadcast_strides(lead, b_shape[:-1], b_stride[:-1])
     ca, cb = a_stride[-1], b_stride[-1]
     vec = (aligned and ca == 1 and cb == 1
-           and all(s % 2 == 0 for s in sa + sb))
+           and all(s * width % 16 == 0 for s in sa + sb))
     return shape, _plan(lead, sa, sb, vec, ca, cb, k)
 
 
@@ -281,10 +285,11 @@ def _on_device(t: torch.Tensor, name: str, device, kernel="gl_mul",
     return t
 
 
-def _operands(a, b, kernel, scalar_dim=0):
-    """(a, b) on one CUDA device, both int64, or raise."""
+def _operands(a, b, kernel, scalar_dim=0, dtype=torch.int64):
+    """(a, b) on one CUDA device, both of the field's ``dtype`` (int64
+    Goldilocks, int32 BabyBear), or raise: no cast."""
     if (a.is_cuda and b.is_cuda and a.get_device() == b.get_device()
-            and a.dtype == b.dtype == torch.int64):
+            and a.dtype == b.dtype == dtype):
         return a, b                        # every prover call: no more checks
     device = a.device if a.device.type == "cuda" else b.device
     if device.type != "cuda":
@@ -292,8 +297,8 @@ def _operands(a, b, kernel, scalar_dim=0):
     a = _on_device(a, "a", device, kernel, scalar_dim)
     b = _on_device(b, "b", device, kernel, scalar_dim)
     for t, name in ((a, "a"), (b, "b")):
-        if t.dtype != torch.int64:
-            raise ValueError(f"{kernel}: {name} must be int64, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     return a, b
 
 
@@ -309,19 +314,20 @@ def dispatch(plain, kernel, counts, name, *ts):
     return kernel(*ts)
 
 
-def ew_cuda(name, op, a, b, counts, scalar_dim=0):
+def ew_cuda(name, op, a, b, counts, scalar_dim=0, dtype=torch.int64):
     """One launch of the elementwise kernel ``ms_<name>`` over the broadcast
     operands, read in place through their element strides (0 on a broadcast
     axis), with op code ``op`` (csrc/field_ew.cu's ``gl_ew`` / ``bb_ew``;
     None for gl_mul.cu's ``gl_mul``, which takes none); for NEG ``b`` is
     None and a takes its place in the plan, unread. A CPU scalar
     (``_on_device``, ``scalar_dim``) joins a CUDA operand; the output is
-    contiguous. Counted in ``counts[name]``."""
-    a, b = _operands(a, a if b is None else b, name, scalar_dim)
+    contiguous, of the field's ``dtype`` (operands of another raise).
+    Counted in ``counts[name]``."""
+    a, b = _operands(a, a if b is None else b, name, scalar_dim, dtype)
     pa, pb = a.data_ptr(), b.data_ptr()
     shape, plan = _mul_plan(a.shape, a.stride(), b.shape, b.stride(),
                             not (pa | pb) & 15)
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    out = torch.empty(shape, dtype=dtype, device=a.device)
     if plan is None:
         return out
     args = () if op is None else (op,)
@@ -332,18 +338,18 @@ def ew_cuda(name, op, a, b, counts, scalar_dim=0):
     return out
 
 
-def ext_cuda(name, k, a, b, counts):
+def ext_cuda(name, k, a, b, counts, dtype=torch.int64):
     """One launch of the extension product ``ms_<name>`` (``gl_ext_mul``,
     k = 2; ops/bb.py's ``bb_fp4_mul``, k = 4) over (..., k) operands that
     broadcast over their leading axes, read in place through their strides
     and component strides (``_ext_plan``); a CPU (k,) scalar joins a CUDA
     operand; the output is a contiguous (..., k) tensor. Counted in
     ``counts[name]``."""
-    a, b = _operands(a, b, name, scalar_dim=1)
+    a, b = _operands(a, b, name, 1, dtype)
     pa, pb = a.data_ptr(), b.data_ptr()
     shape, plan = _ext_plan(a.shape, a.stride(), b.shape, b.stride(),
-                            not (pa | pb) & 15, k, name)
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+                            not (pa | pb) & 15, k, name, a.element_size())
+    out = torch.empty(shape, dtype=dtype, device=a.device)
     if plan is None:
         return out
     err = getattr(cuda.library(), "ms_" + name)(pa, pb, out.data_ptr(), plan,
@@ -554,8 +560,22 @@ def pack_u64(values, device=None) -> torch.Tensor:
 
 
 def unpack_u64(t: torch.Tensor) -> np.ndarray:
-    """int64 tensor -> numpy uint64 array of the same bit patterns."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+    """int64 tensor -> numpy uint64 array of the same bit patterns; an
+    int32 (BabyBear) tensor -> its values, widened to uint64."""
+    a = t.detach().cpu().contiguous().numpy()
+    if a.dtype == np.int32:
+        return a.view(np.uint32).astype(np.uint64)
+    return a.view(np.uint64)
+
+
+def pack_words(values, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """Canonical Python ints (any nesting) -> a tensor of the field's
+    ``dtype``: int64 bit patterns (``pack_u64``) or int32 values below 2^31
+    (BabyBear; numpy's uint32 refuses anything at or above 2^32)."""
+    if dtype == torch.int64:
+        return pack_u64(values, device)
+    arr = np.array(values, dtype=np.uint32)
+    return torch.from_numpy(arr.view(np.int32)).to(device)
 
 
 @dataclass(frozen=True)
@@ -565,6 +585,7 @@ class FieldOps:
     field: object                  # host field (oracle + constants)
     base_field: object             # host base prime field
     elem_axes: Tuple[int, ...]     # trailing element shape: (), (2,) or (4,)
+    dtype: torch.dtype             # a component's storage: int64 or int32
     add: Callable
     sub: Callable
     mul: Callable
@@ -576,24 +597,27 @@ class FieldOps:
     pack_scalar: Callable          # one host scalar -> 0-d / (2,) / (4,) tensor
 
 
-def _pack_base(vals, device=None):
-    return pack_u64([int(v) for v in vals], device)
+def _pack_base(dtype):
+    def pack(vals, device=None):
+        return pack_words([int(v) for v in vals], dtype, device)
+
+    def pack_scalar(v, device=None):
+        return pack_words(int(v), dtype, device)
+
+    return pack, pack_scalar
 
 
 def _unpack_base(t):
     return [int(v) for v in unpack_u64(t).reshape(-1)]
 
 
-def _pack_scalar_base(v, device=None):
-    return pack_u64(int(v), device)
-
-
 def _gl_base(field):
+    pack, pack_scalar = _pack_base(torch.int64)
     return FieldOps(
-        field=field, base_field=field, elem_axes=(),
+        field=field, base_field=field, elem_axes=(), dtype=torch.int64,
         add=add, sub=sub, mul=mul, neg=neg, pow=pow,
-        scale_base=mul, pack=_pack_base, unpack=_unpack_base,
-        pack_scalar=_pack_scalar_base,
+        scale_base=mul, pack=pack, unpack=_unpack_base,
+        pack_scalar=pack_scalar,
     )
 
 
@@ -607,7 +631,7 @@ def _gl_ext(field, base):
         return [(int(r[0]), int(r[1])) for r in u]
 
     return FieldOps(
-        field=field, base_field=base, elem_axes=(2,),
+        field=field, base_field=base, elem_axes=(2,), dtype=torch.int64,
         add=ext_add, sub=ext_sub, mul=ext_mul, neg=ext_neg, pow=ext_pow,
         scale_base=ext_scale_base, pack=pack, unpack=unpack,
         pack_scalar=lambda v, device=None: pack_u64([int(v[0]), int(v[1])],
@@ -616,11 +640,12 @@ def _gl_ext(field, base):
 
 
 def _bb_base(field):
+    pack, pack_scalar = _pack_base(bb.DTYPE)
     return FieldOps(
-        field=field, base_field=field, elem_axes=(),
+        field=field, base_field=field, elem_axes=(), dtype=bb.DTYPE,
         add=bb.add, sub=bb.sub, mul=bb.mul, neg=bb.neg, pow=bb.pow,
-        scale_base=bb.mul, pack=_pack_base, unpack=_unpack_base,
-        pack_scalar=_pack_scalar_base,
+        scale_base=bb.mul, pack=pack, unpack=_unpack_base,
+        pack_scalar=pack_scalar,
     )
 
 
@@ -631,18 +656,18 @@ def _bb_fp4(field, base):
         return [int(v[0][0]), int(v[0][1]), int(v[1][0]), int(v[1][1])]
 
     def pack(vals, device=None):
-        return pack_u64([flat(v) for v in vals], device).reshape(-1, 4)
+        return pack_words([flat(v) for v in vals], bb.DTYPE, device).reshape(-1, 4)
 
     def unpack(t):
         u = unpack_u64(t).reshape(-1, 4)
         return [((int(r[0]), int(r[1])), (int(r[2]), int(r[3]))) for r in u]
 
     return FieldOps(
-        field=field, base_field=base, elem_axes=(4,),
+        field=field, base_field=base, elem_axes=(4,), dtype=bb.DTYPE,
         add=bb.fp4_add, sub=bb.fp4_sub, mul=bb.fp4_mul, neg=bb.fp4_neg,
         pow=bb.fp4_pow, scale_base=bb.fp4_scale_base,
         pack=pack, unpack=unpack,
-        pack_scalar=lambda v, device=None: pack_u64(flat(v), device),
+        pack_scalar=lambda v, device=None: pack_words(flat(v), bb.DTYPE, device),
     )
 
 
@@ -670,9 +695,18 @@ def get_ops(field) -> FieldOps:
     return _OPS[key]
 
 
+def field_dtype(field) -> torch.dtype:
+    """The storage dtype of a host field's tensors (``FieldOps.dtype``)."""
+    return get_ops(field).dtype
+
+
 def lift_base_array(ext_ops: FieldOps, base_arr):
     """Embed a base-field tensor (...) into the extension's layout: Fp2
-    (..., 2) or Fp4 (..., 4), the higher components 0."""
+    (..., 2) or Fp4 (..., 4), the higher components 0, in the field's
+    dtype (a base tensor of another raises)."""
+    if base_arr.dtype != ext_ops.dtype:
+        raise ValueError(f"lift_base_array: a {base_arr.dtype} tensor for a "
+                         f"field held in {ext_ops.dtype}")
     if ext_ops.elem_axes == ():
         return base_arr
     z = torch.zeros_like(base_arr)

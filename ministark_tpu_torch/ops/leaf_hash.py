@@ -66,7 +66,9 @@ def u64_digits(v: torch.Tensor, max_digits: int = MAX_DIGITS):
     significant first, (...,) digit counts >= 1). With 20 digits the first
     step halves the value with a logical shift so that every later step
     works on non-negative int64; with 10 the digits are those of the low 32
-    bits (the kernel's and the JAX package's 10-digit path)."""
+    bits (the kernel's and the JAX package's 10-digit path). An int32
+    (BabyBear) tensor holds values below 2^31: it is widened first."""
+    v = v.to(torch.int64)
     if max_digits == 10:
         q = v & 0xFFFFFFFF
         digits = []
@@ -97,8 +99,9 @@ def _check(comps: torch.Tensor, leafs_per_node: int, fmt: int, max_digits: int):
 
 def leaf_hash_plain(comps: torch.Tensor, leafs_per_node: int, fmt: int,
                     max_digits: int = MAX_DIGITS):
-    """Plain PyTorch version: (n_elems, comps) int64 -> (n_groups, 8) int32
-    digests of each group of ``leafs_per_node`` consecutive elements."""
+    """Plain PyTorch version: (n_elems, comps) int64 (Goldilocks) or int32
+    (BabyBear) -> (n_groups, 8) int32 digests of each group of
+    ``leafs_per_node`` consecutive elements."""
     _check(comps, leafs_per_node, fmt, max_digits)
     k = leafs_per_node
     G = comps.shape[0] // k
@@ -150,15 +153,25 @@ def leaf_hash_cuda(comps: torch.Tensor, leafs_per_node: int, fmt: int,
     shared-memory column (conflict-free at any byte position) and a warp
     compresses block by block in step. Bound on this card: integer ALU
     throughput (one compression per 64-byte block plus ~4 operations per
-    decimal digit, per 8-32 bytes read)."""
-    cuda.require(comps, "leaf_hash", torch.int64, 2)
+    decimal digit, per 4-32 bytes read).
+
+    The 20-digit path is Goldilocks's: int64 components, ``ms_leaf_hash``.
+    The 10-digit path is BabyBear's: int32 components, ``ms_leaf_hash_bb``
+    (4-byte words); a tensor of the other dtype raises."""
+    bb_words = max_digits == 10
+    cuda.require(comps, "leaf_hash", torch.int32 if bb_words else torch.int64, 2)
     _check(comps, leafs_per_node, fmt, max_digits)
     G = comps.shape[0] // leafs_per_node
     out = torch.empty((G, 8), dtype=torch.int32, device=comps.device)
     if G:
-        err = cuda.library().ms_leaf_hash(
-            comps.data_ptr(), out.data_ptr(), G, leafs_per_node, fmt,
-            max_digits, cuda.stream_ptr(comps))
+        lib = cuda.library()
+        if bb_words:
+            err = lib.ms_leaf_hash_bb(comps.data_ptr(), out.data_ptr(), G,
+                                      leafs_per_node, fmt, cuda.stream_ptr(comps))
+        else:
+            err = lib.ms_leaf_hash(comps.data_ptr(), out.data_ptr(), G,
+                                   leafs_per_node, fmt, max_digits,
+                                   cuda.stream_ptr(comps))
         cuda.check("leaf_hash", err)
         launches[max_digits] += 1
     return out

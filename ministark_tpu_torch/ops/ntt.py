@@ -42,7 +42,7 @@ import torch
 from ..fields import BABYBEAR_FP, GOLDILOCKS_FP
 from . import bb, cuda
 from . import field as gl
-from .field import get_ops, pack_u64
+from .field import get_ops, pack_words
 from .poly import powers
 
 # Incremented once per call that launches the CUDA NTT kernel, per field.
@@ -56,18 +56,25 @@ MAX_LOG_N = 30   # the CUDA kernel indexes a row with 32-bit positions
 @dataclass(frozen=True)
 class NttField:
     """A prime field the NTT kernels take: the suffix of its kernels'
-    symbols and counters, and the arithmetic of the plain versions (torch
-    ops only, no kernel)."""
+    symbols and counters, the arithmetic of the plain versions (torch ops
+    only, no kernel) and the dtype of its values and tables (int64
+    Goldilocks, int32 BabyBear)."""
 
     tag: str
     add: Callable
     sub: Callable
     mul: Callable
+    dtype: torch.dtype
+
+    def pack(self, values, device=None) -> torch.Tensor:
+        return pack_words(values, self.dtype, device)
 
 
 _NTT_FIELDS = {
-    id(GOLDILOCKS_FP): NttField("gl", gl.add_plain, gl.sub_plain, gl.mul_plain),
-    id(BABYBEAR_FP): NttField("bb", bb.add_plain, bb.sub_plain, bb.mul_plain),
+    id(GOLDILOCKS_FP): NttField("gl", gl.add_plain, gl.sub_plain, gl.mul_plain,
+                                torch.int64),
+    id(BABYBEAR_FP): NttField("bb", bb.add_plain, bb.sub_plain, bb.mul_plain,
+                              bb.DTYPE),
 }
 
 
@@ -112,9 +119,10 @@ def check_backend(backend: str) -> str:
 
 def powers_plain(field, s: int, n: int, device) -> torch.Tensor:
     """[s^0 .. s^(n - 1)] by doubling with the plain multiply."""
-    mul = ntt_field(field).mul
-    pw = pack_u64([1], device)
-    step = pack_u64(s, device)
+    F = ntt_field(field)
+    mul = F.mul
+    pw = F.pack([1], device)
+    step = F.pack(s, device)
     while pw.shape[0] < n:
         pw = torch.cat([pw, mul(pw, step)])
         step = mul(step, step)
@@ -146,8 +154,8 @@ def stage_table(field, root: int, m: int, device) -> torch.Tensor:
     ``device``, cached per field."""
     key = (field.p, root, m, str(device))
     if key not in _STAGE_TABLES:
-        _STAGE_TABLES[key] = pack_u64(_stage_table_host(field.p, root, m), device
-                                      ).reshape(m.bit_length() - 1, m // 2)
+        _STAGE_TABLES[key] = ntt_field(field).pack(
+            _stage_table_host(field.p, root, m), device).reshape(m.bit_length() - 1, m // 2)
     return _STAGE_TABLES[key]
 
 
@@ -190,7 +198,7 @@ def twiddles(field, root: int, n: int, device) -> torch.Tensor:
     """[root^0 .. root^(n/2 - 1)] on ``device``, cached per field."""
     key = (field.p, root, n, str(device))
     if key not in _TWIDDLES:
-        r = pack_u64(root, device)
+        r = ntt_field(field).pack(root, device)
         _TWIDDLES[key] = powers(get_ops(field), r, max(n // 2, 1)).contiguous()
     return _TWIDDLES[key]
 
@@ -297,7 +305,8 @@ def _coset_tables(field, offset: int, log_n: int, device: str, scale: int):
     for _ in range(1 << (log_n - h)):
         hi.append(v)
         v = v * step % p
-    return pack_u64(lo, device), pack_u64(hi, device)
+    F = ntt_field(field)
+    return F.pack(lo, device), F.pack(hi, device)
 
 
 def _coset_powers(tables, idx: torch.Tensor, log_n: int, mul) -> torch.Tensor:
@@ -405,7 +414,7 @@ def transform_passes_plain(x: torch.Tensor, inverse: bool = False, pre=None,
                               inv_n(field, n) if inverse else 1)
         a = F.mul(a, _coset_powers(tables, torch.arange(n, device=dev), log_n, F.mul))
     elif inverse:
-        a = F.mul(a, pack_u64(inv_n(field, n), dev))
+        a = F.mul(a, F.pack(inv_n(field, n), dev))
     return a
 
 
@@ -430,7 +439,7 @@ def transform_plain(x: torch.Tensor, inverse: bool = False, pre=None,
         wv = F.mul(o, tw[:: n >> s][:half])
         x = torch.stack([F.add(e, wv), F.sub(e, wv)], 2).reshape(batch, n)
     if inverse:
-        x = F.mul(x, pack_u64(inv_n(field, n), x.device))
+        x = F.mul(x, F.pack(inv_n(field, n), x.device))
     if post is not None:
         x = F.mul(x, powers_plain(field, post, n, x.device))
     return x
@@ -451,7 +460,7 @@ def transform_cuda(x: torch.Tensor, inverse: bool = False, pre=None,
     fields (the butterflies, against one read and one write of the batch
     per pass)."""
     F = ntt_field(field)
-    cuda.require(x, "ntt", torch.int64, 2)
+    cuda.require(x, "ntt", F.dtype, 2)
     batch, n = x.shape
     log_n = _log2(n)
     y = torch.empty_like(x)

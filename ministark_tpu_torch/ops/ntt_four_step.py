@@ -19,9 +19,10 @@ Each pass dispatches by device: a CPU tensor takes ``pass1_plain`` /
 CUDA tensor launches its kernel in csrc/ntt_four_step.cu (the ``_gl`` or
 ``_bb`` symbol) or raises. Every function takes the prime field
 (``field=``, Goldilocks unless given). The TPU's limb-planar layout
-and 128-lane tiles stay behind: a value is one int64 u64 pattern, and a
-kernel's block holds 4 columns (pass 1) or 4 rows of C (pass 2) in shared
-memory, loaded bit-reversed, and runs the stages 3 at a time in registers
+and 128-lane tiles stay behind: a value is one word of the field's dtype
+(a Goldilocks int64 u64 pattern, a BabyBear int32), and a kernel's block
+holds 4 columns (pass 1) or 4 rows of C (pass 2) in shared memory, loaded
+bit-reversed, and runs the stages 3 at a time in registers
 (csrc/ntt_stages.cuh). ``pass1_replay`` / ``pass2_replay`` replay the
 kernels' route in torch ops for the tests, as ``ntt.transform_passes_plain``
 does for the radix-2 kernel.
@@ -33,7 +34,6 @@ import torch
 
 from ..fields import GOLDILOCKS_FP
 from . import cuda
-from .field import pack_u64
 from .ntt import (
     _coset_powers,
     _log2,
@@ -115,7 +115,7 @@ def pass2_plain(c: torch.Tensor, tw1: torch.Tensor, scale=None,
     d = dif_last(c, tw1, field)[:, :, bitrev(n1, c.device)]     # (batch, k2, k1)
     y = d.transpose(1, 2).reshape(batch, n1 * n2)
     if scale is not None:
-        y = mul(y, pack_u64(scale, y.device))
+        y = mul(y, ntt_field(field).pack(scale, y.device))
     if post is not None:
         y = mul(y, powers_plain(field, post, n1 * n2, y.device))
     return y
@@ -134,9 +134,9 @@ def _kernel_tables(tw, offset, log_n: int, device, field, scale=None):
     return roots, lo, hi
 
 
-def _require_tables(name, tables, shapes):
+def _require_tables(name, tables, shapes, dtype):
     for t, shape in zip(tables, shapes):
-        cuda.require(t, name, torch.int64, len(shape))
+        cuda.require(t, name, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected a table of shape {shape}, got "
                              f"{tuple(t.shape)}")
@@ -150,13 +150,13 @@ def pass1_cuda(x: torch.Tensor, tw2: torch.Tensor, wpow: torch.Tensor,
                pre=None, field=GOLDILOCKS_FP) -> torch.Tensor:
     """CUDA kernel (csrc/ntt_four_step.cu ``four_step_pass1``), same contract
     as ``pass1_plain``. Replaces ``ntt_pallas.py::_make_pass1_kernel``."""
-    tag = ntt_field(field).tag
-    cuda.require(x, "four_step pass 1", torch.int64, 2)
+    tag, dtype = ntt_field(field).tag, ntt_field(field).dtype
+    cuda.require(x, "four_step pass 1", dtype, 2)
     batch, n = x.shape
     n1, n2 = _split_sizes(n)
     _require_tables("four_step pass 1", (tw2, wpow),
-                    ((_log2(n2), n2 // 2), (n1,)))
-    c = torch.empty((batch, n2, n1), dtype=torch.int64, device=x.device)
+                    ((_log2(n2), n2 // 2), (n1,)), dtype)
+    c = torch.empty((batch, n2, n1), dtype=x.dtype, device=x.device)
     roots, lo, hi = _kernel_tables(tw2, pre, _log2(n), x.device, field)
     if batch:
         err = getattr(cuda.library(), f"ms_ntt_four_step_pass1_{tag}")(
@@ -171,11 +171,11 @@ def pass2_cuda(c: torch.Tensor, tw1: torch.Tensor, scale=None,
                post=None, field=GOLDILOCKS_FP) -> torch.Tensor:
     """CUDA kernel (csrc/ntt_four_step.cu ``four_step_pass2``), same contract
     as ``pass2_plain``. Replaces ``ntt_pallas.py::_make_pass2_kernel``."""
-    tag = ntt_field(field).tag
-    cuda.require(c, "four_step pass 2", torch.int64, 3)
+    tag, dtype = ntt_field(field).tag, ntt_field(field).dtype
+    cuda.require(c, "four_step pass 2", dtype, 3)
     batch, n2, n1 = c.shape
-    _require_tables("four_step pass 2", (tw1,), ((_log2(n1), n1 // 2),))
-    y = torch.empty((batch, n1 * n2), dtype=torch.int64, device=c.device)
+    _require_tables("four_step pass 2", (tw1,), ((_log2(n1), n1 // 2),), dtype)
+    y = torch.empty((batch, n1 * n2), dtype=c.dtype, device=c.device)
     roots, lo, hi = _kernel_tables(tw1, post, _log2(n1 * n2), c.device, field, scale)
     if batch:
         # one product at the store: the post power (1/n in hi) or 1/n alone
@@ -242,7 +242,7 @@ def pass1_replay(x: torch.Tensor, tw2: torch.Tensor, wpow: torch.Tensor,
     v = x[:, src]
     if lo is not None:
         v = F.mul(v, _coset_powers((lo, hi), src, _log2(n), F.mul))
-    s = torch.zeros((batch, n1 >> LOG_COLS, _tile_words(L)), dtype=torch.int64,
+    s = torch.zeros((batch, n1 >> LOG_COLS, _tile_words(L)), dtype=F.dtype,
                     device=dev)
     s[:, :, addr] = v
     s = _stages_replay(s, roots, L, False, F)
@@ -264,7 +264,7 @@ def pass2_replay(c: torch.Tensor, tw1: torch.Tensor, scale=None, post=None,
     roots, lo, hi = _kernel_tables(tw1, post, log_n, dev, field, scale)
     cols = torch.arange(1 << LOG_COLS, device=dev)
     blocks = n2 >> LOG_COLS
-    s = torch.zeros((batch, blocks, _tile_words(L)), dtype=torch.int64, device=dev)
+    s = torch.zeros((batch, blocks, _tile_words(L)), dtype=F.dtype, device=dev)
     load = (_tile_rows(bitrev(n1, dev), L, True) << LOG_COLS)[:, None] + cols
     s[:, :, load] = c.reshape(batch, blocks, 1 << LOG_COLS, n1).transpose(2, 3)
     s = _stages_replay(s, roots, L, True, F)
@@ -275,8 +275,8 @@ def pass2_replay(c: torch.Tensor, tw1: torch.Tensor, scale=None, post=None,
     if lo is not None:
         v = F.mul(v, _coset_powers((lo, hi), idx, log_n, F.mul))
     elif scale is not None:
-        v = F.mul(v, pack_u64(scale, dev))
-    y = torch.empty((batch, n1 * n2), dtype=torch.int64, device=dev)
+        v = F.mul(v, F.pack(scale, dev))
+    y = torch.empty((batch, n1 * n2), dtype=F.dtype, device=dev)
     y[:, idx] = v
     return y
 

@@ -38,7 +38,7 @@ import torch
 
 from ..fields import GOLDILOCKS_FP
 from . import cuda
-from .field import get_ops, pack_u64
+from .field import get_ops
 from .ntt import (
     _coset_powers,
     _log2,
@@ -100,7 +100,7 @@ def _twiddle_matrix(field, root: int, M: int, Fi: int, device) -> torch.Tensor:
     """W[i1, k2] = root^(i1 k2), (M, Fi) (``ntt_device._twiddle_matrix``):
     the powers of root^k2 by doubling over the rows."""
     ops = get_ops(field)
-    row = powers(ops, pack_u64(root, device), Fi)             # root^k2
+    row = powers(ops, ops.pack_scalar(root, device), Fi)      # root^k2
     W = torch.ones_like(row).unsqueeze(0)
     step = row
     while W.shape[0] < M:
@@ -183,7 +183,7 @@ def level_plain(x: torch.Tensor, tw: torch.Tensor, pre=None, W=None,
         rows = torch.arange(R, device=x.device) // k_prod
         y = mul(y, W[rows])
     if scale is not None:
-        y = mul(y, pack_u64(scale, y.device))
+        y = mul(y, ntt_field(field).pack(scale, y.device))
     return y
 
 
@@ -196,8 +196,8 @@ def level_cuda(x: torch.Tensor, tw: torch.Tensor, pre=None, W=None,
     the cached ``ntt.coset_tables`` of s over F R; ``w_split`` (W's tables
     from ``w_split_tables``) gives the two-table twiddle in place of W's
     rows."""
-    tag = ntt_field(field).tag
-    cuda.require_aligned(x, "pipe level", torch.int64, 3)
+    tag, dtype = ntt_field(field).tag, ntt_field(field).dtype
+    cuda.require_aligned(x, "pipe level", dtype, 3)
     B, Fi, R = x.shape
     log_f, log_r = _log2(Fi), _log2(R)
     tables = [("stage table", tw, (log_f, Fi // 2))]
@@ -211,11 +211,11 @@ def level_cuda(x: torch.Tensor, tw: torch.Tensor, pre=None, W=None,
         tables += [("twiddle split lo", w_split[0], (1 << h,)),
                    ("twiddle split hi", w_split[1], (1 << (log_e - h),))]
     for name, t, shape in tables:
-        cuda.require(t, f"pipe level {name}", torch.int64, len(shape))
+        cuda.require(t, f"pipe level {name}", dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"pipe level: expected a {shape} {name}, got "
                              f"{tuple(t.shape)}")
-    y = torch.empty((B, R, Fi), dtype=torch.int64, device=x.device)
+    y = torch.empty((B, R, Fi), dtype=dtype, device=x.device)
     lo, hi = (None, None) if pre is None else coset_tables(field, pre, log_f + log_r,
                                                            x.device)
     w_lo, w_hi = (None, None) if w_split is None else w_split
@@ -301,7 +301,7 @@ def level_replay(x: torch.Tensor, tw: torch.Tensor, pre=None, W=None,
     j = torch.arange(2 if log_c else 1, device=dev)
     rev = bitrev(Fi, dev)
     src = (rev[q] << log_r)[:, None] + c[:, None] + j               # (units, width)
-    s = torch.zeros((B, R >> log_c, Fi << log_c), dtype=torch.int64, device=dev)
+    s = torch.zeros((B, R >> log_c, Fi << log_c), dtype=F.dtype, device=dev)
     s[:, :, word[:, None] + j] = x.reshape(B, Fi * R)[:, src + r0[:, None, None]]
 
     def coset(v, pos, cols):       # v: (B, tiles, groups, 2^R, C)
@@ -323,8 +323,8 @@ def level_replay(x: torch.Tensor, tw: torch.Tensor, pre=None, W=None,
             w = _coset_powers(w_split, row * k, log_f + _log2(W.shape[0]), F.mul)
         v = F.mul(v, w)
     if scale is not None:
-        v = F.mul(v, pack_u64(scale, dev))
-    y = torch.empty((B, R, Fi), dtype=torch.int64, device=dev)
+        v = F.mul(v, F.pack(scale, dev))
+    y = torch.empty((B, R, Fi), dtype=F.dtype, device=dev)
     y[:, r, k.expand_as(r)] = v
     return y
 
@@ -352,7 +352,7 @@ def transform(x: torch.Tensor, inverse: bool = False, pre=None, post=None,
     y = y.reshape(B, n)
     if post is not None:
         ops = get_ops(field)
-        y = ops.mul(y, powers(ops, pack_u64(post, y.device), n))
+        y = ops.mul(y, powers(ops, ops.pack_scalar(post, y.device), n))
     return y
 
 

@@ -4,7 +4,10 @@ Port of ``ministark_tpu/ops/sha256.py`` (``sha256_blocks``, ``_inner_level``
 :113, ``_inner_levels_fused`` :134, ``binary_row_digests`` :194,
 ``digests_to_bytes`` :212, ``bytes_to_digests`` :224). A digest is a row of
 8 big-endian u32 words held in an ``int32`` tensor (n, 8); the CUDA kernels
-read it as ``uint32_t``. Row components are int64 u64 bit patterns.
+read it as ``uint32_t``. Row components are int64 u64 bit patterns
+(Goldilocks) or int32 values (BabyBear); either way a component's preimage
+is its 8 little-endian bytes, the high word 0 for BabyBear, as the JAX
+package's row format has it (``commit/index_tree.py:214-215``).
 
 ``inner_level`` (fan 2 for the parity trees, the arity for the fast mode's
 index trees) and ``binary_row_digests`` dispatch by device: a CPU tensor
@@ -140,11 +143,12 @@ def _row_tail(C: int):
 
 
 def binary_row_digests_plain(comps: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: (n, C) int64 u64 components -> (n, 8) int32
-    digests of each row's C little-endian u64s (``binary_row_digests``
-    :194; hashlib.sha256(row_le_bytes))."""
+    """Plain PyTorch version: (n, C) int64 u64 (or int32 BabyBear)
+    components -> (n, 8) int32 digests of each row's C little-endian u64s
+    (``binary_row_digests`` :194; hashlib.sha256(row_le_bytes))."""
     _check_rows(comps)
     n, C = comps.shape
+    comps = comps.to(torch.int64)
     words = torch.stack([_bswap32(comps & M32), _bswap32((comps >> 32) & M32)],
                         -1).reshape(n, 2 * C)
     n_blocks, tail = _row_tail(C)
@@ -206,15 +210,21 @@ def binary_row_digests_cuda(comps: torch.Tensor) -> torch.Tensor:
     reads its C components, byte-swaps each u32 half into a big-endian word
     and compresses block by block, then the constant tail. Bound on this
     card: integer ALU throughput ((8C + 9 + 63) // 64 compressions per
-    8C bytes read)."""
+    8C or 4C bytes read).
+
+    The components' dtype is the field's storage: int64 takes
+    ``ms_sha256_rows`` (Goldilocks), int32 ``ms_sha256_rows_bb`` (BabyBear:
+    4-byte words, the preimage's high word 0); any other dtype raises."""
     global row_launches
-    cuda.require(comps, "sha256_rows", torch.int64, 2)
+    dtype = torch.int32 if comps.dtype == torch.int32 else torch.int64
+    cuda.require(comps, "sha256_rows", dtype, 2)
     _check_rows(comps)
     n, C = comps.shape
     out = torch.empty((n, 8), dtype=torch.int32, device=comps.device)
     if n:
-        err = cuda.library().ms_sha256_rows(
-            comps.data_ptr(), out.data_ptr(), n, C, cuda.stream_ptr(comps))
+        lib = cuda.library()
+        fn = lib.ms_sha256_rows_bb if dtype == torch.int32 else lib.ms_sha256_rows
+        err = fn(comps.data_ptr(), out.data_ptr(), n, C, cuda.stream_ptr(comps))
         cuda.check("sha256_rows", err)
         row_launches += 1
     return out

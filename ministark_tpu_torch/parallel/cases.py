@@ -29,7 +29,7 @@ import torch
 
 from ..fields import BABYBEAR_FP, BABYBEAR_FP4, GOLDILOCKS_FP, GOLDILOCKS_FP2
 from ..fields import BabyBear, Goldilocks
-from ..ops.field import get_ops, pack_u64, unpack_u64
+from ..ops.field import get_ops, pack_words, unpack_u64
 from ..ops.leaf_hash import leaf_hash
 from ..ops.ntt import get_ntt_fns
 from ..ops import div_scan as ds
@@ -48,12 +48,13 @@ STARK = {"gl": Goldilocks, "bb": BabyBear}
 KINDS = ("fft", "ifft", "coset_fft", "coset_ifft")
 
 
-def _t(mesh, a) -> torch.Tensor:
-    return _t_on(mesh.device, a)
+def _t(mesh, a, field="gl") -> torch.Tensor:
+    return _t_on(mesh.device, a, field)
 
 
-def _t_on(device, a) -> torch.Tensor:
-    return pack_u64(np.asarray(a, dtype=np.uint64), device)
+def _t_on(device, a, field="gl") -> torch.Tensor:
+    """u64 values -> a tensor in the field's dtype (int64 "gl", int32 "bb")."""
+    return pack_words(np.asarray(a, dtype=np.uint64), get_ops(PRIME[field]).dtype, device)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -72,7 +73,7 @@ def ntt(mesh, field, n, x, kind="fft", offset=None, backend="radix2"):
     """(sharded, single-device) ``kind`` transform of (batch, n) x."""
     F = PRIME[field]
     i = KINDS.index(kind)
-    args = (_t(mesh, x),) + (() if offset is None else (offset,))
+    args = (_t(mesh, x, field),) + (() if offset is None else (offset,))
     sharded = get_sharded_ntt_fns(F, n, mesh, backend)[i](*args)
     return _np(sharded), _np(get_ntt_fns(F, n, backend)[i](*args))
 
@@ -84,10 +85,10 @@ def block_ntt(mesh, field, n, x, kind="fft", offset=None):
     block [r*n_in/D, (r+1)*n_in/D) of it."""
     F = PRIME[field]
     i = KINDS.index(kind)
-    xt = _t(mesh, x)
+    xt = _t(mesh, x, field)
     extra = () if offset is None else (offset,)
     got = get_block_ntt_fns(F, n, mesh)[i](Rows(mesh, xt.shape[1]).take(xt, 1), *extra)
-    padded = torch.zeros((xt.shape[0], n), dtype=torch.int64, device=mesh.device)
+    padded = torch.zeros((xt.shape[0], n), dtype=xt.dtype, device=mesh.device)
     padded[:, :xt.shape[1]] = xt
     return _np(got), _np(get_ntt_fns(F, n)[i](padded, *extra))
 
@@ -101,7 +102,7 @@ def block_fri(mesh, field, n, coeffs, alpha, z, zs):
     k = get_ops(E)
     dev = mesh.device
     fns = get_block_fri_fns(E, n, mesh)
-    c = Rows(mesh, n).take(_t(mesh, coeffs))
+    c = Rows(mesh, n).take(_t(mesh, coeffs, field))
     zp = k.pack_scalar(z, dev)
     fe, fo = fns["deep"](c, zp)
     zq = k.pack(list(zs), dev)
@@ -121,9 +122,9 @@ def block_tree(mesh, field, vals, leafs_per_node, lookups):
     from ..commit.packed_tree import BlockMerkleTree, PackedMerkleTree, to_leaf_comps
 
     E = EXT[field]
-    v = _t(mesh, vals)
+    v = _t(mesh, vals, field)
     cfg = MerkleTreeConfig(leafs_per_node, 2)
-    rows = to_leaf_comps(E, _t(mesh, lookups))
+    rows = to_leaf_comps(E, _t(mesh, lookups, field))
     out = []
     for tree in (BlockMerkleTree(E, Rows(mesh, v.shape[0]).take(v), cfg, mesh),
                  PackedMerkleTree(E, v, cfg)):
@@ -153,15 +154,15 @@ def select_ntt(mesh, field, n, x):
     """(fft of x through ``select_ntt_fns``, the collectives it called):
     a size that does not split over the mesh runs on one device."""
     before = dict(mesh_mod.collectives)
-    out = select_ntt_fns(PRIME[field], n, mesh)[0](_t(mesh, x))
+    out = select_ntt_fns(PRIME[field], n, mesh)[0](_t(mesh, x, field))
     return _np(out), _collectives(before)
 
 
 def lde(mesh, field, x, domain_size):
     """(``sharded_lde`` of (batch, m) x, one device's fft of x zero-padded)."""
     F = PRIME[field]
-    xt = _t(mesh, x)
-    padded = torch.zeros((xt.shape[0], domain_size), dtype=torch.int64, device=mesh.device)
+    xt = _t(mesh, x, field)
+    padded = torch.zeros((xt.shape[0], domain_size), dtype=xt.dtype, device=mesh.device)
     padded[:, :xt.shape[1]] = xt
     return (_np(sharded_lde(F, xt, domain_size, mesh)),
             _np(get_ntt_fns(F, domain_size)[0](padded)))
@@ -171,7 +172,7 @@ def ntt_roundtrip(mesh, field, n, x, offset):
     """(ifft(fft(x)), coset_ifft(coset_fft(x, s), 1/s)), both sharded."""
     F = PRIME[field]
     fft, ifft, cfft, cifft = get_sharded_ntt_fns(F, n, mesh)
-    xt = _t(mesh, x)
+    xt = _t(mesh, x, field)
     return _np(ifft(fft(xt))), _np(cifft(cfft(xt, offset), F.inv(offset)))
 
 
@@ -184,7 +185,7 @@ def fri(mesh, field, n, coeffs, alpha, z):
     E = EXT[field]
     k = get_ops(E)
     fns = get_sharded_fri_fns(E, n, mesh)
-    c = _t(mesh, coeffs)
+    c = _t(mesh, coeffs, field)
     ap, zp = k.pack_scalar(alpha, mesh.device), k.pack_scalar(z, mesh.device)
     zinv = k.pack_scalar(E.inv(z), mesh.device)
     fe, fo = fns["deep"](c, zp)
@@ -202,7 +203,7 @@ def tree(mesh, field, comps, leafs_per_node, fmt):
     from ..ops.leaf_hash import digits_for
 
     md = digits_for(PRIME[field])
-    c = _t(mesh, comps)
+    c = _t(mesh, comps, field)
     leaf = leaf_hash(c, leafs_per_node, fmt, md)
     single = torch.cat([leaf, merkle_inner_levels(leaf)], 0)
     return (sharded_tree_digests(c, leafs_per_node, fmt, mesh, md).cpu().numpy(),
@@ -263,8 +264,8 @@ def core(mesh, field, n, model="fibonacci", cols=None, weights=None, device=None
     sf, dev = STARK[field], _device(mesh, device)
     single, example = make_prove_core(sf, n, _builder(model), device=dev)
     c0, _, w0 = example()
-    c = c0 if cols is None else _t_on(dev, cols)
-    w = w0 if weights is None else _t_on(dev, weights)
+    c = c0 if cols is None else _t_on(dev, cols, field)
+    w = w0 if weights is None else _t_on(dev, weights, field)
     if mesh is None:
         out = single(c, 1, w)
     else:
@@ -288,7 +289,7 @@ def fold_deep(mesh, field, coeffs, alpha, z, device=None):
 
     E, dev = EXT[field], _device(mesh, device)
     k = get_ops(E)
-    c = _t_on(dev, coeffs)
+    c = _t_on(dev, coeffs, field)
     ap, zp = k.pack_scalar(alpha, dev), k.pack_scalar(z, dev)
     if mesh is None:
         folded, (fe, fo) = fold_even_odd(k, c, ap), eval_even_odd(k, c, zp)
@@ -363,7 +364,7 @@ def block_coset_lde(mesh, field, polys, N, F, offset=None):
     from ..fri.batched import BatchedFri, BatchedFriConfig
 
     bf = BatchedFri(BatchedFriConfig(EXT[field], fold_factor=F))
-    p = _t(mesh, polys)
+    p = _t(mesh, polys, field)
     block = bf._block_coset_rows(Rows(mesh, p.shape[1]).take(p, 1), N, mesh, offset)
     return _np(block), _np(bf._coset_rows(bf._fft_batched(p, N, offset), F))
 
@@ -383,15 +384,15 @@ def block_ldt_ops(mesh, field, coeffs, pts, ans, roots, r_cor, start_pts):
     E = EXT[field]
     k = get_ops(E)
     rows = Rows(mesh, len(coeffs))
-    c = rows.take(_t(mesh, coeffs))
-    roots_t = _t(mesh, roots)
+    c = rows.take(_t(mesh, coeffs, field))
+    roots_t = _t(mesh, roots, field)
     scales = k.pack([E.inv(x) for x in k.unpack(roots_t)], mesh.device)
-    r = k.unpack(_t(mesh, [r_cor]))[0]
+    r = k.unpack(_t(mesh, [r_cor], field))[0]
     rpows = k.pack([E.pow(r, j) for j in range(len(roots) + 1)], mesh.device)
-    ev = eval_points(k, c, _t(mesh, pts), start=rows.lo)
-    sc = sumcheck_evals(k, c, _t(mesh, start_pts), start=rows.lo // 2)
+    ev = eval_points(k, c, _t(mesh, pts, field), start=rows.lo)
+    sc = sumcheck_evals(k, c, _t(mesh, start_pts, field), start=rows.lo // 2)
     return {"eval_points": _np(field_sum_over_ranks(k, mesh, ev)),
-            "quot_degcor": _np(quot_degcor_block(E, c, _t(mesh, ans), roots_t, scales,
+            "quot_degcor": _np(quot_degcor_block(E, c, _t(mesh, ans, field), roots_t, scales,
                                                  rpows, rows)),
             "sumcheck_evals": _np(field_sum_over_ranks(k, mesh, sc))}
 

@@ -12,8 +12,10 @@ for CPU ranks and for ranks that share one card (NCCL refuses two ranks on
 one GPU). Nothing here picks one. gloo takes the card's tensors as they
 are: ``scripts/torch_dist_probe.py`` found all three collectives exact on
 int64 CUDA tensors with two ranks on one H100 (torch 2.11, CUDA 12.8), and
-faster than copying them through host memory. A backend that refuses a
-tensor raises; nothing falls back.
+faster than copying them through host memory; BabyBear's int32 tensors
+cross the same collectives (the card's sharded cases in
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``). A backend that
+refuses a tensor raises; nothing falls back.
 
 The collectives only move bytes, so a field value crosses them exactly; a
 field sum across ranks is a gather and ``ops/poly.py::field_sum``, never

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.field import get_ops, pack_u64
+from ..ops.field import get_ops, pack_words
 from ..ops.ntt import get_ntt_fns
 from ..ops.poly import fold_even_odd, mix_columns
 
@@ -50,10 +50,11 @@ def _trace_for(stark_field, n: int, trace_builder=None, device="cuda"):
 
 
 def _packed_cols(dtrace, device) -> torch.Tensor:
-    """The trace's (w, n) columns as a tensor on ``device``."""
+    """The trace's (w, n) columns as a tensor on ``device``, in the base
+    field's dtype."""
     if dtrace.cols_dev is not None:
         return dtrace.cols_dev.to(device)
-    return pack_u64(dtrace.cols, device)
+    return pack_words(dtrace.cols, get_ops(dtrace.stark_field.base).dtype, device)
 
 
 def _spine(kb, trans, ifft, cols, weights, lde, rows=None):

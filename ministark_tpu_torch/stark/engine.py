@@ -54,7 +54,7 @@ import torch
 from ..commit import native
 from ..commit.packed_tree import BlockMerkleTree, PackedMerkleTree, to_leaf_comps
 from ..fri.fri import Fri, FriProof, FriRound as HostFriRound
-from ..ops.field import get_ops, lift_base_array, pack_u64
+from ..ops.field import get_ops, lift_base_array, pack_words
 from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.div_scan import div_scan
 from ..ops.poly import effective_len, eval_even_odd, eval_many, mix_columns
@@ -95,7 +95,7 @@ class DeviceTrace:
 
     ``cols``: (width, N) u64 numpy array of column evaluations over the
     trace domain (rows >= steps carry the deterministic ZK padding), OR
-    ``cols_dev``: the same data as a (width, N) int64 tensor (witness built
+    ``cols_dev``: the same data as a (width, N) tensor in the field's dtype (int64 Goldilocks, int32 BabyBear; witness built
     on the device). ``transitions`` map the (width, N) trace-polynomial
     coefficient tensor to one (N,) constraint coefficient tensor. Each
     takes a keyword ``rows`` (default None): the resident prove on a mesh
@@ -243,10 +243,14 @@ class DeviceEngine:
         return self.ke.unpack(coeffs[:eff])
 
     def _cols(self, trace: DeviceTrace) -> torch.Tensor:
-        """(width, N) int64 column evaluations on the engine's device."""
+        """(width, N) column evaluations on the engine's device, in the base
+        field's dtype (a device trace of another raises)."""
         if trace.cols_dev is not None:
+            if trace.cols_dev.dtype != self.kb.dtype:
+                raise ValueError(f"trace columns are {trace.cols_dev.dtype}, the "
+                                 f"field is held in {self.kb.dtype}")
             return trace.cols_dev.to(self.device)
-        return pack_u64(trace.cols, self.device)
+        return pack_words(trace.cols, self.kb.dtype, self.device)
 
     def _trace_polys(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) evaluations -> (width, N) coefficients, whole on every
@@ -296,7 +300,7 @@ class DeviceEngine:
             all_coeffs = torch.cat(
                 [trace_poly] + [f(trace_poly)[None] for f in trace.transitions], 0)
             del trace_poly
-            padded = torch.zeros((all_coeffs.shape[0], lde_n), dtype=torch.int64,
+            padded = torch.zeros((all_coeffs.shape[0], lde_n), dtype=all_coeffs.dtype,
                                  device=dev)
             padded[:, :n] = all_coeffs
             lde_evals = self._ntt(lde_n)[2](padded, random_shift)    # (w+t, 2n)
@@ -368,7 +372,7 @@ class DeviceEngine:
     def _ext_fft(self, coeffs: torch.Tensor, domain_size: int) -> torch.Tensor:
         """Extension codeword (N, d) of (m, d) coefficients, m <= N, as the
         base NTT batched over the d components (2 for Fp2, 4 for Fp4)."""
-        comp = torch.zeros((coeffs.shape[1], domain_size), dtype=torch.int64,
+        comp = torch.zeros((coeffs.shape[1], domain_size), dtype=coeffs.dtype,
                            device=coeffs.device)
         comp[:, :coeffs.shape[0]] = coeffs.T
         return self._ntt(domain_size)[0](comp).T.contiguous()

@@ -55,7 +55,7 @@ import torch
 from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_bytes
 from ..fri.stir import Stir, StirConfig
 from ..fri.whir import Whir, WhirConfig
-from ..ops.field import get_ops, lift_base_array, pack_u64
+from ..ops.field import get_ops, lift_base_array, pack_words
 from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import eval_many, field_sum
 from ..parallel.mesh import Rows, field_sum_over_ranks
@@ -169,7 +169,7 @@ class FastStark:
         return tr
 
     def _constraint_polys(self, trace: DeviceTrace) -> torch.Tensor:
-        """trace -> (w+t, n) int64 coefficient tensor on the prover's
+        """trace -> (w+t, n) coefficient tensor on the prover's
         device: the trace polynomials ++ the transition outputs, whole on
         every rank (the iFFT sharded over the mesh where the size splits)."""
         ifft = select_ntt_fns(self.base, trace.domain_size, self.mesh, self.ntt_backend)[1]
@@ -179,9 +179,12 @@ class FastStark:
         """The constraint polynomials through ``ifft``: whole, or with
         ``rows`` this rank's (w+t, n/D) block of their coefficients."""
         if trace.cols_dev is not None:
+            if trace.cols_dev.dtype != self.kb.dtype:
+                raise ValueError(f"trace columns are {trace.cols_dev.dtype}, the "
+                                 f"field is held in {self.kb.dtype}")
             x = trace.cols_dev.to(self.device)
         else:
-            x = pack_u64(trace.cols, self.device)
+            x = pack_words(trace.cols, self.kb.dtype, self.device)
         kw = {} if rows is None else {"rows": rows}
         tp = ifft(x if rows is None else rows.take(x, 1))
         return torch.cat([tp] + [f(tp, **kw)[None] for f in trace.transitions], 0)
@@ -272,7 +275,7 @@ class FastStark:
 
     # --------------------------------------------------------------- verify
     def verify(self, constrain_coeffs: torch.Tensor, proof: FastStarkProof) -> bool:
-        """``constrain_coeffs``: (w+t, n) int64 out-of-band Constrains, as
+        """``constrain_coeffs``: (w+t, n) out-of-band Constrains, as
         ``_constraint_polys`` produces them."""
         return self.verify_many([constrain_coeffs], proof)
 

@@ -196,26 +196,30 @@ def stage_muls(n, stages):
     return (n // 2) * stages - n + (n >> stages)
 
 
+# bytes a value's component is stored in: Goldilocks int64, BabyBear int32
+WIDTH = {"gl": 8, "gl2": 8, "bb": 4, "bb4": 4}
+
+
 def ntt_work(batch, n, coset_mul: bool, scale_mul: bool, tag="gl"):
     """The whole transform: log2(n) stages, and per value a coset product
     (but the one by s^0 = 1) and a scale product if asked; values in and
-    out, the n / 2 roots read once."""
+    out, the n / 2 roots read once, each WIDTH[tag] bytes."""
     mul, butterfly = FIELD_OPS[tag]
     log_n = n.bit_length() - 1
     ops = batch * ((n // 2) * log_n * (butterfly - mul) + stage_muls(n, log_n) * mul
                    + (n * (int(coset_mul) + int(scale_mul)) - int(coset_mul)) * mul)
-    return 16 * batch * n + 8 * (n // 2), ops
+    return WIDTH[tag] * (2 * batch * n + n // 2), ops
 
 
 def pass_work(batch, n, stages, muls, tag="gl", ones=0):
     """One pass over (batch, n): ``stages`` radix-2 stages over blocks of
     2^stages values (``stage_muls``) and ``muls`` elementwise products per
     value (coset, twiddle, scale), ``ones`` of each row's by 1 and not
-    counted; each value read and written once."""
+    counted; each value read and written once, WIDTH[tag] bytes."""
     mul, butterfly = FIELD_OPS[tag]
     ops = batch * ((n // 2) * stages * (butterfly - mul) + stage_muls(n, stages) * mul
                    + (n * muls - ones) * mul)
-    return 16 * batch * n, ops
+    return 2 * WIDTH[tag] * batch * n, ops
 
 
 def four_step_work(batch, n1, n2, pre: bool, store_mul: bool, tag="gl"):
@@ -239,7 +243,7 @@ def _same(a, b) -> bool:
 def mul_work(a, b):
     out = a.numel() if a.numel() >= b.numel() else b.numel()
     reads = a.numel() + (0 if _same(a, b) else b.numel())
-    return 8 * (reads + out), out * OPS_GL_MUL
+    return a.element_size() * (reads + out), out * OPS_GL_MUL
 
 
 def _stored(t):
@@ -253,20 +257,22 @@ def _stored(t):
 def ext_mul_work(a, b, tag="gl2"):
     """An extension product (Fp2, or with ``tag`` "bb4" Fp4) of (..., K)
     operands: each operand's stored elements read once (an expanded operand
-    only as stored), the (..., K) output written once."""
+    only as stored), the (..., K) output written once, in the operands'
+    storage width (8 bytes a Goldilocks component, 4 a BabyBear one)."""
     out = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]).numel()
     reads = _stored(a) + (0 if _same(a, b) else _stored(b))
-    return 8 * (reads + EXT_K[tag] * out), out * EXT_MUL_OPS[tag]
+    return a.element_size() * (reads + EXT_K[tag] * out), out * EXT_MUL_OPS[tag]
 
 
 def ew_work(a, b, ops):
     """An elementwise op of broadcast operands (b None: a neg): each
     operand's stored elements read once, the output written once, ``ops``
-    integer operations an output element (``EW_OPS``)."""
+    integer operations an output element (``EW_OPS``); each element of
+    the operands' storage width."""
     shape = a.shape if b is None else torch.broadcast_shapes(a.shape, b.shape)
     out = shape.numel()
     reads = _stored(a) + (0 if b is None or _same(a, b) else _stored(b))
-    return 8 * (reads + out), out * ops
+    return a.element_size() * (reads + out), out * ops
 
 
 def _power_muls(e: int) -> int:
@@ -289,7 +295,7 @@ def div_scan_work(c, m, fold: bool, tag, *small, start: int = 0, carry: bool = F
     reads = _stored(c) + sum(_stored(t) for t in small if t is not None)
     macs = B * m * (1 + int(scan) + int(fold)) * FIXED_MAC_OPS[tag]
     chain = B * (_power_muls(start + m) + 1) * EXT_MUL_OPS[tag] if carry else 0
-    return 8 * (reads + B * m * K), macs + chain
+    return WIDTH[tag] * (reads + B * m * K), macs + chain
 
 
 def pow_dot_work(terms, z, tag, parts: int = 1, start: int = 0):
@@ -299,19 +305,21 @@ def pow_dot_work(terms, z, tag, parts: int = 1, start: int = 0):
     row's sums times z^start, by square and multiply."""
     B, n, K = terms.shape
     chain = B * (_power_muls(start) + parts) * EXT_MUL_OPS[tag] if start else 0
-    return (8 * (_stored(terms) + _stored(z) + B * parts * K),
+    return (WIDTH[tag] * (_stored(terms) + _stored(z) + B * parts * K),
             B * n * FIXED_MAC_OPS[tag] + chain)
 
 
 def first_match_work(comps, rows):
     """The first-occurrence search of (q, C) rows in (n, C) components:
-    each element and row read once, (q,) int64 written; each element
-    against each row in one word, a 64-bit equality two INT32 compares (an
-    element that differs from a row mostly differs in its first word, so
-    the least work rejects it there)."""
+    each element and row read once in its storage width (8 bytes a
+    Goldilocks word, 4 a BabyBear one), (q,) int64 written; each element
+    against each row in one word, a 64-bit equality two INT32 compares and
+    a 32-bit one one (an element that differs from a row mostly differs in
+    its first word, so the least work rejects it there)."""
     n, C = comps.shape
     q = rows.shape[0]
-    return 8 * (n * C + q * C + q), 2 * n * q
+    w = comps.element_size()
+    return w * (n * C + q * C) + 8 * q, (w // 4) * n * q
 
 
 def leaf_hash_work(comps, k, fmt, max_digits=20):
@@ -325,7 +333,7 @@ def leaf_hash_work(comps, k, fmt, max_digits=20):
     msg = per_elem.reshape(-1, k).sum(1)
     blocks = int(sha_blocks(msg).sum())
     ops = blocks * OPS_SHA_BLOCK + int(length.sum()) * OPS_DIGIT
-    return comps.numel() * 8 + msg.numel() * 32, ops
+    return comps.numel() * comps.element_size() + msg.numel() * 32, ops
 
 
 def level_work(n_parents, fan):
@@ -344,8 +352,10 @@ def tree_work(n_leaves, fan):
     return nbytes, ops
 
 
-def rows_work(n, C):
-    return n * (8 * C + 32), n * sha_blocks(8 * C) * OPS_SHA_BLOCK
+def rows_work(n, C, width=8):
+    """n rows of C components of ``width`` bytes read (8 Goldilocks, 4
+    BabyBear), a digest each written; each component hashed as 8 bytes."""
+    return n * (width * C + 32), n * sha_blocks(8 * C) * OPS_SHA_BLOCK
 
 
 def stream_work(n_words):

@@ -50,7 +50,7 @@ def dry_run():
 
     from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2
     from ministark_tpu_torch.ops import div_scan as ds
-    from ministark_tpu_torch.ops.field import get_ops
+    from ministark_tpu_torch.ops.field import get_ops, pack_words, unpack_u64
 
     rng = np.random.default_rng(19)
     cases = 0
@@ -60,9 +60,9 @@ def dry_run():
         def rand(shape):
             v = rng.integers(0, E.p, size=tuple(shape) + (E.extension_degree,),
                              dtype=np.uint64)
-            return torch.from_numpy(v.view(np.int64))
+            return pack_words(v, k.dtype)
 
-        zs = [E.from_base_coeffs(tuple(int(c) for c in r.numpy().view(np.uint64)))
+        zs = [E.from_base_coeffs(tuple(int(c) for c in unpack_u64(r)))
               for r in rand((3,))]
         z, zinv = k.pack(zs), k.pack([E.inv(x) for x in zs])
         for m in (1, 15, 16, 17, 83):
@@ -151,8 +151,8 @@ def sweep(cs, rf):
     for tag, E in (("gl2", GOLDILOCKS_FP2), ("bb4", BABYBEAR_FP4)):
         k, K = get_ops(E), E.extension_degree
         z, zinv = cs._ext_points(rng, E, 1)
-        alpha = cs._rand_u64(rng, (K,), E.p)
-        c = cs._rand_u64(rng, (1, 1 << 21, K), E.p)
+        alpha = cs._rand_field(rng, (K,), E.p)
+        c = cs._rand_field(rng, (1, 1 << 21, K), E.p)
         for log_n in range(10, 21):
             n = 1 << log_n
             c2, c1 = c[:, :2 * n], c[:, :n]
@@ -269,18 +269,18 @@ def traced(cs, cuda, lib):
         for tag, E in (("gl2", GOLDILOCKS_FP2), ("bb4", BABYBEAR_FP4)):
             k, K = get_ops(E), E.extension_degree
             z, zinv = cs._ext_points(rng, E, 3)
-            alpha = cs._rand_u64(rng, (K,), E.p)
-            for label, c, kw in (("fold 2^21", cs._rand_u64(rng, (1, 1 << 21, K), E.p),
+            alpha = cs._rand_field(rng, (K,), E.p)
+            for label, c, kw in (("fold 2^21", cs._rand_field(rng, (1, 1 << 21, K), E.p),
                                   dict(fold=alpha)),
-                                 ("(1, 2^20)", cs._rand_u64(rng, (1, 1 << 20, K), E.p), {}),
-                                 ("(3, 2^20)", cs._rand_u64(rng, (3, 1 << 20, K), E.p), {}),
-                                 ("(1, 2^12)", cs._rand_u64(rng, (1, 1 << 12, K), E.p), {})):
+                                 ("(1, 2^20)", cs._rand_field(rng, (1, 1 << 20, K), E.p), {}),
+                                 ("(3, 2^20)", cs._rand_field(rng, (3, 1 << 20, K), E.p), {}),
+                                 ("(1, 2^12)", cs._rand_field(rng, (1, 1 << 12, K), E.p), {})):
                 B = c.shape[0]
                 m = c.shape[1] // (2 if kw else 1)
                 run(f"{tag} {label}", B * -(-m // ds.tile(tag, bool(kw))), DIV_PHASES,
                     lambda: ds.div_scan_cuda(k, c, z[:B], zinv[:B], **kw))
             for log_n in (21, 12):
-                c = cs._rand_u64(rng, (1, 1 << log_n, K), E.p)
+                c = cs._rand_field(rng, (1, 1 << log_n, K), E.p)
                 run(f"{tag} pow_dot parts=2 2^{log_n}", -(-(1 << log_n) // (2 * ds.DOT_TILE)),
                     DOT_PHASES, lambda: ds.pow_dot_cuda(k, c, z[:1], 0, 1, 0, 2))
     return out
@@ -304,7 +304,7 @@ def pow_dot_loops(cs, rf, cuda, libs):
     for tag, E in (("gl2", GOLDILOCKS_FP2), ("bb4", BABYBEAR_FP4)):
         k, K = get_ops(E), E.extension_degree
         z, _ = cs._ext_points(rng, E, 1)
-        c = cs._rand_u64(rng, (1, 1 << 21, K), E.p)
+        c = cs._rand_field(rng, (1, 1 << 21, K), E.p)
         for label, cc, start, stride, parts in (
                 ("2^21, stride 2 (even half)", c, 0, 2, 1), ("2^21, parts=2", c, 0, 1, 2),
                 ("block 2^19 from 2^19", c[:, :1 << 19], 1 << 19, 1, 1),

@@ -5,13 +5,15 @@ PyTorch/CUDA port (ministark_tpu_torch) with torch.profiler.
     python3 scripts/torch_launch_count.py [--root DIR] [--steps N]
                                           [--ntt-backend B]
                                           [--field goldilocks|babybear]
+                                          [--model fibonacci|mimc]
                                           [--mode parity|fast|stir|whir]
                                           [--match S] [--top N] [--world N]
                                           [--backend gloo|nccl]
                                           [--split PHASES] [--cprofile N]
 
-Proves Fibonacci over Goldilocks + Fp2, or with ``--field babybear`` over
-BabyBear + Fp4 (security 20, blowup 2, witness on the card) once to warm
+Proves Fibonacci (``--model mimc``: MiMC, ``models/mimc.py``) over
+Goldilocks + Fp2, or with ``--field babybear`` over BabyBear + Fp4
+(security 20, blowup 2, witness on the card) once to warm
 up, then once under torch.profiler (``--mode fast``: the fast mode's
 ``FastStark.prove_many`` of one trace in bench.py's configuration, arity 4
 and ``lde_backend="fri"``; ``--mode stir`` / ``whir``: the same with that
@@ -21,7 +23,10 @@ kernel-launch calls by name, the kernels that ran on the device and their
 summed time, the prove's wall seconds and the device's busy share (kernel
 time over wall time), the wall seconds of one warm prove before it
 without the profiler (``warm_s``) with its peak allocated device memory
-(``peak_allocated_bytes``, peak stats reset first) and, on a mesh, the
+(``peak_allocated_bytes``, peak stats reset first), for the parity
+prover the bytes of that prove's query-round pulls of the quotients to
+the host (``query_pull_bytes``: ``DeviceEngine._trim_quotients``'s copy of
+the (Q, longest, K) prefix, one a round) and, on a mesh, the
 bytes the rank received by collective kind (``received_bytes``,
 ``parallel/mesh.py::received``), the sha256 of the proof's bytes, the
 fast modes' ``phase_seconds`` of that warm prove (with ``--split`` the
@@ -85,6 +90,7 @@ def main():
                     default="goldilocks")
     ap.add_argument("--mode", choices=("parity", "fast", "stir", "whir"),
                     default="parity")
+    ap.add_argument("--model", choices=("fibonacci", "mimc"), default="fibonacci")
     ap.add_argument("--match", default=None)
     ap.add_argument("--top", type=int, default=0,
                     help="also list the N kernels with the most device time")
@@ -106,7 +112,7 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     head = {"root": os.path.abspath(args.root), "field": args.field,
-            "mode": args.mode, "steps": args.steps,
+            "model": args.model, "mode": args.mode, "steps": args.steps,
             "ntt_backend": args.ntt_backend, "gpu": smi}
     one = measure(None, args)
     if args.world == 1:
@@ -331,7 +337,22 @@ def measure(mesh, args):
 
     sf = {"goldilocks": Goldilocks, "babybear": BabyBear}[args.field]
     device = "cuda" if mesh is None else mesh.device
-    trace = fibonacci_device_trace(sf, args.steps, on_device=True, device=device)
+    if args.model == "mimc":
+        from ministark_tpu_torch.models.mimc import mimc_device_trace
+
+        trace = mimc_device_trace(sf, args.steps, device=device)
+    else:
+        trace = fibonacci_device_trace(sf, args.steps, on_device=True, device=device)
+    pulled = []                     # bytes of each query-round pull, this prove
+    real_trim = DeviceEngine._trim_quotients
+
+    def trim(self, qs, effs, rows=None):
+        out = real_trim(self, qs, effs, rows)
+        longest = max([t.shape[0] for t in out] + [0])
+        pulled.append(len(out) * longest * (qs[:1, :1].numel() * qs.element_size()))
+        return out
+
+    DeviceEngine._trim_quotients = trim
     kw = {} if args.ntt_backend is None else {"ntt_backend": args.ntt_backend}
     if mesh is not None:
         kw["mesh"] = mesh
@@ -362,6 +383,7 @@ def measure(mesh, args):
     prove()                                                # build and warm up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    pulled.clear()
     got = None
     if mesh is not None:
         from ministark_tpu_torch.parallel import mesh as pm
@@ -373,6 +395,7 @@ def measure(mesh, args):
     warm = time.time() - t0
     warm_phases = None if phases is None else phases()
     peak = torch.cuda.max_memory_allocated()
+    pull_bytes = sum(pulled) if args.mode == "parity" else None
     received = None if got is None else {k: v - got[k] for k, v in pm.received.items()}
 
     before = field_counts()
@@ -415,7 +438,8 @@ def measure(mesh, args):
         "launch_calls": launch_calls, "device_kernels": kernels,
         "device_ms": device_us / 1e3, "prove_wall_s": wall,
         "device_busy_share": device_us / 1e6 / wall, "warm_s": warm,
-        "peak_allocated_bytes": peak, "received_bytes": received,
+        "peak_allocated_bytes": peak, "query_pull_bytes": pull_bytes,
+        "received_bytes": received,
         "proof_sha256": hashlib.sha256(to_bytes(proof)).hexdigest(),
         "phase_seconds": warm_phases,
         "field_ops": field_ops,

@@ -60,6 +60,7 @@ from ministark_tpu_torch.fields import BABYBEAR_FP, GOLDILOCKS_FP
 from ministark_tpu_torch.ops import ntt
 from ministark_tpu_torch.ops import ntt_four_step as fs
 from ministark_tpu_torch.ops import ntt_pipe as pp
+from ministark_tpu_torch.ops.field import get_ops, pack_words
 from ministark_tpu_torch.utils import roofline as rf
 
 SEED = 20261017
@@ -141,7 +142,7 @@ def run_four_step(device="cuda", max_log_n=30, reps=20, batches=()):
             n = 1 << log_n
             n1, n2 = fs._split_sizes(n)
             v = rng.integers(0, field.p, size=(batch, n), dtype=np.uint64)
-            x = torch.from_numpy(v.view(np.int64)).to(device)
+            x = pack_words(v, get_ops(field).dtype, device)
             inverse, pre, post = bool(kw.get("inverse")), kw.get("pre"), kw.get("post")
             scale = ntt.inv_n(field, n) if inverse else None
             tw1, tw2, wpow = fs._tables(n, inverse, x.device, field)
@@ -227,7 +228,7 @@ def run_pipe(device="cuda", max_log_n=30, reps=20, batches=()):
         for label, batch, log_n, kw in pipe_shapes(field, batches):
             log_n = max(14, min(log_n, max_log_n))
             v = rng.integers(0, field.p, size=(batch, 1 << log_n), dtype=np.uint64)
-            x = torch.from_numpy(v.view(np.int64)).to(device)
+            x = pack_words(v, get_ops(field).dtype, device)
             for name, args, work, kwargs in pipe_levels(x, field, kw):
                 fn = lambda: kern(*args, **kwargs)  # noqa: E731
                 equal = torch.equal(fn(), pp.level_plain(*args))
@@ -281,7 +282,7 @@ def run_pipe_variants(device="cuda", reps=20, rounds=3):
             split = pp.w_split_tables(1 << log_n, bool(kw.get("inverse")), device,
                                       field)[level]
             v = rng.integers(0, field.p, size=(batch, 1 << log_n), dtype=np.uint64)
-            x = torch.from_numpy(v.view(np.int64)).to(device)
+            x = pack_words(v, get_ops(field).dtype, device)
             _, args, work, _ = pipe_levels(x, field, kw)[level]
             bms, by = rf.bound(*work)
             want = pp.level_plain(*args)
@@ -328,7 +329,7 @@ def run(device="cuda", max_log_n=30, reps=20, batches=()):
             log_n = min(log_n, max_log_n)
             n = 1 << log_n
             v = rng.integers(0, field.p, size=(batch, n), dtype=np.uint64)
-            x = torch.from_numpy(v.view(np.int64)).to(device)
+            x = pack_words(v, get_ops(field).dtype, device)
             if on_card:
                 fn = lambda: ntt.transform_cuda(x, **kw, field=field)  # noqa: E731
             else:

@@ -154,7 +154,7 @@ def test_from_jax_trace_proves_identically(monkeypatch):
     jt = j_trace(J_BB, 13, on_device=True)
     omega = Radix2EvaluationDomain(BabyBear.base, 14).group_gen
     trace = from_jax_trace(jt, _fib_transitions(get_ops(BabyBear.base), omega))
-    assert trace.stark_field is BabyBear and trace.cols_dev.dtype == torch.int64
+    assert trace.stark_field is BabyBear and trace.cols_dev.dtype == torch.int32
     cfg = StarkConfig(BabyBear, 20, 2, 13, trace.constrain_number())
     a = t_eng.DeviceEngine(cfg, device="cpu").prove(trace)
     _, _, b = _port(13)

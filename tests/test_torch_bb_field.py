@@ -54,7 +54,7 @@ def test_base_binary_ops_match_jax(name):
     b = np.random.default_rng(4).permutation(_values(5))
     want = np.asarray(getattr(jbb, name)(jnp.asarray(a), jnp.asarray(b)))
     got = getattr(bb, name)(_t(a), _t(b))
-    assert got.dtype == torch.int64
+    assert got.dtype == torch.int32
     assert np.array_equal(_j(got), want)
 
 
@@ -128,7 +128,7 @@ def test_pack_unpack_and_scalars_match_jax():
             vals = ops.unpack(_t(_fp4(43, 50), field))
             assert vals[0][0][0] == 0 and vals[1][1][0] == 1
         t = ops.pack(vals)
-        assert t.dtype == torch.int64
+        assert t.dtype == torch.int32
         assert ops.unpack(t) == vals
         assert np.array_equal(_j(t, field), jops.pack(vals))
         for v in vals[:12]:
@@ -154,7 +154,7 @@ def test_convert_roundtrip_babybear_layouts():
     base, ext = _values(53), _fp4(59)
     tb, te = _t(base), _t(ext, BABYBEAR_FP4)
     assert tb.shape == base.shape and te.shape == ext.shape
-    assert tb.dtype == te.dtype == torch.int64
+    assert tb.dtype == te.dtype == torch.int32
     assert np.array_equal(_j(tb), base) and np.array_equal(_j(te, BABYBEAR_FP4), ext)
     assert _j(tb).dtype == np.uint32
     with pytest.raises(ValueError):

@@ -119,7 +119,7 @@ def test_goldilocks_tree_never_takes_the_ten_digit_path(monkeypatch):
     cfg = MerkleTreeConfig(leafs_per_node=6, inner_children=2)
     tree = PackedMerkleTree(GOLDILOCKS_FP, torch.tensor(vals), cfg)
     assert tree.root() == MerkleTree(GOLDILOCKS_FP, vals, cfg).root()
-    bb_tree = PackedMerkleTree(BABYBEAR_FP, torch.tensor(vals) % P, cfg)
+    bb_tree = PackedMerkleTree(BABYBEAR_FP, (torch.tensor(vals) % P).to(torch.int32), cfg)
     assert bb_tree.root() == MerkleTree(BABYBEAR_FP, [v % P for v in vals], cfg).root()
     assert seen == [20, 10]
 
@@ -143,7 +143,7 @@ def test_packed_tree_matches_host_tree(field, k, n):
     assert field_fmt(field) == (0 if d == 1 else 2)
     scalars = [int(r[0]) if d == 1 else field.from_base_coeffs(tuple(map(int, r)))
                for r in vals]
-    t = torch.from_numpy(vals[:, 0] if d == 1 else vals)
+    t = torch.from_numpy(vals[:, 0] if d == 1 else vals).to(torch.int32)
     cfg = MerkleTreeConfig(leafs_per_node=k, inner_children=2)
     host = MerkleTree(field, scalars, cfg)
     tree = PackedMerkleTree(field, t, cfg)

@@ -73,7 +73,7 @@ def _compare_with_jax(j_fns, t_fns, batch, n, seed):
 
 
 def _compare_with_radix2(fns, n, seed):
-    x = torch.from_numpy(_bb((2, n), seed).astype(np.int64))
+    x = torch.from_numpy(_bb((2, n), seed).astype(np.int32))
     fft, ifft, coset_fft, coset_ifft = fns
     inv = F.inv(SHIFT)
     assert torch.equal(fft(x), ntt.transform_plain(x, field=F))
@@ -177,7 +177,7 @@ def test_four_step_replay_matches_pallas_four_step(log_n, batch):
 @pytest.mark.parametrize("batch", [1, 3])
 @pytest.mark.parametrize("log_n", [14, 15])
 def test_four_step_replay_passes_match_plain(log_n, batch):
-    x = torch.from_numpy(_bb((batch, 1 << log_n), 40 + log_n).astype(np.int64))
+    x = torch.from_numpy(_bb((batch, 1 << log_n), 40 + log_n).astype(np.int32))
     checks.replay_passes_match_plain(x, SHIFT, F)
 
 
@@ -248,7 +248,7 @@ def test_tables_are_kept_per_field():
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_backend_dispatch_by_size(backend):
-    x = torch.from_numpy(_bb((2, 1 << 13), 13).astype(np.int64))
+    x = torch.from_numpy(_bb((2, 1 << 13), 13).astype(np.int32))
     fns = ntt.get_ntt_fns(F, 1 << 13, backend)
     assert torch.equal(fns[2](x, SHIFT), ntt.transform_plain(x, pre=SHIFT, field=F))
     _compare_with_radix2(ntt.get_ntt_fns(F, 1 << 14, backend), 1 << 14, 7)

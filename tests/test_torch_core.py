@@ -84,11 +84,13 @@ def test_core_matches_jax_on_seeded_inputs(field, model):
     cols0, _, weights0 = args()
     rng = np.random.default_rng([14, len(field), len(model)])
 
-    def rand(shape):
-        v = rng.integers(1, p, size=shape, dtype=np.uint64)
-        return torch.from_numpy(v.view(np.int64))
+    def rand(like):
+        """Values of ``like``'s shape in its dtype (int32 for BabyBear)."""
+        v = rng.integers(1, p, size=tuple(like.shape), dtype=np.uint64)
+        return torch.from_numpy(v.astype(np.int32) if like.dtype == torch.int32
+                                else v.view(np.int64))
 
-    cols, shift, weights = rand(cols0.shape), rand(()), rand(weights0.shape)
+    cols, shift, weights = rand(cols0), rand(torch.zeros(())), rand(weights0)
     out = core(cols, shift, weights)
     for got, want in zip(out, _jax_outputs(field, model, cols, shift, weights)):
         assert torch.equal(got, want)

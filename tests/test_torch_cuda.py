@@ -131,7 +131,7 @@ def _k_cases(K, p):
         "expand-as": lambda x: (x, x[3, 4].expand_as(x)),
         "scalar": lambda x: (x, x[5, 6]),
         "scalars": lambda x: (x[5, 6], x[4, 8]),
-        "cpu-scalar": lambda x: (x, gl.pack_u64([12345, p - 1, 7, 1][:K])),
+        "cpu-scalar": lambda x: (x, gl.pack_words([12345, p - 1, 7, 1][:K], x.dtype)),
         "component-stride": lambda x: (x.movedim(-1, 0).contiguous().movedim(0, -1), x),
         "unaligned": lambda x: (x.reshape(-1)[1:1 - K].reshape(-1, K),
                                 x.reshape(-1, K)[1:]),
@@ -160,9 +160,10 @@ _EW_EXT_OPS = {
 
 
 def _rand_p(shape, p, seed):
+    """Values below p in the field's storage: int32 for BabyBear."""
     v = np.random.default_rng(seed).integers(0, p, size=shape, dtype=np.uint64)
     v.reshape(-1)[:3] = [0, 1, p - 1]
-    return torch.from_numpy(v.view(np.int64))
+    return gl.pack_words(v, torch.int32 if p < 1 << 32 else torch.int64)
 
 
 @pytest.mark.parametrize("case", list(_EXT_CASES))
@@ -210,7 +211,7 @@ def test_field_ew_base_kernels_match_plain(dev, op, case):
         "scalar": lambda: (x, x[2, 3, 1]),
         "scalars": lambda: (x[0, 0, 0], x[1, 1, 1]),
         "empty": lambda: (x[:0], x[0, :, :]),
-        "cpu-scalar": lambda: (x[..., 1], gl.pack_u64(mod.P - 1)),
+        "cpu-scalar": lambda: (x[..., 1], gl.pack_words(mod.P - 1, x.dtype)),
     }[case]()
     args = (a,) if op.endswith("neg") else (a, b)
     got = kern(*args)
@@ -297,7 +298,9 @@ def test_leaf_hash_kernel_matches_plain(dev, fmt, k):
                          ids=[f"fmt{f}-md{m}-k{k}" for f, m, k, _ in lh.BOUNDARY_CASES])
 def test_leaf_hash_kernel_at_padding_boundaries(dev, fmt, md, k, lengths):
     p = P if md == 20 else BABYBEAR_FP.p
-    c = torch.from_numpy(lh.boundary_groups(fmt, k, md, p, lengths).view(np.int64))
+    g = lh.boundary_groups(fmt, k, md, p, lengths)
+    # the 10-digit path is BabyBear's: 32-bit words (2^32 - 1 as -1)
+    c = torch.from_numpy(g.view(np.int64) if md == 20 else g.astype(np.uint32).view(np.int32))
     assert torch.equal(lh.leaf_hash_cuda(c.to(dev), k, fmt, md).cpu(),
                        lh.leaf_hash_plain(c, k, fmt, md))
 
@@ -374,7 +377,7 @@ PB = BABYBEAR_FP.p
 def _rand_bb(shape, seed):
     v = np.random.default_rng(seed).integers(0, PB, size=shape, dtype=np.int64)
     v.reshape(-1)[:3] = [0, PB - 1, 1]
-    return torch.from_numpy(v)
+    return torch.from_numpy(v.astype(np.int32))
 
 
 @pytest.mark.parametrize("log_n", PLAN_SIZES)
@@ -428,9 +431,12 @@ def test_leaf_hash_bb_kernel_matches_plain(dev, fmt, k):
     c[:1000] %= 1000
     assert torch.equal(lh.leaf_hash_cuda(c, k, fmt, 10),
                        lh.leaf_hash_plain(c, k, fmt, 10))
-    # BabyBear values have at most 10 digits: the 20-digit path agrees
-    assert torch.equal(lh.leaf_hash_cuda(c, k, fmt, 20),
+    # BabyBear values have at most 10 digits: the 20-digit path (Goldilocks'
+    # 64-bit words) agrees on the same values widened
+    assert torch.equal(lh.leaf_hash_cuda(c.to(torch.int64), k, fmt, 20),
                        lh.leaf_hash_plain(c, k, fmt, 10))
+    with pytest.raises(ValueError):          # 10 digits take 32-bit words only
+        lh.leaf_hash_cuda(c.to(torch.int64), k, fmt, 10)
 
 
 @pytest.mark.parametrize("C", [16, 96, 384])
@@ -596,10 +602,11 @@ def test_digit_and_stream_wrappers_refuse_cpu_tensors(dev):
 
 
 def _rand_ext(E, shape, seed):
-    """(*shape, K) components of the extension E, below its prime."""
+    """(*shape, K) components of the extension E, below its prime, in its
+    storage (int32 for BabyBear)."""
     v = np.random.default_rng(seed).integers(0, E.p, size=tuple(shape) + (E.extension_degree,),
                                              dtype=np.uint64)
-    return torch.from_numpy(v.view(np.int64))
+    return gl.pack_words(v, gl.get_ops(E).dtype)
 
 
 def _ext(field):
@@ -611,7 +618,7 @@ def _ext(field):
 
 def _points(E, k, count, seed):
     """(z, 1/z) stacked, (count, K) each, z nonzero."""
-    zs = [E.from_base_coeffs(tuple(int(c) for c in row.numpy().view(np.uint64)))
+    zs = [E.from_base_coeffs(tuple(int(c) for c in gl.unpack_u64(row)))
           for row in _rand_ext(E, (count,), seed)]
     return k.pack(zs), k.pack([E.inv(z) for z in zs])
 
@@ -769,6 +776,23 @@ def test_first_match_kernel_matches_plain(dev, C, n):
     assert pt.launches["first_match"] == before
 
 
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("n", [7, 1025, 1 << 21])
+def test_first_match_bb_kernel_matches_plain(dev, C, n):
+    """ms_first_match_bb (BabyBear's 32-bit words: a base element, an Fp4
+    row one 16-byte load) against the plain compare, one launch a call."""
+    from ministark_tpu_torch.commit import packed_tree as pt
+
+    comps, rows = (t.numpy().view(np.uint64).astype(np.uint32).view(np.int32)
+                   for t in _planted_comps(max(n, 8), C, n))
+    comps, rows = torch.from_numpy(comps[:n].copy()), torch.from_numpy(rows.copy())
+    want = pt._first_match_find_plain(comps, rows)
+    before = pt.launches["first_match"]
+    got = pt._first_match_find(comps.to(dev), rows.to(dev))
+    assert pt.launches["first_match"] - before == 1
+    assert torch.equal(got.cpu(), want)
+
+
 def test_first_match_race_and_graph(dev):
     """50 calls back to back (the scratch's minima and ticket reset by each
     call's last block), each equal to the plain result; a CUDA graph of one
@@ -858,8 +882,10 @@ def sharded():
     return inp, launch.run(cases.run, 2, "gloo", "cuda:0", 600, (todo,))
 
 
-def _u64(a):
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64))
+def _u64(a, field="gl"):
+    """u64 values -> a tensor in the field's storage (int32 for "bb")."""
+    return gl.pack_words(np.ascontiguousarray(a, dtype=np.uint64),
+                         torch.int32 if field == "bb" else torch.int64)
 
 
 @pytest.mark.parametrize("field", ["gl", "bb"])
@@ -869,14 +895,14 @@ def test_sharded_ntt_on_card_matches_plain(sharded, field, kind):
 
     inp, ranks = sharded
     F = {"gl": GOLDILOCKS_FP, "bb": BABYBEAR_FP}[field]
-    x = _u64(inp["x"][field]).cuda()
+    x = _u64(inp["x"][field], field).cuda()
     kw = {"fft": {}, "ifft": {"inverse": True}, "coset_fft": {"pre": SHARDED_OFFSET},
           "coset_ifft": {"inverse": True, "post": SHARDED_OFFSET}}[kind]
     want = ntt.transform_plain(x, field=F, **kw).cpu()
     for r in ranks:
         got, single = r[(field, kind)]
-        assert torch.equal(_u64(got), want)
-        assert torch.equal(_u64(single), want)
+        assert torch.equal(_u64(got, field), want)
+        assert torch.equal(_u64(single, field), want)
 
 
 @pytest.mark.parametrize("field", ["gl", "bb"])
@@ -889,7 +915,7 @@ def test_sharded_fri_on_card_matches_plain(sharded, field):
     inp, ranks = sharded
     E = {"gl": GOLDILOCKS_FP2, "bb": BABYBEAR_FP4}[field]
     k = gl.get_ops(E)
-    c = _u64(inp["coeffs"][field])
+    c = _u64(inp["coeffs"][field], field)
     alpha, z = inp["scalars"][field]
     ap, zp, zi = k.pack_scalar(alpha), k.pack_scalar(z), k.pack_scalar(E.inv(z))
     q = synth_div_suffix(k, c, zp, zi)
@@ -898,7 +924,7 @@ def test_sharded_fri_on_card_matches_plain(sharded, field):
             "divide": torch.cat([q, torch.zeros_like(q[:1])])}
     for r in ranks:
         for name, (got, _) in r[(field, "fri")].items():
-            assert torch.equal(_u64(got), want[name]), name
+            assert torch.equal(_u64(got, field), want[name]), name
 
 
 @pytest.mark.parametrize("fmt,k", [(0, 6), (1, 2)])
@@ -948,7 +974,7 @@ def test_batch_inverse_full_on_card(dev, field):
 
     k = get_ops(field)
     v = np.random.default_rng(14).integers(1, field.p, size=1 << 16, dtype=np.uint64)
-    x = torch.from_numpy(v.view(np.int64))
+    x = gl.pack_words(v, k.dtype)
     want = batch_inverse_full(field, k, x)
     assert torch.equal(batch_inverse_full(field, k, x.to(dev)).cpu(), want)
     assert k.unpack(want[:4]) == [field.inv(int(a)) for a in v[:4]]

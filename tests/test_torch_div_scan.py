@@ -45,7 +45,7 @@ from ministark_tpu_torch.fri import stir as t_stir
 from ministark_tpu_torch.fri import whir as t_whir
 from ministark_tpu_torch.ops import div_scan as ds
 from ministark_tpu_torch.ops import poly
-from ministark_tpu_torch.ops.field import get_ops
+from ministark_tpu_torch.ops.field import get_ops, pack_words, unpack_u64
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.engine import DeviceEngine, _FriRoundRepr
 
@@ -69,15 +69,16 @@ def _rng(name, case):
 
 
 def _rand(F, rng, shape):
-    """Uniform field components, a tensor of shape (*shape, K)."""
+    """Uniform field components, a tensor of shape (*shape, K) in the
+    field's storage (int32 for BabyBear)."""
     v = rng.integers(0, F.p, size=tuple(shape) + (F.extension_degree,), dtype=np.uint64)
-    return torch.from_numpy(v.view(np.int64))
+    return pack_words(v, get_ops(F).dtype)
 
 
 def _point(F, rng):
     """(z, 1/z) as packed (K,) tensors, z a nonzero extension element."""
     k = get_ops(F)
-    z = F.from_base_coeffs(tuple(int(c) for c in _rand(F, rng, ()).numpy().view(np.uint64)))
+    z = F.from_base_coeffs(tuple(int(c) for c in unpack_u64(_rand(F, rng, ()))))
     return k.pack_scalar(z), k.pack_scalar(F.inv(z))
 
 

@@ -46,19 +46,25 @@ def _edges(p):
     return [0, 1, p - 1, p - 2, 2, (p - 1) // 2]
 
 
+def _dtype(p):
+    """The field's storage: int64 bit patterns (Goldilocks), int32 values
+    (BabyBear)."""
+    return torch.int32 if p < 1 << 32 else torch.int64
+
+
 def _values(p, shape, seed):
-    """Canonical values of ``shape`` (int64 bit patterns), the first ones the
-    edge values 0, 1, p - 1, p - 2, ..."""
+    """Canonical values of ``shape`` in the field's storage, the first ones
+    the edge values 0, 1, p - 1, p - 2, ..."""
     v = np.random.default_rng(seed).integers(0, p, size=shape, dtype=np.uint64)
     flat = v.reshape(-1)
     edges = np.array(_edges(p), dtype=np.uint64)[: flat.size]
     flat[: edges.size] = edges
-    return torch.from_numpy(v.view(np.int64))
+    return gl.pack_words(v, _dtype(p))
 
 
 def _edge_pairs(p, d):
     """Every pair of edge values: (E, 1, *d) against (1, E, *d)."""
-    e = torch.from_numpy(np.array(_edges(p), dtype=np.uint64).view(np.int64))
+    e = gl.pack_words(_edges(p), _dtype(p))
     e = e.reshape(-1, *[1] * len(d)).expand(-1, *d).contiguous()
     return e[:, None], e.flip(0)[None]
 
@@ -176,7 +182,7 @@ def _replay_offsets(plan):
 
 
 def _storage(t):
-    return torch.empty(0, dtype=torch.int64).set_(t.untyped_storage())
+    return torch.empty(0, dtype=t.dtype).set_(t.untyped_storage())
 
 
 def _aligned(*ts):
@@ -244,10 +250,10 @@ def test_fp4_mul_addressing_replays_broadcast(make):
     broadcast operands: the replayed index arithmetic gathers the operands
     of ``fp4_mul_plain``'s result. Two 16-byte loads an element only where
     both operands' components are adjacent and every element lies on a
-    16-byte boundary."""
+    16-byte boundary (an element of int32 words is 16 bytes: one load)."""
     a, b = make()
     shape, plan = gl._ext_plan(a.shape, a.stride(), b.shape, b.stride(),
-                               _aligned(a, b), 4, "bb_fp4_mul")
+                               _aligned(a, b), 4, "bb_fp4_mul", a.element_size())
     want = bb.fp4_mul_plain(a, b)
     assert shape == want.shape
     if plan is None:
@@ -258,8 +264,9 @@ def test_fp4_mul_addressing_replays_broadcast(make):
     oa, ob = _replay_offsets(plan)
     oa, ob = a.storage_offset() + oa, b.storage_offset() + ob
     if plan[2]:
+        w = 16 // a.element_size()                          # words a 16-byte unit
         assert ca == cb == 1 and _aligned(a, b)
-        assert (oa % 2 == 0).all() and (ob % 2 == 0).all()
+        assert (oa % w == 0).all() and (ob % w == 0).all()
     sa, sb = _storage(a), _storage(b)
     ga = torch.stack([sa[oa + k * ca] for k in range(4)], -1)
     gb = torch.stack([sb[ob + k * cb] for k in range(4)], -1)
@@ -325,8 +332,11 @@ def test_ntt_and_field_ops_bindings():
 
 
 # ------------------------------------------------------------ whole proofs
-def _words(ptr, n):
-    return np.ctypeslib.as_array((ctypes.c_int64 * int(n)).from_address(ptr))
+def _words(ptr, n, p):
+    """n storage words of the field of prime p at ``ptr``: int64 for
+    Goldilocks, int32 for BabyBear."""
+    word = ctypes.c_int32 if p < 1 << 32 else ctypes.c_int64
+    return np.ctypeslib.as_array((word * int(n)).from_address(ptr))
 
 
 class _ReplayLibrary:
@@ -341,8 +351,9 @@ class _ReplayLibrary:
 
     @staticmethod
     def _read(ptr, offs, p):
-        v = _words(ptr, offs.max() + 1)[offs].copy()
-        assert (v.view(np.uint64) < np.uint64(p)).all(), "a non-canonical operand"
+        v = _words(ptr, offs.max() + 1, p)[offs].copy()
+        u = v.astype(np.uint64) if p < 1 << 32 else v.view(np.uint64)
+        assert (u < np.uint64(p)).all(), "a non-canonical operand"
         return torch.from_numpy(v)
 
     def _ew(self, tag, pa, pb, po, plan, op):
@@ -353,19 +364,20 @@ class _ReplayLibrary:
         a = self._read(pa, oa, p)
         out = (MODULES[tag].neg_plain(a) if op == gl.NEG
                else self._BASE[(tag, op)](a, self._read(pb, ob, p)))
-        _words(po, plan[0])[:] = out.numpy()
+        _words(po, plan[0], p)[:] = out.numpy()
         return 0
 
     def _ext(self, K, pa, pb, po, plan):
         p = gl.P if K == 2 else bb.P
         oa, ob = _replay_offsets(plan)
-        if plan[2]:
-            assert not (pa | pb | po) & 15 and (oa % 2 == 0).all() and (ob % 2 == 0).all()
+        if plan[2]:                          # 16-byte elements: 2 or 4 words
+            w = 2 if K == 2 else 4
+            assert not (pa | pb | po) & 15 and (oa % w == 0).all() and (ob % w == 0).all()
         cs = np.arange(K)[None]
         a = self._read(pa, oa[:, None] + plan[4] * cs, p)
         b = self._read(pb, ob[:, None] + plan[5] * cs, p)
         out = (gl.ext_mul_plain if K == 2 else bb.fp4_mul_plain)(a, b)
-        _words(po, plan[0] * K)[:] = out.reshape(-1).numpy()
+        _words(po, plan[0] * K, p)[:] = out.reshape(-1).numpy()
         return 0
 
     def ms_gl_ew(self, pa, pb, po, plan, op, stream):
@@ -387,11 +399,11 @@ class _ReplayLibrary:
 
 @contextlib.contextmanager
 def _through_the_wrappers(monkeypatch):
-    """Every field op takes its ``*_cuda`` wrapper on CPU tensors (int64
-    tensors only), onto ``_ReplayLibrary``; the counts start at 0."""
-    def operands(a, b, kernel, scalar_dim=0):
+    """Every field op takes its ``*_cuda`` wrapper on CPU tensors (of the
+    field's dtype only), onto ``_ReplayLibrary``; the counts start at 0."""
+    def operands(a, b, kernel, scalar_dim=0, dtype=torch.int64):
         for t in (a, b):
-            assert isinstance(t, torch.Tensor) and t.dtype == torch.int64, kernel
+            assert isinstance(t, torch.Tensor) and t.dtype == dtype, kernel
         return a, b
 
     def dispatch(plain, kernel, counts, name, *ts):
@@ -432,7 +444,8 @@ def test_proofs_through_the_wrappers_equal_plain(monkeypatch, tag, mode):
     """A small proof with every field op routed through its ``*_cuda``
     wrapper, the plan built as on the card and replayed on the operands'
     memory, equals the plain proof byte for byte: the provers hand the
-    wrappers only int64 tensors of canonical values in shapes the plans
+    wrappers only tensors of the field's dtype (int64 Goldilocks, int32
+    BabyBear) of canonical values in shapes the plans
     take, and every op launches once (launches equal calls). DEVICE_MIN_SIZE
     32 brings the FRI rounds' tensor code in at this size."""
     monkeypatch.setattr(t_eng, "DEVICE_MIN_SIZE", 32)

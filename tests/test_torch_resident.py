@@ -45,6 +45,7 @@ from ministark_tpu.ops.registry import get_kernels
 from ministark_tpu.parallel import get_sharded_ntt_fns as j_ntt_fns
 from ministark_tpu.parallel import make_mesh as j_mesh
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
+from ministark_tpu_torch.ops.field import unpack_u64
 from ministark_tpu_torch.fields import (
     BABYBEAR_FP,
     BABYBEAR_FP4,
@@ -158,7 +159,7 @@ def _blocks(groups, world, key):
 
 
 def _u64(a, pf):
-    return from_jax_packed(np.asarray(a), pf).numpy().view(np.uint64)
+    return unpack_u64(from_jax_packed(np.asarray(a), pf))
 
 
 def _jax(a, pf):

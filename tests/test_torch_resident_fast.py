@@ -43,6 +43,7 @@ from ministark_tpu.fri.batched import BatchedFriConfig as JBatchedFriConfig
 from ministark_tpu.parallel import make_mesh as j_mesh
 from ministark_tpu.stark.core import make_prove_core as j_make_prove_core
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
+from ministark_tpu_torch.ops.field import unpack_u64
 from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP, GOLDILOCKS_FP2
 from ministark_tpu_torch.fields import BabyBear, Goldilocks
 from ministark_tpu_torch.parallel import block_coset_fits, cases, launch
@@ -156,7 +157,7 @@ def _ranks(groups, world, key):
 
 
 def _u64(a, pf):
-    return from_jax_packed(np.asarray(a), pf).numpy().view(np.uint64)
+    return unpack_u64(from_jax_packed(np.asarray(a), pf))
 
 
 @pytest.mark.parametrize("n, n_in, F, world, fits", [

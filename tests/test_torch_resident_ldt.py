@@ -44,7 +44,7 @@ from ministark_tpu_torch.fields import BABYBEAR_FP4, GOLDILOCKS_FP2
 from ministark_tpu_torch.fields import BabyBear, Goldilocks
 from ministark_tpu_torch.fri.stir import Stir, StirConfig
 from ministark_tpu_torch.fri.whir import Whir, WhirConfig
-from ministark_tpu_torch.ops.field import get_ops
+from ministark_tpu_torch.ops.field import get_ops, unpack_u64
 from ministark_tpu_torch.parallel import cases, launch
 
 WORLDS = (2, 4)
@@ -145,7 +145,7 @@ def _ranks(groups, world, key):
 
 
 def _u64(a, pf):
-    return from_jax_packed(np.asarray(a), pf).numpy().view(np.uint64)
+    return unpack_u64(from_jax_packed(np.asarray(a), pf))
 
 
 def _jax(a, pf):
@@ -234,7 +234,7 @@ def _jax_ops(field):
     rpows = ke.pack([pe.pow(r_cor, j) for j in range(len(roots) + 1)])
     c = _jax(inp["coeffs"], pe)
     quot = _quot_degcor_jit(kj, c, _jax(inp["ans"], pe), _jax(inp["roots"], pe),
-                            _jax(scales.numpy(), pe), _jax(rpows.numpy(), pe))
+                            _jax(unpack_u64(scales), pe), _jax(unpack_u64(rpows), pe))
     return {"eval_points": _u64(_eval_points_jit(kj, c, _jax(inp["pts"], pe)), pe),
             "quot_degcor": _u64(quot, pe),
             "sumcheck_evals": _u64(_sumcheck_evals_jit(kj, c, _jax(inp["start_pts"], pe)), pe)}

@@ -29,6 +29,7 @@ from ministark_tpu.parallel import make_sharded_fri_fns as j_fri_fns
 from ministark_tpu.parallel import make_sharded_ntt_fns as j_ntt_fns
 from ministark_tpu.parallel import sharded_tree_digests as j_tree
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
+from ministark_tpu_torch.ops.field import unpack_u64
 from ministark_tpu_torch.fields import (
     BABYBEAR_FP,
     BABYBEAR_FP4,
@@ -125,7 +126,7 @@ def _jax_ntt(field, n, world, x, kind, offset=None):
         # the coset argument as the port's cases pass it (coset_ifft's is
         # the inverse offset itself)
         out = fns[i](xt, jnp.asarray(k.pack([F.from_int(offset)])[0]))
-    return from_jax_packed(np.asarray(out), pf).numpy().view(np.uint64)
+    return unpack_u64(from_jax_packed(np.asarray(out), pf))
 
 
 # the JAX references that take longest to compile come first: they run
@@ -148,7 +149,7 @@ def test_sharded_fri_matches_jax(groups, field):
                             jnp.asarray(k.pack_scalar(E.inv(z))))
 
     def u64(a):
-        return from_jax_packed(np.asarray(a), pe).numpy().view(np.uint64)
+        return unpack_u64(from_jax_packed(np.asarray(a), pe))
 
     res = _ranks(groups, 4, (field, "fri"))
     assert np.array_equal(res["fold"][0], u64(fold))

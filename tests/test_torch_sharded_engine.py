@@ -39,6 +39,7 @@ from ministark_tpu.ops.poly_device import fold_even_odd as j_fold_even_odd
 from ministark_tpu.ops.registry import get_kernels
 from ministark_tpu.stark.core import make_prove_core as j_make_prove_core
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
+from ministark_tpu_torch.ops.field import unpack_u64
 from ministark_tpu_torch.parallel import cases, launch
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -212,7 +213,7 @@ def test_sharded_core_equals_jax_single_core_with_shift_1(groups, world, field, 
     want = core(pack(cols), pack(np.asarray(1, dtype=np.uint64)), pack(weights))
     got = cases.core_whole([r[("core", field, model)] for r in groups[world].result()])
     for g, w in zip(got, want):
-        assert np.array_equal(g, from_jax_packed(np.asarray(w), base).numpy().view(np.uint64))
+        assert np.array_equal(g, unpack_u64(from_jax_packed(np.asarray(w), base)))
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -226,7 +227,7 @@ def test_sharded_fold_fns_equal_jax_formulas(groups, world):
     fe, fo = j_eval_even_odd(ke, c, jnp.asarray(ke.pack_scalar(z)))
     got = _same_on_every_rank(groups, world, "fold")
     for g, w in zip(got, (folded, fe, fo)):
-        want = from_jax_packed(np.asarray(w), J_GL2).numpy().view(np.uint64)
+        want = unpack_u64(from_jax_packed(np.asarray(w), J_GL2))
         assert np.array_equal(g, want.reshape(g.shape))
 
 

@@ -30,7 +30,7 @@ from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
 from ministark_tpu_torch.fields import BabyBear, Goldilocks
 from ministark_tpu_torch.fri.stir import Stir, StirConfig, eval_points, quot_degcor
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
-from ministark_tpu_torch.ops.field import get_ops
+from ministark_tpu_torch.ops.field import get_ops, pack_words
 from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
 from ministark_tpu_torch.stark.proof_io import fast_proof_from_bytes, fast_proof_to_bytes
 
@@ -55,11 +55,12 @@ def _one_torch_thread():
 
 
 def rand_ext(sf, shape, seed):
-    """Seeded extension elements (*shape, d) as the port's int64 tensor."""
+    """Seeded extension elements (*shape, d) as the port's tensor (int64
+    Goldilocks, int32 BabyBear)."""
     d = sf.extension.extension_degree
     v = np.random.default_rng(seed).integers(0, sf.base.p, size=tuple(shape) + (d,),
                                              dtype=np.uint64)
-    return torch.from_numpy(v.view(np.int64))
+    return pack_words(v, get_ops(sf.extension).dtype)
 
 
 def jax_of(t, sf):

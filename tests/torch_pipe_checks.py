@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ministark_tpu_torch.ops import ntt
+from ministark_tpu_torch.ops.field import get_ops, pack_words
 from ministark_tpu_torch.ops import ntt_pipe as pp
 
 U64 = 1 << 64
@@ -20,10 +21,11 @@ LEVEL_SHAPES = [(5, 7, 0), (6, 6, 2), (7, 5, 3), (8, 5, 0), (9, 4, 1), (6, 2, 0)
 
 
 def _values(field, shape, seed):
-    """Seeded canonical values with 0 and p - 1 up front."""
+    """Seeded canonical values with 0 and p - 1 up front, in the field's
+    dtype (int64 Goldilocks, int32 BabyBear)."""
     v = np.random.default_rng(seed).integers(0, field.p, size=shape, dtype=np.uint64)
     v.reshape(-1)[:2] = [0, field.p - 1]
-    return torch.from_numpy(v.view(np.int64))
+    return pack_words(v, get_ops(field).dtype)
 
 
 def replay_matches_plain(log_f, log_r, log_k, shift, field):
