@@ -236,7 +236,7 @@ def kernel_rooflines(device="cuda", shrink: int = 0):
     nt = cut(21, 10)
     comps = _rand_gl(rng, (nt, 4), dev)
     work = [sum(w) for w in zip(rf.rows_work(nt, 4), rf.tree_work(nt, 4))]
-    entry("sha_tree_2^21x4_arity4", lambda: _build_digests(comps, 4), 5, work,
+    entry("sha_tree_2^21x4_arity4", lambda: _build_digests(comps, 4, torch.int64), 5, work,
           lambda ms: ms, "ms", [nt, 4])
     return results
 

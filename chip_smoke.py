@@ -43,7 +43,10 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                product by a base scalar on gl_mul) at 2^21 elements, with a
                broadcast, a strided and a CPU-scalar case each, device ms
                and bound_frac, one call and one launch through the op the
-               provers call
+               provers call; a row's device ms is timed with its operands
+               out of L2 (as its bound counts their bytes), beside its
+               warm_device_ms; every BabyBear wrapper refuses an int64
+               operand (int64_refused)
   4. parity    the engine on the card proves Fibonacci steps 9 and 61 over
                Goldilocks and steps 7 and 13 over BabyBear, with
                DEVICE_MIN_SIZE 1 and 32; byte-identical to the host oracle
@@ -488,8 +491,11 @@ def make_compare(results):
     the kernel's output against its plain version's on the same inputs
     (exact), then both timed (and ``library``, one PyTorch call computing
     the same function, where there is one; with ``device``, the kernel's
-    device_ms and bound_frac), into ``results[name]`` unless ``name`` is a
-    whole transform; returns that record (None for a whole transform)."""
+    device_ms with its operands out of L2 (``rf.cold_device_ms``), as the
+    bound counts their bytes, warm_device_ms with them left in L2 by the
+    call before, and the bound_frac of device_ms), into ``results[name]``
+    unless ``name`` is a whole transform; returns that record (None for a
+    whole transform)."""
     import torch
 
     def compare(name, label, kern, plain, work, reps=5, plain_reps=2, library=None,
@@ -506,9 +512,10 @@ def make_compare(results):
         lms = None if library is None else timed(library, reps)
         bms, by = rf.bound(*work)
         split = rf.split_ms(kern, reps) if name in SPLIT_TIMED else {}
-        if device:                  # the card's time alone, and the share of it
-            dms = rf.device_ms(kern, reps)
-            split.update(device_ms=dms, bound_frac=bms / dms)
+        if device:      # the card's time alone, operands from device memory
+            dms = rf.cold_device_ms(kern, reps)       # (not L2), and the share of it
+            split.update(device_ms=dms, warm_device_ms=rf.device_ms(kern, reps),
+                         bound_frac=bms / dms)
         say("kernels", f"{name} {label}: equal (tolerance 0), kernel "
                        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
                        f"({by})" + ("" if lms is None else f", library {lms:.3f} ms")
@@ -752,7 +759,7 @@ def phase_kernels(results):
     for C in (48, 8, 192):
         comps = _rand_u64(rng, (1 << 19, C), F.p)
         compare("sha256_rows", f"2^19 rows, C {C}",
-                lambda: sh.binary_row_digests_cuda(comps),
+                lambda: sh.binary_row_digests_cuda(comps, torch.int64),
                 lambda: sh.binary_row_digests_plain(comps),
                 rf.rows_work(1 << 19, C), reps=5, plain_reps=1)
 
@@ -763,6 +770,7 @@ def phase_kernels_bb(results):
     batches of 4 components per polynomial), the 10-digit leaf hash in
     formats 0 and 2, and the BabyBear row-leaf width."""
     import numpy as np
+    import torch
 
     from ministark_tpu_torch.fields import BABYBEAR_FP as F
     from ministark_tpu_torch.ops import sha256 as sh
@@ -803,7 +811,7 @@ def phase_kernels_bb(results):
     # over 2^19 coset rows
     comps = _rand_bb(rng, (1 << 19, 96), F.p)
     compare("sha256_rows", "2^19 rows, C 96 (BabyBear witness group)",
-            lambda: sh.binary_row_digests_cuda(comps),
+            lambda: sh.binary_row_digests_cuda(comps, torch.int32),
             lambda: sh.binary_row_digests_plain(comps),
             rf.rows_work(1 << 19, 96, 4), reps=5, plain_reps=1)
     _check_int64_refused()
@@ -824,6 +832,7 @@ def _check_int64_refused():
     from ministark_tpu_torch.ops import ntt
     from ministark_tpu_torch.ops import ntt_four_step as fs
     from ministark_tpu_torch.ops import ntt_pipe as pp
+    from ministark_tpu_torch.ops import sha256 as sh
     from ministark_tpu_torch.ops.field import get_ops
 
     n = 1 << 14
@@ -844,7 +853,9 @@ def _check_int64_refused():
              ("ms_pow_dot_bb4", lambda: ds.pow_dot_cuda(k4, e64, z64)),
              ("ms_div_scan_bb4", lambda: ds.div_scan_cuda(k4, e64, z64, z64)),
              ("ms_first_match_bb", lambda: pt.first_match_cuda(
-                 e64.reshape(-1, 4).to(torch.int32), e64[0, :2].contiguous()))]
+                 e64.reshape(-1, 4), e64[0, :2].contiguous(), k4.dtype)),
+             ("ms_sha256_rows_bb", lambda: sh.binary_row_digests_cuda(
+                 e64.reshape(-1, 4), k4.dtype))]
     before = read_counts()[0]
     for name, call in cases:
         try:
@@ -1384,7 +1395,7 @@ def phase_kernels_first_match(results):
     race = []
     for label, n, C, q, p in cases:
         comps, rows, want = _planted_search(rng, n, C, q, p)
-        kern = lambda: pt.first_match_cuda(comps, rows)   # noqa: E731
+        kern = lambda: pt.first_match_cuda(comps, rows, comps.dtype)   # noqa: E731
         got = kern().cpu()
         if not torch.equal(got, want):
             fail(f"first_match {label}: {got.tolist()} against the planted "
@@ -1402,7 +1413,8 @@ def phase_kernels_first_match(results):
         if n == n21 and C == 2:
             race.append((label, comps, rows, want))
     for label, comps, rows, want in race:
-        outs = [pt.first_match_cuda(comps, rows) for _ in range(FIRST_MATCH_RACE_CALLS)]
+        outs = [pt.first_match_cuda(comps, rows, torch.int64)
+                for _ in range(FIRST_MATCH_RACE_CALLS)]
         bad = [i for i, o in enumerate(outs) if not torch.equal(o.cpu(), want)]
         if bad:
             fail(f"first_match {label}: calls {bad} of {FIRST_MATCH_RACE_CALLS} back "
@@ -1413,7 +1425,7 @@ def phase_kernels_first_match(results):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = pt.first_match_cuda(comps, rows)
+        got = pt.first_match_cuda(comps, rows, torch.int64)
     for i in range(FIRST_MATCH_GRAPH_REPLAYS):
         got.zero_()
         graph.replay()
@@ -2247,8 +2259,11 @@ def _sharded_full(mesh):
     out["constrain_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
     rows = rand(SHARDED_ROWS)
     dist.barrier()
-    a, ms = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"], mesh), dev)
-    b, ms1 = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"]), dev)
+    dtype = get_ops(base).dtype
+    a, ms = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"], mesh,
+                                                   dtype=dtype), dev)
+    b, ms1 = _sharded_timed(lambda: IndexMerkleTree(rows, FAST_CFG["arity"], dtype=dtype),
+                            dev)
     out["index_tree"] = (bool(torch.equal(a._digests, b._digests)), ms, ms1)
 
     # the sharded prove core (path sharded_core) against the single core

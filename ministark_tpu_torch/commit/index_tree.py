@@ -33,11 +33,11 @@ from ..parallel.merkle_sharded import gather_levels, local_rows
 from ..parallel.mesh import owner_select
 
 
-def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
-    """(n, C) int64 (or int32 BabyBear) rows -> (n_nodes, 8) int32 digests of every level,
-    leaves first, root last: one row-leaf call, then one inner-level call
-    per level."""
-    levels = [binary_row_digests(comps)]
+def _build_digests(comps: torch.Tensor, arity: int, dtype: torch.dtype) -> torch.Tensor:
+    """(n, C) rows in the field's storage ``dtype`` (int64 Goldilocks, int32
+    BabyBear) -> (n_nodes, 8) int32 digests of every level, leaves first,
+    root last: one row-leaf call, then one inner-level call per level."""
+    levels = [binary_row_digests(comps, dtype)]
     cur = levels[0]
     while cur.shape[0] > 1:
         cur = inner_level(cur, min(arity, cur.shape[0]))
@@ -45,12 +45,12 @@ def _build_digests(comps: torch.Tensor, arity: int) -> torch.Tensor:
     return torch.cat(levels, 0) if len(levels) > 1 else levels[0]
 
 
-def _local_levels(block: torch.Tensor, arity: int) -> List[torch.Tensor]:
+def _local_levels(block: torch.Tensor, arity: int, dtype: torch.dtype) -> List[torch.Tensor]:
     """A rank's (n/D, C) block of rows -> its local levels: the row digests,
     then fan ``arity`` while the level's size divides the fan (every rank
     holds the same power-of-two node count, so local blocks stay
     group-aligned), as ``ministark_tpu/commit/index_tree.py:91-95``."""
-    levels = [binary_row_digests(block)]
+    levels = [binary_row_digests(block, dtype)]
     while levels[-1].shape[0] % arity == 0:
         levels.append(inner_level(levels[-1], arity))
     return levels
@@ -64,12 +64,13 @@ def _top_levels(level: torch.Tensor, arity: int) -> List[torch.Tensor]:
     return levels
 
 
-def _build_digests_sharded(comps: torch.Tensor, arity: int, mesh) -> torch.Tensor:
+def _build_digests_sharded(comps: torch.Tensor, arity: int, mesh,
+                           dtype: torch.dtype) -> torch.Tensor:
     """``_build_digests`` over a mesh, the whole rows on every rank, the same
     digests and layout: each rank's local levels of its contiguous block,
     one gather of them all, then the top levels replicated (STIR's and
     WHIR's trees)."""
-    levels = gather_levels(mesh, _local_levels(local_rows(mesh, comps), arity))
+    levels = gather_levels(mesh, _local_levels(local_rows(mesh, comps), arity, dtype))
     return torch.cat(levels[:-1] + _top_levels(levels[-1], arity), 0)
 
 
@@ -82,6 +83,12 @@ def _level_sizes(n_leaves: int, arity: int) -> List[int]:
     return sizes
 
 
+def _check_dtype(comps: torch.Tensor, dtype: torch.dtype):
+    if comps.dtype != dtype:
+        raise ValueError(f"an index tree over a field held in {dtype} takes {dtype} "
+                         f"rows, got {comps.dtype}")
+
+
 @dataclass
 class IndexMerklePath:
     """Opening of one leaf: its row bytes + per-level sibling digest groups
@@ -92,12 +99,15 @@ class IndexMerklePath:
 
 
 class IndexMerkleTree:
-    def __init__(self, comps: torch.Tensor, arity: int = 2, mesh=None):
-        """comps: (n, C) tensor of row components (int64 u64 patterns, or int32 BabyBear), n a power of
-        two; the tree is built on its device. ``mesh``: a
-        ``parallel.Mesh``, the whole rows on every rank; the build shards
-        when n splits over it (the same digests)."""
+    def __init__(self, comps: torch.Tensor, arity: int = 2, mesh=None, *,
+                 dtype: torch.dtype):
+        """comps: (n, C) tensor of row components in the field's storage
+        ``dtype`` (int64 Goldilocks u64 patterns, int32 BabyBear; another
+        dtype raises), n a power of two; the tree is built on its device.
+        ``mesh``: a ``parallel.Mesh``, the whole rows on every rank; the
+        build shards when n splits over it (the same digests)."""
         assert arity >= 2 and arity & (arity - 1) == 0
+        _check_dtype(comps, dtype)
         n = int(comps.shape[0])
         assert n & (n - 1) == 0, "leaf count must be a power of two"
         self.arity = arity
@@ -106,9 +116,9 @@ class IndexMerkleTree:
         self.offsets = np.concatenate([[0], np.cumsum(self.sizes)])
         self._comps = comps.contiguous()
         if mesh is not None and n % mesh.size == 0 and n > mesh.size:
-            self._digests = _build_digests_sharded(self._comps, arity, mesh)
+            self._digests = _build_digests_sharded(self._comps, arity, mesh, dtype)
         else:
-            self._digests = _build_digests(self._comps, arity)
+            self._digests = _build_digests(self._comps, arity, dtype)
         self._root = None
 
     def root(self) -> bytes:
@@ -177,8 +187,9 @@ class BlockIndexTree(IndexMerkleTree):
     the one-device tree's. ``open_many`` is a collective: every rank calls
     it alike."""
 
-    def __init__(self, block: torch.Tensor, arity: int, mesh):
+    def __init__(self, block: torch.Tensor, arity: int, mesh, *, dtype: torch.dtype):
         assert arity >= 2 and arity & (arity - 1) == 0
+        _check_dtype(block, dtype)
         n_loc = int(block.shape[0])
         n = n_loc * mesh.size
         if n_loc == 0 or n & (n - 1):
@@ -187,7 +198,7 @@ class BlockIndexTree(IndexMerkleTree):
         self.n_leaves = n
         self.sizes = _level_sizes(n, arity)
         self._comps = block.contiguous()
-        local = _local_levels(self._comps, arity)
+        local = _local_levels(self._comps, arity, dtype)
         # the local levels below the top one, which goes into the gather,
         # concatenated
         self._local_sizes = [lv.shape[0] for lv in local[:-1]]

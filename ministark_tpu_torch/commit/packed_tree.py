@@ -118,15 +118,19 @@ def _match_scratch_for(device):
     return buf
 
 
-def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
     """CUDA kernel (csrc/leaf_search.cu ``ms_first_match``), same contract
     as ``_first_match_find_plain``: every element read once, one launch for
     up to MATCH_MAX_ROWS rows (one a chunk beyond); no rows, no launch.
+    ``dtype`` is the tree's field's storage and picks the kernel: int64
+    (Goldilocks, ``ms_first_match``) or int32 (BabyBear,
+    ``ms_first_match_bb``: 4-byte words, an Fp4 row one 16-byte load).
     ``comps`` (n, C) and ``rows`` (q, C): contiguous on one CUDA device,
-    both int64 (Goldilocks, ``ms_first_match``) or both int32 (BabyBear,
-    ``ms_first_match_bb``: 4-byte words, an Fp4 row one 16-byte load), C
-    1, 2 or 4, n < 2^31 - 1; raises on anything else."""
-    dtype = torch.int32 if comps.dtype == torch.int32 else torch.int64
+    both of ``dtype``, C 1, 2 or 4, n < 2^31 - 1; raises on anything
+    else."""
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"first_match: a field is held in int32 or int64, not {dtype}")
     cuda.require(comps, "first_match comps", dtype, 2)
     n, C = comps.shape
     if rows.device != comps.device or rows.dim() != 2 or rows.shape[1] != C:
@@ -157,14 +161,19 @@ def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _first_match_find(comps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def _first_match_find(comps: torch.Tensor, rows: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
     """(q,) first indices where (n, C) ``comps`` equals each of (q, C)
-    ``rows``; n where absent (§8.6), un-pulled. Dispatch by device: CPU
-    tensors -> ``_first_match_find_plain``; a CUDA tensor ->
+    ``rows``; n where absent (§8.6), un-pulled. Both hold the field's
+    storage ``dtype``; another raises, on the CPU too. Dispatch by device:
+    CPU tensors -> ``_first_match_find_plain``; a CUDA tensor ->
     ``first_match_cuda``, the kernel, or raise."""
     if comps.device.type == "cpu" and rows.device.type == "cpu":
+        if comps.dtype != dtype or rows.dtype != dtype:
+            raise ValueError(f"first_match: comps {comps.dtype} and rows {rows.dtype} "
+                             f"for a field held in {dtype}")
         return _first_match_find_plain(comps, rows)
-    return first_match_cuda(comps, rows.contiguous())
+    return first_match_cuda(comps, rows.contiguous(), dtype)
 class PackedMerkleTree:
     """Same commitment as commit/merkle.py MerkleTree, over a tensor."""
 
@@ -225,7 +234,8 @@ class PackedMerkleTree:
     def search_rows_async(self, rows: torch.Tensor) -> torch.Tensor:
         """First-occurrence indices of (q, comps) value rows, as an
         un-pulled (q,) tensor on the tree's device; n_leafs where absent."""
-        return _first_match_find(self._comps, rows.reshape(rows.shape[0], -1))
+        return _first_match_find(self._comps, rows.reshape(rows.shape[0], -1),
+                                 field_dtype(self.field))
 
     def _sibling_groups(self, idxs: List[int]):
         c = self.config.inner_children
@@ -332,7 +342,8 @@ class BlockMerkleTree(PackedMerkleTree):
         its block plus its offset, or n_leafs, then the least across the
         ranks (one gather)."""
         n_loc = self._comps.shape[0]
-        local = _first_match_find(self._comps, rows.reshape(rows.shape[0], -1))
+        local = _first_match_find(self._comps, rows.reshape(rows.shape[0], -1),
+                                  field_dtype(self.field))
         found = torch.where(local < n_loc, local + self._lo,
                             torch.full_like(local, self.n_leafs))
         return min_over_ranks(self.mesh, found)

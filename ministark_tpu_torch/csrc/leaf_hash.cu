@@ -11,10 +11,10 @@
 //   fmt 2: "QuadExtField(QuadExtField(<c00> + <c01> * u) + "
 //          "QuadExtField(<c10> + <c11> * u) * u)"   (a BabyBear Fp4 element)
 //
-// max_digits is the caller's, chosen by field (20 for Goldilocks, 10 for
-// BabyBear, whose values lie below 2^31): with 10 the digits come from the
-// low 32 bits, as the JAX package's max_digits == 10 path reads only the low
-// word. The kernel never chooses the path by value.
+// The digit bound is the field's, by entry point: 20 for Goldilocks
+// (ms_leaf_hash), 10 for BabyBear (ms_leaf_hash_bb), whose values lie below
+// 2^31, as the JAX package's max_digits == 10 path. The kernel never chooses
+// the path by value.
 //
 // Bound on the H100: integer ALU throughput (one SHA-256 compression, ~1,370
 // operations, per 64-byte block, and ~4 per decimal digit, for 8-32 bytes
@@ -37,11 +37,10 @@
 //   longest lane, the shorter lanes masked at their end.
 // - Digits: a u64 is split once by 10^10 (a 64-bit divide by a constant) and
 //   the remainder by 10^5 on 32 bits, then 32-bit divide-by-10 ladders of at
-//   most 10, 5 and 5 steps. The 10-digit path is one 32-bit ladder over the
-//   low word.
+//   most 10, 5 and 5 steps. The 10-digit path is one 32-bit ladder.
 //
-// Storage: ms_leaf_hash reads Goldilocks' 64-bit components (20 digits, or
-// 10 over the low word), ms_leaf_hash_bb BabyBear's 32-bit ones (int32
+// Storage: ms_leaf_hash reads Goldilocks' 64-bit components (int64
+// tensors, 20 digits), ms_leaf_hash_bb BabyBear's 32-bit ones (int32
 // tensors, 10 digits); the staging copy widens them to the same 64-bit
 // shared-memory words, so both run one kernel body.
 #include <cuda_runtime.h>
@@ -204,27 +203,16 @@ int launch(const Word* comps, uint32_t* out, int n_groups, int k,
 
 }  // namespace
 
-// comps: (n_groups * k, 1 / 2 / 4 for fmt 0 / 1 / 2) u64 components; out:
-// (n_groups, 8), 16-byte aligned; max_digits: 20 (u64 values) or 10 (values
-// below 2^32).
+// comps: (n_groups * k, 1 / 2 / 4 for fmt 0 / 1 / 2) Goldilocks
+// components, 64-bit words; out: (n_groups, 8), 16-byte aligned; 20 digits.
 extern "C" int ms_leaf_hash(const uint64_t* comps, uint32_t* out, int n_groups,
-                            int k, int fmt, int max_digits, void* stream) {
-  if (n_groups < 1 || k < 1 || fmt < 0 || fmt > 2 ||
-      (max_digits != 10 && max_digits != 20)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                            int k, int fmt, void* stream) {
+  if (n_groups < 1 || k < 1 || fmt < 0 || fmt > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_digits == 20) {
-    switch (fmt) {
-      case 0: return launch<0, 20, uint64_t>(comps, out, n_groups, k, s);
-      case 1: return launch<1, 20, uint64_t>(comps, out, n_groups, k, s);
-      default: return launch<2, 20, uint64_t>(comps, out, n_groups, k, s);
-    }
-  }
   switch (fmt) {
-    case 0: return launch<0, 10, uint64_t>(comps, out, n_groups, k, s);
-    case 1: return launch<1, 10, uint64_t>(comps, out, n_groups, k, s);
-    default: return launch<2, 10, uint64_t>(comps, out, n_groups, k, s);
+    case 0: return launch<0, 20, uint64_t>(comps, out, n_groups, k, s);
+    case 1: return launch<1, 20, uint64_t>(comps, out, n_groups, k, s);
+    default: return launch<2, 20, uint64_t>(comps, out, n_groups, k, s);
   }
 }
 

@@ -75,8 +75,8 @@ __global__ void __launch_bounds__(THREADS)
     first_match_kernel(const Word* __restrict__ comps, const Word* __restrict__ rows,
                        int64_t* __restrict__ out, unsigned* __restrict__ scratch, int n,
                        int q) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  Word* srow = reinterpret_cast<Word*>(smem_bytes);      // q * C row words
+  extern __shared__ int64_t smem[];                      // 8-byte aligned for both words
+  Word* srow = reinterpret_cast<Word*>(smem);            // q * C row words
   unsigned* smin = reinterpret_cast<unsigned*>(srow + q * C);   // q minima
   __shared__ bool last;
   for (int j = threadIdx.x; j < q * C; j += THREADS) srow[j] = rows[j];

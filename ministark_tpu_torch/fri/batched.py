@@ -237,7 +237,8 @@ class BatchedFri:
     def _tree(self, rows: torch.Tensor) -> IndexMerkleTree:
         """(N/F, ..., d) coset rows -> tree over their u64 components, on
         one device."""
-        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity)
+        return IndexMerkleTree(rows.reshape(rows.shape[0], -1), self.cfg.arity,
+                               dtype=self.ke.dtype)
 
     def _transcript(self, b: int, n: int) -> FastTranscript:
         tr = FastTranscript(b"batched-fri")
@@ -300,7 +301,8 @@ class BatchedFri:
                     offset: int = None) -> BlockIndexTree:
         """The tree over this rank's coset rows of ``_block_coset_rows``."""
         cr = self._block_coset_rows(block, N, rows.mesh, offset)
-        return BlockIndexTree(cr.reshape(cr.shape[0], -1), self.cfg.arity, rows.mesh)
+        return BlockIndexTree(cr.reshape(cr.shape[0], -1), self.cfg.arity, rows.mesh,
+                              dtype=self.ke.dtype)
 
     def _whole(self, block: torch.Tensor, rows: Rows) -> torch.Tensor:
         """This rank's (m/D, d) block -> the whole (m, d) on every rank: the

@@ -61,9 +61,9 @@ _SIGNATURES = {
     "ms_sha256_inner_level": [_P, _P, _I, _I, _P],
     # comps, digests, n_rows, C, stream; _bb: 32-bit components
     "ms_sha256_rows": [_P, _P, _I, _I, _P], "ms_sha256_rows_bb": [_P, _P, _I, _I, _P],
-    # comps, digests, n_groups, leafs_per_node, fmt, max_digits, stream
-    "ms_leaf_hash": [_P, _P, _I, _I, _I, _I, _P],
-    # the same over 32-bit BabyBear components, 10 digits: no max_digits
+    # comps, digests, n_groups, leafs_per_node, fmt, stream: 64-bit
+    # Goldilocks components, 20 digits; _bb: 32-bit BabyBear ones, 10
+    "ms_leaf_hash": [_P, _P, _I, _I, _I, _P],
     "ms_leaf_hash_bb": [_P, _P, _I, _I, _I, _P],
     # a, b, out, plan (int64[ops/field.py::PLAN_LEN]), stream
     "ms_gl_mul": [_P, _P, _P, _I64P, _P],

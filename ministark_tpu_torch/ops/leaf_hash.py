@@ -170,8 +170,7 @@ def leaf_hash_cuda(comps: torch.Tensor, leafs_per_node: int, fmt: int,
                                       leafs_per_node, fmt, cuda.stream_ptr(comps))
         else:
             err = lib.ms_leaf_hash(comps.data_ptr(), out.data_ptr(), G,
-                                   leafs_per_node, fmt, max_digits,
-                                   cuda.stream_ptr(comps))
+                                   leafs_per_node, fmt, cuda.stream_ptr(comps))
         cuda.check("leaf_hash", err)
         launches[max_digits] += 1
     return out

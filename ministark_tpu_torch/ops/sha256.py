@@ -201,7 +201,7 @@ def inner_level_cuda(digests: torch.Tensor, fan: int = 2) -> torch.Tensor:
     return out
 
 
-def binary_row_digests_cuda(comps: torch.Tensor) -> torch.Tensor:
+def binary_row_digests_cuda(comps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """CUDA kernel (csrc/sha256.cu), same contract as
     ``binary_row_digests_plain``.
 
@@ -212,11 +212,13 @@ def binary_row_digests_cuda(comps: torch.Tensor) -> torch.Tensor:
     card: integer ALU throughput ((8C + 9 + 63) // 64 compressions per
     8C or 4C bytes read).
 
-    The components' dtype is the field's storage: int64 takes
+    ``dtype`` is the tree's field's storage and picks the kernel: int64
     ``ms_sha256_rows`` (Goldilocks), int32 ``ms_sha256_rows_bb`` (BabyBear:
-    4-byte words, the preimage's high word 0); any other dtype raises."""
+    4-byte words, the preimage's high word 0); components of another dtype
+    raise."""
     global row_launches
-    dtype = torch.int32 if comps.dtype == torch.int32 else torch.int64
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"sha256_rows: a field is held in int32 or int64, not {dtype}")
     cuda.require(comps, "sha256_rows", dtype, 2)
     _check_rows(comps)
     n, C = comps.shape
@@ -237,11 +239,16 @@ def inner_level(digests: torch.Tensor, fan: int = 2) -> torch.Tensor:
     return inner_level_cuda(digests, fan)
 
 
-def binary_row_digests(comps: torch.Tensor) -> torch.Tensor:
-    """Dispatch by device: CPU -> plain version, CUDA -> kernel (or raise)."""
+def binary_row_digests(comps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Dispatch by device: CPU -> plain version, CUDA -> kernel (or raise);
+    components of another dtype than the field's storage ``dtype`` raise,
+    on the CPU too."""
     if comps.device.type == "cpu":
+        if comps.dtype != dtype:
+            raise ValueError(f"sha256_rows: {comps.dtype} components for a field "
+                             f"held in {dtype}")
         return binary_row_digests_plain(comps)
-    return binary_row_digests_cuda(comps)
+    return binary_row_digests_cuda(comps, dtype)
 
 
 def merkle_inner_levels(leaf_digests: torch.Tensor) -> torch.Tensor:

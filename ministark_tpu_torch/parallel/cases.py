@@ -215,8 +215,8 @@ def index_tree(mesh, comps, arity):
     from ..commit.index_tree import _build_digests, _build_digests_sharded
 
     c = _t(mesh, comps)
-    return (_build_digests_sharded(c, arity, mesh).cpu().numpy(),
-            _build_digests(c, arity).cpu().numpy())
+    return (_build_digests_sharded(c, arity, mesh, c.dtype).cpu().numpy(),
+            _build_digests(c, arity, c.dtype).cpu().numpy())
 
 
 def _trace(model, sf, steps, device):
@@ -407,12 +407,12 @@ def block_index_tree(mesh, rows, arity, idxs):
 
     c = _t(mesh, rows)
     out = {}
-    block = BlockIndexTree(Rows(mesh, c.shape[0]).take(c), arity, mesh)
+    block = BlockIndexTree(Rows(mesh, c.shape[0]).take(c), arity, mesh, dtype=c.dtype)
     sizes = block._local_sizes
     local = gather_levels(mesh, list(torch.split(block._local, sizes))) if sizes else []
     for key, tree, digests in (
             ("block", block, torch.cat(local + block._top, 0)),
-            ("single", IndexMerkleTree(c, arity), None)):
+            ("single", IndexMerkleTree(c, arity, dtype=c.dtype), None)):
         digests = tree._digests if digests is None else digests
         out[key] = (tree.root(), digests.cpu().numpy(),
                     [(p.row, tuple(p.groups)) for p in tree.open_many(list(idxs))])

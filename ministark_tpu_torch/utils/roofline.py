@@ -43,14 +43,20 @@ OPS_FP2_MUL = 4 * OPS_GL_MUL + 3 * 8 + 2 * 5
 # add or a sub is 3 (add, compare, select)
 OPS_BB_MUL = 2 + 12 + 2 + 2
 OPS_BB_BUTTERFLY = OPS_BB_MUL + 3 + 3
-# BabyBear Fp2 (u^2 = 11, ext_field.cuh's bb4::fp2_mul): four products (the
-# three Karatsuba ones and 11 v1) and five adds or subs
-OPS_BB_FP2_MUL = 4 * OPS_BB_MUL + 5 * 3
-# BabyBear Fp4 (ext_field.cuh's bb4::mul, Karatsuba over Fp2): three Fp2
-# products; the nonresidue (k + u) times v1 = (x0 + x1 u), k = p - 11 = -11:
-# (11 x1 - 11 x0) + (x0 - 11 x1) u, two base products and two subs; four adds
-# forming the Karatsuba sums and six adds or subs forming the result
-OPS_FP4_MUL = 3 * OPS_BB_FP2_MUL + (2 * OPS_BB_MUL + 2 * 3) + 4 * 3 + 6 * 3
+# BabyBear Fp4 (ext_field.cuh's bb4::mul, Karatsuba over Fp2), counted in
+# instructions of the compiled kernel, one an operation: 9 products (three
+# a Karatsuba Fp2 product, three Fp2 products) and 5 by the constant 11
+# (11 v1 in each Fp2 product; the nonresidue (k + u) times (x0 + x1 u), k =
+# p - 11 = -11, is (11 x1 - 11 x0) + (x0 - 11 x1) u), each the Barrett step
+# of bb.cuh as compiled: about 6 IMADs (the product, the multiply-high by
+# the constant M, the multiply-subtract), one ISETP and one add (8); 27
+# adds and subs (5 in each Fp2 product, 2 at the nonresidue, 4 Karatsuba
+# sums, 6 in the result) of an add, an ISETP and a conditional add (3).
+# bb_fp4_mul_kernel<1, true, uint32_t>'s SASS (scripts/torch_sass_mix.py
+# --match bb_fp4_mul on the H100) agrees: 217 integer instructions, its
+# loop's addressing and set-up included, of which 90 IMAD and 43 ISETP (41
+# products, adds and subs, the loop's bound and the thread's)
+OPS_FP4_MUL = 14 * 8 + 27 * 3
 # an extension product by the kernels' suffix: Goldilocks Fp2, BabyBear Fp4
 EXT_MUL_OPS = {"gl2": OPS_FP2_MUL, "bb4": OPS_FP4_MUL}
 EXT_K = {"gl2": 2, "bb4": 4}
@@ -153,6 +159,49 @@ def device_ms(fn, reps: int) -> float:
         sleep_ms *= 2
         if sleep_ms > MAX_SLEEP_MS:
             raise RuntimeError("device_ms: the calls do not queue behind a device "
+                               f"sleep of {MAX_SLEEP_MS} ms (a call waits for the device)")
+
+
+# a read of four times the H100's 50 MB L2 between calls leaves none of a
+# call's operands there
+L2_FLUSH_BYTES = 4 * 50 * 2**20
+_flush_bufs = {}
+
+
+def cold_device_ms(fn, reps: int) -> float:
+    """Mean device ms per call with the call's operands in device memory and
+    not in L2, as a bound by bytes counts them: before each call the card
+    reads L2_FLUSH_BYTES of another buffer (clean lines: no write-back falls
+    into the call), and CUDA events around each call alone time it. The
+    calls are enqueued behind a device sleep, as in ``device_ms``, so that
+    no host time falls between a call's events."""
+    dev = torch.cuda.current_device()
+    buf = _flush_bufs.get(dev)
+    if buf is None:
+        buf = _flush_bufs[dev] = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                                            device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    sleep_ms = 1.0 + 0.2 * reps
+    while True:
+        torch.cuda._sleep(int(sleep_ms * 2e6))        # ~2e6 cycles a ms
+        t0 = time.perf_counter()
+        events = []
+        for _ in range(reps):
+            buf.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms < sleep_ms / 2:
+            return sum(s.elapsed_time(e) for s, e in events) / reps
+        sleep_ms *= 2
+        if sleep_ms > MAX_SLEEP_MS:
+            raise RuntimeError("cold_device_ms: the calls do not queue behind a device "
                                f"sleep of {MAX_SLEEP_MS} ms (a call waits for the device)")
 
 

@@ -23,7 +23,7 @@ from ministark_tpu_torch.commit import index_tree, packed_tree
 from ministark_tpu_torch.convert import from_jax_packed, to_jax_packed
 from ministark_tpu_torch.fields import BABYBEAR_FP, BABYBEAR_FP4, BabyBear
 from ministark_tpu_torch.models.fibonacci_device import fibonacci_device_trace
-from ministark_tpu_torch.ops import bb, ntt
+from ministark_tpu_torch.ops import bb, ntt, sha256
 from ministark_tpu_torch.ops.field import get_ops, pack_words, unpack_u64
 from ministark_tpu_torch.stark import StarkConfig
 from ministark_tpu_torch.stark.fast import FastStark, FastStarkConfig
@@ -210,6 +210,40 @@ def test_int64_babybear_is_refused_by_the_trees_and_lift():
         lift_base_array(get_ops(BABYBEAR_FP4), torch.arange(8))
 
 
+_ROWS64 = torch.arange(32, dtype=torch.int64).reshape(8, 4)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: index_tree.IndexMerkleTree(_ROWS64, 2, dtype=torch.int32),
+    lambda: index_tree.BlockIndexTree(_ROWS64, 2, None, dtype=torch.int32),
+    lambda: sha256.binary_row_digests(_ROWS64, torch.int32),
+    lambda: packed_tree._first_match_find(_ROWS64, _ROWS64[:2], torch.int32),
+    lambda: packed_tree._first_match_find(_ROWS64.to(torch.int32), _ROWS64[:2],
+                                          torch.int32),
+], ids=["index_tree", "block_index_tree", "row_digests", "search", "search_rows"])
+def test_int64_babybear_is_refused_by_the_index_tree_and_search(call):
+    """The index trees, the row hash and the value search take the field's
+    storage from their caller and refuse int64 operands for BabyBear on the
+    CPU as the kernels do on the card: no cast, no dtype read off the
+    operand."""
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_babybear_tree_search_refuses_int64_rows():
+    """A BabyBear ``PackedMerkleTree`` searches in int32: int64 query rows
+    raise, int32 ones find their first occurrence."""
+    from ministark_tpu_torch.commit.merkle import MerkleTreeConfig
+
+    cfg = MerkleTreeConfig(leafs_per_node=2, inner_children=2)
+    vals = torch.tensor([5, 7, 5, 9, 11, 7, 3, 1], dtype=torch.int32)
+    tree = packed_tree.PackedMerkleTree(BABYBEAR_FP, vals, cfg)
+    rows = torch.tensor([[7], [3]], dtype=torch.int32)
+    assert tree.search_rows_async(rows).tolist() == [1, 6]
+    with pytest.raises(ValueError):
+        tree.search_rows_async(rows.to(torch.int64))
+
+
 def _spy(monkeypatch, module, name, seen, label):
     real = getattr(module, name)
 
@@ -257,9 +291,9 @@ def test_fast_prove_is_int32_throughout(monkeypatch):
     _spy(monkeypatch, ntt, "transform_plain", seen, "ntt")
     real_rows = index_tree.binary_row_digests
 
-    def rows(comps):
+    def rows(comps, dtype):
         seen.append(("tree rows", comps.dtype))
-        return real_rows(comps)
+        return real_rows(comps, dtype)
 
     monkeypatch.setattr(index_tree, "binary_row_digests", rows)
     steps = (1 << 10) - 1

@@ -322,7 +322,8 @@ def test_inner_level_kernel_matches_plain_at_every_fan(dev, fan, parents):
 @pytest.mark.parametrize("C", [1, 6, 7, 8, 9, 40, 48, 192])
 def test_row_kernel_matches_plain(dev, C):
     c = _rand((3001, C), C).to(dev)
-    assert torch.equal(sh.binary_row_digests_cuda(c), sh.binary_row_digests_plain(c))
+    assert torch.equal(sh.binary_row_digests_cuda(c, torch.int64),
+                       sh.binary_row_digests_plain(c))
 
 
 def test_fast_stark_on_card_matches_golden(dev):
@@ -442,7 +443,10 @@ def test_leaf_hash_bb_kernel_matches_plain(dev, fmt, k):
 @pytest.mark.parametrize("C", [16, 96, 384])
 def test_row_kernel_bb_widths_match_plain(dev, C):
     c = _rand_bb((3001, C), C).to(dev)
-    assert torch.equal(sh.binary_row_digests_cuda(c), sh.binary_row_digests_plain(c))
+    assert torch.equal(sh.binary_row_digests_cuda(c, torch.int32),
+                       sh.binary_row_digests_plain(c))
+    with pytest.raises(ValueError):          # the BabyBear kernel takes int32 only
+        sh.binary_row_digests_cuda(c.to(torch.int64), torch.int32)
 
 
 def test_babybear_engine_on_card_matches_host(dev, monkeypatch):
@@ -768,11 +772,11 @@ def test_first_match_kernel_matches_plain(dev, C, n):
     for r in (rows, rows.repeat(11, 1)[:64], rows.repeat(172, 1)[:1030]):
         want = pt._first_match_find_plain(comps, r)
         before = pt.launches["first_match"]
-        got = pt._first_match_find(comps.to(dev), r.to(dev))
+        got = pt._first_match_find(comps.to(dev), r.to(dev), torch.int64)
         assert pt.launches["first_match"] - before == -(-r.shape[0] // pt.MATCH_MAX_ROWS)
         assert torch.equal(got.cpu(), want)
     before = pt.launches["first_match"]
-    assert pt._first_match_find(comps.to(dev), rows[:0].to(dev)).shape == (0,)
+    assert pt._first_match_find(comps.to(dev), rows[:0].to(dev), torch.int64).shape == (0,)
     assert pt.launches["first_match"] == before
 
 
@@ -788,9 +792,12 @@ def test_first_match_bb_kernel_matches_plain(dev, C, n):
     comps, rows = torch.from_numpy(comps[:n].copy()), torch.from_numpy(rows.copy())
     want = pt._first_match_find_plain(comps, rows)
     before = pt.launches["first_match"]
-    got = pt._first_match_find(comps.to(dev), rows.to(dev))
+    got = pt._first_match_find(comps.to(dev), rows.to(dev), torch.int32)
     assert pt.launches["first_match"] - before == 1
     assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError):          # the BabyBear kernel takes int32 only
+        pt.first_match_cuda(comps.to(dev).to(torch.int64), rows.to(dev).to(torch.int64),
+                            torch.int32)
 
 
 def test_first_match_race_and_graph(dev):
@@ -802,12 +809,12 @@ def test_first_match_race_and_graph(dev):
     comps, rows = _planted_comps(1 << 21, 2, 50)
     want = pt._first_match_find_plain(comps, rows)
     c, r = comps.to(dev), rows.to(dev)
-    outs = [pt.first_match_cuda(c, r) for _ in range(50)]
+    outs = [pt.first_match_cuda(c, r, torch.int64) for _ in range(50)]
     assert all(torch.equal(o.cpu(), want) for o in outs)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = pt.first_match_cuda(c, r)
+        got = pt.first_match_cuda(c, r, torch.int64)
     for _ in range(3):
         got.zero_()
         graph.replay()
@@ -824,7 +831,7 @@ def test_first_match_wrapper_refuses(dev):
                 (_planted_comps(64, 3, 1)[0].to(dev), _planted_comps(64, 3, 1)[1].to(dev)),
                 (c.reshape(-1)[1:-1].reshape(63, 2), r)):
         with pytest.raises(ValueError):
-            pt.first_match_cuda(*bad)
+            pt.first_match_cuda(*bad, torch.int64)
 
 
 # ---- the sharded paths (parallel/): two ranks sharing this card in a gloo

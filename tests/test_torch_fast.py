@@ -96,7 +96,7 @@ def test_tree_matches_pallas_build():
     v = _u64((sp.MIN_LANES * 4, 8), 4)
     want = np.asarray(sp.build_digests_tr(jnp.asarray(_jax_comps(v)), 4,
                                           interpret=True))
-    tree = IndexMerkleTree(torch.from_numpy(v.view(np.int64)), 4)
+    tree = IndexMerkleTree(torch.from_numpy(v.view(np.int64)), 4, dtype=torch.int64)
     assert np.array_equal(tree._digests.numpy().view(np.uint32), want)
 
 
@@ -114,7 +114,7 @@ def test_index_tree_matches_jax(log_n, arity):
     n = 1 << log_n
     v = _u64((n, 8), log_n * arity)
     jc = _jax_comps(v)
-    tree = IndexMerkleTree(torch.from_numpy(v.view(np.int64)), arity)
+    tree = IndexMerkleTree(torch.from_numpy(v.view(np.int64)), arity, dtype=torch.int64)
     want = np.asarray(j_build_digests(jnp.asarray(jc), arity))
     assert np.array_equal(tree._digests.numpy().view(np.uint32), want)
     jtree = JTree(jc, arity)

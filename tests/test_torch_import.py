@@ -136,7 +136,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         sha256.inner_level_cuda(torch.zeros((8, 8), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
-        sha256.binary_row_digests_cuda(torch.zeros((4, 8), dtype=torch.int64))
+        sha256.binary_row_digests_cuda(torch.zeros((4, 8), dtype=torch.int64), torch.int64)
     with pytest.raises(ValueError):
         field.mul_cuda(x, x)
     y = torch.zeros((2, 1 << 14), dtype=torch.int64)

@@ -177,9 +177,10 @@ def test_first_match_dispatch_by_device():
     comps, rows = _case(2, 6, 2)
     c, r = _port(comps), _port(rows)
     before = dict(pt.calls), dict(pt.launches)
-    assert torch.equal(pt._first_match_find(c, r), pt._first_match_find_plain(c, r))
+    assert torch.equal(pt._first_match_find(c, r, torch.int64),
+                       pt._first_match_find_plain(c, r))
     assert (dict(pt.calls), dict(pt.launches)) == before
     with pytest.raises(ValueError):
-        pt.first_match_cuda(c, r)
+        pt.first_match_cuda(c, r, torch.int64)
     with pytest.raises(ValueError):
-        pt.first_match_cuda(c, r[:0])
+        pt.first_match_cuda(c, r[:0], torch.int64)
