@@ -36,8 +36,11 @@ Phases, each printed as it ends; any failure prints FAIL and exits 1:
                and (2^21, 4) with 6 rows, a resident block (2^20, 2) and 64
                rows, planted rows (first matches before later copies in
                other blocks and in one warp, indices 0 and n - 1, absent
-               rows), device ms and bound_frac, one launch a call, 50 calls
-               back to back and 3 graph replays; the field ops (csrc/field_ew.cu:
+               rows, an element equal to a row in the kernel's prefilter
+               word only before its first index), device ms and bound_frac,
+               one launch a call, rows first at every edge of the kernel's
+               walk (its grid from first_match_geometry), 50 calls back to
+               back and 3 graph replays; the field ops (csrc/field_ew.cu:
                Goldilocks add, sub, neg and their Fp2 forms, BabyBear add,
                sub, neg, mul and their Fp4 forms, the Fp4 product; the Fp2
                product by a base scalar on gl_mul) at 2^21 elements, with a
@@ -1319,15 +1322,44 @@ FIRST_MATCH_GRAPH_REPLAYS = 3
 FIRST_MATCH_LAUNCHES_PER_CALL = 1     # up to MATCH_MAX_ROWS rows a call
 
 
+def _prefilter_twin(elem, p):
+    """``elem`` (C,) changed outside the kernel's prefilter word (word 0's
+    low 32 bits): a Goldilocks word 0's high half, else BabyBear's word 1
+    (None for a BabyBear base element, all of which is that word)."""
+    import numpy as np
+
+    twin = elem.copy()
+    if p >= (1 << 32):
+        hi = int(twin[0]) >> 32
+        twin[0] = np.uint64((((hi + 1) & 0x7FFFFFFF) << 32) | (int(twin[0]) & 0xFFFFFFFF))
+    elif len(twin) > 1:
+        twin[1] = np.uint64((int(twin[1]) + 1) % p)
+    else:
+        return None
+    return twin
+
+
+def _on_card(a, p):
+    """numpy u64 -> the field's storage on the card: Goldilocks int64,
+    BabyBear int32."""
+    import numpy as np
+    import torch
+
+    if p < (1 << 32):
+        return torch.from_numpy(a.astype(np.int32)).cuda()
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).cuda()
+
+
 def _planted_search(rng, n, C, q, p):
     """(comps (n, C), rows (q, C), want (q,)) on the card: random elements
-    below p with planted rows and their expected first indices (the kernel's
-    blocks take 256 threads x 4 elements a pass): index 0 and n - 1; a first
-    match in block 1 with a copy in a later block; one in block 5 with a
-    copy in block 0's second pass (past 1056 blocks x 1024); two copies in
-    one warp's pass (40000, 40003); an absent value (n); beyond 6 rows,
-    elements at random indices (their first index from the host) and every
-    seventh row absent."""
+    below p with planted rows and their expected first indices (the first
+    design's blocks took 256 threads x 4 elements a pass): index 0 and
+    n - 1, with a twin of n - 1's element at 100 that equals it in the
+    kernel's prefilter word only; a first match in block 1 with a copy in a
+    later block; one in block 5 with a copy in block 0's second pass (past
+    1056 blocks x 1024); two copies in one warp's pass (40000, 40003); an
+    absent value (n); beyond 6 rows, elements at random indices (their
+    first index from the host) and every seventh row absent."""
     import numpy as np
     import torch
 
@@ -1337,6 +1369,9 @@ def _planted_search(rng, n, C, q, p):
     for first, later in pairs:
         if later < n:
             comps[later] = comps[first]
+    twin = _prefilter_twin(comps[n - 1], p)
+    if twin is not None and n > 101:
+        comps[100] = twin
     want = [0, n - 1] + [first for first, _ in pairs]
     rows = [comps[i].copy() for i in want]
     absent = rng.integers(0, p, size=C, dtype=np.uint64)
@@ -1357,12 +1392,38 @@ def _planted_search(rng, n, C, q, p):
         if i < n:
             hit = np.flatnonzero((comps == rows[j]).all(1))
             want[j] = int(hit[0])
-    # the field's storage: Goldilocks int64, BabyBear int32
-    if p < (1 << 32):
-        t = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa: E731
-    else:
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).cuda()  # noqa: E731
-    return t(comps), t(rows), torch.tensor(want, dtype=torch.int64)
+    return _on_card(comps, p), _on_card(rows, p), torch.tensor(want, dtype=torch.int64)
+
+
+def _boundary_search(rng, n, C, q, p, geometry):
+    """(comps, rows, want) as ``_planted_search`` gives them, the rows first
+    at the edges of the kernel's walk (``packed_tree.first_match_geometry``
+    for n, q, C): index 0, block 0's last thread's first element, block 1's
+    first, the last element of the grid's first pass and the first of its
+    second, the last element of the passes the rings hold at the start and
+    the first one a ring's slot takes again, the first of the last pass,
+    n - 1; each with a prefilter twin just before it (at index - 1, where
+    that is no edge itself) and a copy after it; beyond those, elements at
+    random indices."""
+    import numpy as np
+    import torch
+
+    g = geometry
+    ring = g["stages"] * g["step"]
+    edges = [0, g["threads"] - 1, g["threads"], g["step"] - 1, g["step"], ring - 1, ring,
+             (n - 1) // g["step"] * g["step"], n - 1]
+    edges = sorted({e for e in edges if 0 <= e < n})
+    comps = rng.integers(0, p, size=(n, C), dtype=np.uint64)
+    idx = (edges + [int(i) for i in rng.integers(0, n, size=q)])[:q]
+    for e in idx:
+        twin = _prefilter_twin(comps[e], p)
+        if twin is not None and e >= 1 and e - 1 not in edges:
+            comps[e - 1] = twin
+        if e + 7 < n and e + 7 not in edges:
+            comps[e + 7] = comps[e]
+    rows = comps[idx].copy()
+    want = [int(np.flatnonzero((comps == r).all(1))[0]) for r in rows]
+    return _on_card(comps, p), _on_card(rows, p), torch.tensor(want, dtype=torch.int64)
 
 
 def phase_kernels_first_match(results):
@@ -1374,7 +1435,11 @@ def phase_kernels_first_match(results):
     Each against its plain version on the card and the planted indices
     (exact), with device ms, the bytes bound and bound_frac; one launch a
     call (FIRST_MATCH_LAUNCHES_PER_CALL); no PyTorch call computes a first
-    occurrence (library_ms null). Then FIRST_MATCH_RACE_CALLS calls back to
+    occurrence (library_ms null). Then the edges of the kernel's walk
+    (``_boundary_search``) for both fields, the rows in registers and in
+    shared memory, the resident block's length and a base field of odd
+    length, each against the plain version and the planted indices with
+    one launch. Then FIRST_MATCH_RACE_CALLS calls back to
     back at (2^21, 2) with q 6 and 64, each equal to the plain result (the
     minima and the ticket reset by each call's last block), and one CUDA
     graph of a call replayed FIRST_MATCH_GRAPH_REPLAYS times."""
@@ -1412,6 +1477,28 @@ def phase_kernels_first_match(results):
                  f"{FIRST_MATCH_LAUNCHES_PER_CALL}")
         if n == n21 and C == 2:
             race.append((label, comps, rows, want))
+    # the edges of the kernel's walk, each field, rows in registers (q 8)
+    # and in shared memory (q 12, 64), and the resident block's length
+    for label, n, C, q, p in (("GL Fp2 (2^21, 2)", n21, 2, 8, gl_p),
+                              ("GL Fp2 (2^21, 2)", n21, 2, 12, gl_p),
+                              ("BB Fp4 (2^21, 4)", n21, 4, 8, bb_p),
+                              ("BB Fp4 (2^21, 4)", n21, 4, 64, bb_p),
+                              ("GL Fp2 (2^20, 2)", n21 // 2, 2, 8, gl_p),
+                              ("GL base (2^21 - 3, 1)", n21 - 3, 1, 12, gl_p)):
+        dtype = torch.int64 if p == gl_p else torch.int32
+        g = pt.first_match_geometry(n, q, C, dtype)
+        comps, rows, want = _boundary_search(rng, n, C, q, p, g)
+        before = pt.launches["first_match"]
+        got = pt.first_match_cuda(comps, rows, dtype).cpu()
+        per = pt.launches["first_match"] - before
+        plain = pt._first_match_find_plain(comps, rows).cpu()
+        if not (torch.equal(got, want) and torch.equal(plain, want)) or per != 1:
+            fail(f"first_match edges {label} q {q} ({g}): kernel {got.tolist()}, plain "
+                 f"{plain.tolist()}, planted {want.tolist()}, {per} launches")
+        say("kernels", f"first_match edges {label} q {q}: {g['blocks']} blocks x "
+                       f"{g['threads']} threads, {g['stages']} elements in flight a "
+                       f"thread, step {g['step']}; rows first at {want.tolist()}, each "
+                       "after a prefilter twin: equal to the plain version, one launch")
     for label, comps, rows, want in race:
         outs = [pt.first_match_cuda(comps, rows, torch.int64)
                 for _ in range(FIRST_MATCH_RACE_CALLS)]

@@ -25,6 +25,7 @@ holds the whole.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List
 
 import numpy as np
@@ -47,9 +48,13 @@ from .merkle import MerklePath, MerkleTreeConfig
 # queries per chunk of the plain (q x n) first-match compare: bounds its
 # temporaries to a few times SEARCH_CHUNK * n elements
 SEARCH_CHUNK = 8
-# csrc/leaf_search.cu: the rows one launch takes (MAX_ROWS there; the
-# block's shared memory holds them); more rows take one launch a chunk
+# csrc/leaf_search.cu: the rows one launch takes (MAX_ROWS there); more
+# rows take one launch a chunk
 MATCH_MAX_ROWS = 1024
+# csrc/leaf_search.cu REG_ROWS: up to this many rows a thread holds the
+# rows' prefilter words (word 0, a Goldilocks word's low half) in
+# registers; more rows sit in shared memory, padded to a multiple of 4
+MATCH_REG_ROWS = 8
 _NONE = -1                     # 0xFFFFFFFF: the kernel's "no hit yet" minimum
 # Incremented once per launch of ms_first_match, and once per call of its
 # wrapper with at least one row, launched or refused (one launch a call up
@@ -159,6 +164,22 @@ def first_match_cuda(comps: torch.Tensor, rows: torch.Tensor,
         cuda.check("first_match", err)
         launches["first_match"] += 1
     return out
+
+
+def first_match_geometry(n: int, q: int, C: int, dtype: torch.dtype) -> dict:
+    """The grid ``first_match_cuda`` launches on the current CUDA device for
+    n elements and q <= MATCH_MAX_ROWS rows of C words of ``dtype``
+    (csrc/leaf_search.cu ``ms_first_match_geometry``; the card's occupancy
+    decides the blocks): ``blocks`` of ``threads``; thread t of block b
+    takes elements b threads + t + k ``step`` (step = blocks threads, one
+    pass over the grid) and keeps ``stages`` of them in flight, element k
+    in its ring's slot k mod stages; ``reg_rows`` as MATCH_REG_ROWS."""
+    out = (ctypes.c_int * 4)()
+    cuda.check("first_match_geometry", cuda.library().ms_first_match_geometry(
+        n, q, C, 8 if dtype == torch.int64 else 4, out))
+    blocks, stages, reg_rows, threads = out
+    return {"blocks": blocks, "threads": threads, "stages": stages,
+            "step": blocks * threads, "reg_rows": reg_rows}
 
 
 def _first_match_find(comps: torch.Tensor, rows: torch.Tensor,

@@ -104,6 +104,9 @@ _SIGNATURES = {
     # n, q, C, stream; _bb: 32-bit words
     "ms_first_match": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ms_first_match_bb": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # n, q, C, word bytes, out (a host int32[4]: blocks, elements a thread
+    # keeps in flight, rows held in registers, threads a block)
+    "ms_first_match_geometry": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 _lib = None

@@ -822,6 +822,49 @@ def test_first_match_race_and_graph(dev):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("dtype,C,q", [(torch.int64, 2, 6), (torch.int64, 2, 12),
+                                       (torch.int64, 1, 9), (torch.int32, 4, 8),
+                                       (torch.int32, 4, 64), (torch.int32, 2, 1024)])
+def test_first_match_edges_and_prefilter_twins(dev, dtype, C, q):
+    """Rows first at the edges of the kernel's walk (``first_match_geometry``:
+    block 0's last thread, block 1's first, the grid's first and second
+    pass, the passes the rings hold at the start and the first a slot
+    takes again, the last pass, n - 1), each after an element equal to it
+    in the prefilter word (word 0's low 32 bits) only, rows in registers
+    (q <= MATCH_REG_ROWS) and in shared memory; equal to the plain compare,
+    one launch."""
+    from ministark_tpu_torch.commit import packed_tree as pt
+
+    n = (1 << 21) - 5
+    g = pt.first_match_geometry(n, q, C, dtype)
+    ring = g["stages"] * g["step"]
+    edges = sorted({e for e in (0, g["threads"] - 1, g["threads"], g["step"] - 1, g["step"],
+                                ring - 1, ring, (n - 1) // g["step"] * g["step"], n - 1)
+                    if e < n})
+    rng = np.random.default_rng(q)
+    bits = 63 if dtype == torch.int64 else 31
+    comps = rng.integers(0, 1 << bits, size=(n, C), dtype=np.int64)
+    idx = (edges + [int(i) for i in rng.integers(0, n, size=q)])[:q]
+    for e in edges:
+        if e >= 1 and e - 1 not in edges and (dtype == torch.int64 or C > 1):
+            twin = comps[e].copy()
+            if dtype == torch.int64:
+                twin[0] ^= 1 << 40              # word 0's high half
+            else:
+                twin[1] ^= 1
+            comps[e - 1] = twin
+    rows = comps[idx].copy()
+    c = torch.from_numpy(comps.astype(np.int32) if dtype == torch.int32 else comps)
+    r = torch.from_numpy(rows.astype(np.int32) if dtype == torch.int32 else rows)
+    want = pt._first_match_find_plain(c, r)
+    k = min(q, len(edges))
+    assert want[:k].tolist() == edges[:k]
+    before = pt.launches["first_match"]
+    got = pt.first_match_cuda(c.to(dev), r.to(dev), dtype)
+    assert pt.launches["first_match"] - before == 1
+    assert torch.equal(got.cpu(), want)
+
+
 def test_first_match_wrapper_refuses(dev):
     from ministark_tpu_torch.commit import packed_tree as pt
 
