@@ -132,6 +132,7 @@ def device_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
 
     sf = _field(field)
     dtrace = _device_trace(sf, steps, model, device)
+    dtrace.cols_dev                     # a witness built on demand: before t0
     cfg = StarkConfig(sf, 20, 2, steps, dtrace.constrain_number())
     engine = DeviceEngine(cfg, device=device, ntt_backend=ntt_backend,
                           query_split=True)
@@ -162,6 +163,8 @@ def fast_prove(steps, field="goldilocks", model="fibonacci", device="cuda",
 
     sf = _field(field)
     traces = [_device_trace(sf, steps, model, device) for _ in range(batch)]
+    for t in traces:
+        t.cols_dev                      # a witness built on demand: before t0
     stark = FastStark(FastStarkConfig(sf, steps, queries=32, arity=arity,
                                       lde_backend=lde_backend),
                       device=device, ntt_backend=ntt_backend)

@@ -399,7 +399,8 @@ def phase_build():
     # pipe's csrc/ntt_pipe.cu's pipe_level<gl / bb>, the stream's
     # stream_add1_kernel<1, 2, 4, 8>, csrc/field_ew.cu's field_ew_contig /
     # field_ew_strided<gl / bb, op, ...> and bb_fp4_mul_kernel<...>, the
-    # leaf search's first_match_kernel<1, 2, 4>
+    # leaf search's first_match_kernel<1, 2, 4>, the witnesses'
+    # fib_witness_kernel / counter_witness_kernel<gl / bb, vectors or not>
     for name, symbol in (("leaf_hash", "leaf_hash"), ("ntt", "ntt_pass"),
                          ("ntt_four_step", "four_step_pass"),
                          ("ntt_pipe", "pipe_level"), ("stream", "stream_add1_kernel"),
@@ -408,7 +409,8 @@ def phase_build():
                          ("div_scan", "div_scan_kernel"), ("pow_dot", "pow_dot_kernel"),
                          ("gl_ew / bb_ew", "field_ew_"),
                          ("bb_fp4_mul", "bb_fp4_mul_kernel"),
-                         ("first_match", "first_match_kernel")):
+                         ("first_match", "first_match_kernel"),
+                         ("witness", "witness_kernel")):
         frames = _stack_frames(log, symbol)
         if not frames or any(any(v) for v in frames.values()):
             fail(f"build: {name} uses local memory (stack frame, spill stores, "
@@ -836,6 +838,7 @@ def _check_int64_refused():
     from ministark_tpu_torch.ops import ntt_four_step as fs
     from ministark_tpu_torch.ops import ntt_pipe as pp
     from ministark_tpu_torch.ops import sha256 as sh
+    from ministark_tpu_torch.ops import witness as wt
     from ministark_tpu_torch.ops.field import get_ops
 
     n = 1 << 14
@@ -858,7 +861,11 @@ def _check_int64_refused():
              ("ms_first_match_bb", lambda: pt.first_match_cuda(
                  e64.reshape(-1, 4), e64[0, :2].contiguous(), k4.dtype)),
              ("ms_sha256_rows_bb", lambda: sh.binary_row_digests_cuda(
-                 e64.reshape(-1, 4), k4.dtype))]
+                 e64.reshape(-1, 4), k4.dtype)),
+             ("ms_fib_witness_bb", lambda: wt.fib_witness_cuda(
+                 torch.ones((3, n), dtype=torch.int64, device="cuda"), F, n - 1, 2, 0)),
+             ("ms_counter_witness_bb", lambda: wt.counter_witness_cuda(
+                 x64, F, n - 1, 1, 3, 5, 7, 0))]
     before = read_counts()[0]
     for name, call in cases:
         try:
@@ -1525,6 +1532,89 @@ def phase_kernels_first_match(results):
     del graph, got, race
 
 
+WITNESS_LAUNCHES_PER_CALL = 1        # any block of rows, one launch
+
+
+def phase_kernels_witness(results):
+    """Phase 3 for the device witnesses (csrc/witness.cu, ops/witness.py;
+    ROADMAP X5): Fibonacci's (3, n) and the counter's (2, n) columns in
+    Goldilocks and BabyBear, each kernel against its plain version (the
+    torch-op ladder and closed form on the card) with tolerance 0: the
+    whole at 2^20 (steps 2^20 - 1: one padding row), a rank's block at lo
+    2^19 of 2^20, a lo and a count that are not multiples of a block's
+    rows (THREADS x ROWS), steps 5 in n = 8, and Fibonacci's (3,
+    2^22) (the bench's 2^22 entry). Each with cold device ms
+    (``rf.cold_device_ms``), the bound by the bytes written or the
+    operations as built (``rf.witness_work``), bound_frac and the plain
+    version's ms; no PyTorch call computes a witness (library_ms null).
+    Then each case once more through the model's function
+    (``fibonacci_trace_cols_on_device`` / ``_counter_cols_on_device`` on
+    the card), which must launch its kernel once and write its rows."""
+    import torch
+
+    from ministark_tpu_torch.fields import BabyBear, Goldilocks
+    from ministark_tpu_torch.models.counter import _counter_cols_on_device
+    from ministark_tpu_torch.models.fibonacci_device import fibonacci_trace_cols_on_device
+    from ministark_tpu_torch.ops import witness
+    from ministark_tpu_torch.utils.rng import ark_test_rng
+
+    compare = make_compare(results)
+    n20, n22 = 1 << 20, 1 << 22
+    odd_lo, odd_count = (1 << 19) + 3, (1 << 18) + 5
+    consts = (1, 3, 5, 7)                   # the counter's start, step, a, b
+    for sf, tag in ((Goldilocks, "gl"), (BabyBear, "bb")):
+        base = sf.base
+        pad = int(base.rand(ark_test_rng()))
+        dtype = witness.field.field_dtype(base)
+        cases = [("whole (3, 2^20), steps 2^20 - 1", "fibonacci", n20 - 1, 0, n20),
+                 ("block lo 2^19 (3, 2^19) of 2^20", "fibonacci", n20 - 1, n20 // 2, n20 // 2),
+                 (f"lo {odd_lo} count {odd_count} of 2^20", "fibonacci", n20 - 1, odd_lo,
+                  odd_count),
+                 ("whole (3, 8), steps 5", "fibonacci", 5, 0, 8),
+                 ("whole (3, 2^22), steps 2^22 - 1", "fibonacci", n22 - 1, 0, n22),
+                 ("whole (2, 2^20), steps 2^20 - 1", "counter", n20 - 1, 0, n20),
+                 ("block lo 2^19 (2, 2^19) of 2^20", "counter", n20 - 1, n20 // 2, n20 // 2),
+                 (f"lo {odd_lo} count {odd_count} of 2^20", "counter", n20 - 1, odd_lo,
+                  odd_count),
+                 ("whole (2, 8), steps 5", "counter", 5, 0, 8)]
+        for label, model, steps, lo, count in cases:
+            name = f"{'fib' if model == 'fibonacci' else 'counter'}_witness_{tag}"
+            width = 3 if model == "fibonacci" else 2
+            out_k = torch.empty((width, count), dtype=dtype, device="cuda")
+            out_p = torch.empty_like(out_k)
+            if model == "fibonacci":
+                kern = lambda: witness.fib_witness_cuda(out_k, base, steps, 2, pad, lo)  # noqa: E731
+                plain = lambda: witness.fib_witness_plain(out_p, base, steps, 2, pad, lo)  # noqa: E731
+                model_fn = lambda: fibonacci_trace_cols_on_device(  # noqa: E731
+                    sf, steps, 2, "cuda", lo, count)
+            else:
+                kern = lambda: witness.counter_witness_cuda(  # noqa: E731
+                    out_k, base, steps, *consts, pad, lo)
+                plain = lambda: witness.counter_witness_plain(  # noqa: E731
+                    out_p, base, steps, *consts, pad, lo)
+                model_fn = lambda: _counter_cols_on_device(  # noqa: E731
+                    sf, steps, *consts, "cuda", lo, count)
+            chunk = witness.ROWS[model, tag]
+            work = rf.witness_work(model, tag, lo, count,
+                                   witness.grid(out_k.device, count, chunk), chunk)
+            rec = compare(name, label, kern, plain, work, plain_reps=1, device=True)
+            before, rows = witness.launches[name], witness.rows[name]
+            got = model_fn()
+            per = witness.launches[name] - before
+            wrote = witness.rows[name] - rows
+            rec["launches_per_call"] = per
+            torch.cuda.synchronize()
+            if not torch.equal(got, out_p):
+                fail(f"{name} {label}: the model's function differs from the plain version")
+            if per != WITNESS_LAUNCHES_PER_CALL or wrote != count:
+                fail(f"{name} {label}: {per} launches writing {wrote} rows per call, "
+                     f"expected {WITNESS_LAUNCHES_PER_CALL} writing {count}")
+            say("kernels", f"{name} {label}: through the model's function {per} "
+                           f"launch per call, {wrote} rows written, equal to the plain "
+                           "version")
+            del out_k, out_p, got
+
+
 def _host_proof(sf, steps):
     from ministark_tpu_torch.models import FibonacciClaim, Witness
     from ministark_tpu_torch.stark import Stark, StarkConfig
@@ -1649,7 +1739,8 @@ def _reference_commits(engine, trace):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0, and the call counts of
-    the field ops, the division scan and the leaf search."""
+    the field ops, the division scan and the leaf search, and the rows the
+    witness kernels wrote."""
     from ministark_tpu_torch.commit import packed_tree as pt
     from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
@@ -1661,10 +1752,12 @@ def reset_counts():
     from ministark_tpu_torch.ops import ntt_digit as nd
     from ministark_tpu_torch.ops import sha256 as sh
     from ministark_tpu_torch.ops import stream
+    from ministark_tpu_torch.ops import witness as wt
 
     for counts in (ntt.launches, lh.launches, fs.pass1_launches,
                    fs.pass2_launches, pp.launches, nd.launches, ds.launches, ds.calls,
-                   gl.launches, gl.calls, bb.launches, bb.calls, pt.launches, pt.calls):
+                   gl.launches, gl.calls, bb.launches, bb.calls, pt.launches, pt.calls,
+                   wt.launches, wt.rows):
         for key in counts:
             counts[key] = 0
     sh.launches = sh.row_launches = 0
@@ -1674,9 +1767,9 @@ def reset_counts():
 
 def read_counts():
     """({kernel: launches}, {fan: inner-level launches}) since reset_counts,
-    with each NTT kernel and the leaf hash split by field ("_bb"), and the
+    with each NTT kernel and the leaf hash split by field ("_bb"), the
     calls of the field ops, the division scan and the leaf search ("<kernel>
-    calls")."""
+    calls") and the rows each witness kernel wrote ("<kernel> rows")."""
     from ministark_tpu_torch.commit import packed_tree as pt
     from ministark_tpu_torch.ops import bb
     from ministark_tpu_torch.ops import div_scan as ds
@@ -1688,12 +1781,14 @@ def read_counts():
     from ministark_tpu_torch.ops import ntt_digit as nd
     from ministark_tpu_torch.ops import sha256 as sh
     from ministark_tpu_torch.ops import stream
+    from ministark_tpu_torch.ops import witness as wt
 
     counts = {"sha256_inner_level": sh.launches, "sha256_rows": sh.row_launches,
               "leaf_hash": lh.launches[20],
               "leaf_hash_bb": lh.launches[10], "stream_add1": stream.launches,
               **nd.launches, **ds.launches, **gl.launches, **bb.launches,
-              **pt.launches,
+              **pt.launches, **wt.launches,
+              **{f"{name} rows": n for name, n in wt.rows.items()},
               **{f"{name} calls": n
                  for name, n in {**ds.calls, **gl.calls, **bb.calls, **pt.calls}.items()}}
     for tag, suffix in (("gl", ""), ("bb", "_bb")):
@@ -1754,13 +1849,14 @@ def phase_main(results, field="gl"):
         say(label, f"steps {steps}: equal to the JAX package's pinned "
                    f"digests, verified; prove {secs:.2f} s")
 
-    t0 = time.time()
     engine, trace = _engine(MAIN_STEPS, field=field)
+    reset_counts()
+    t0 = time.time()
+    trace.cols_dev                      # built on demand: the witness kernel
     torch.cuda.synchronize()
     say(label, f"steps {MAIN_STEPS}: witness (3, {trace.domain_size}) built on "
                f"the card in {time.time() - t0:.3f} s")
 
-    reset_counts()
     t0 = time.time()
     proof = engine.prove(trace)
     cold = time.time() - t0
@@ -1950,6 +2046,7 @@ def phase_fast(results, field="gl"):
 
     stark, (trace,) = _fast(MAIN_STEPS, field=field)
     reset_counts()
+    trace.cols_dev                      # built on demand: the witness kernel
     t0 = time.time()
     proof = stark.prove(trace)
     cold = time.time() - t0
@@ -2474,6 +2571,14 @@ def phase_sharded(results, parity_digests, fast_sha, fast_many_sha, ldt_sha):
                 if what in paths and launches.get(name, 0) <= 0:
                     fail(f"{name} was not launched by rank {r['rank']} of the "
                          f"{what} path")
+            # the rank built its own block of the witness, never the whole
+            wrote = launches["fib_witness_gl rows"]
+            if launches["fib_witness_gl"] != 1 or wrote != (MAIN_STEPS + 1) // 2:
+                fail(f"sharded: rank {r['rank']}'s {path} prove launched the witness "
+                     f"{launches['fib_witness_gl']} times writing {wrote} rows, "
+                     f"expected once writing {(MAIN_STEPS + 1) // 2}")
+            say(label, f"{path} rank {r['rank']} of 2: one witness launch writing "
+                       f"its {wrote} rows of {MAIN_STEPS + 1}")
         record(results, what, ranks[0][path][3])     # per rank: rank 0's
     for r in ranks:
         digest, secs = r["fast_many"]
@@ -2560,11 +2665,14 @@ def phase_models(results):
         for field in ("gl", "bb"):
             sf = _stark_field(field)
             for name, steps in (("counter", 13), ("lfsr", 11), ("mimc", 12)):
+                reset_counts()
                 claim, witness, trace = _model_case(name, field, steps)
                 cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
                 host = Stark(cfg).prove(claim, witness)
                 engine = DeviceEngine(cfg, device="cuda")
                 proof = engine.prove(trace)
+                if name == "counter" and field == "bb":
+                    record(results, "counter_bb", read_counts()[0])
                 _assert_equal_proofs(host, proof)
                 assert engine.verify(engine.constrain_coeffs(trace), proof)
                 say("models", f"{name} {sf.name} steps {steps}: byte-identical to "
@@ -2576,12 +2684,15 @@ def phase_models(results):
 
     sf = _stark_field("gl")
     for name, want in MODEL_PINS.items():
+        reset_counts()
         _, _, trace = _model_case(name, "gl", MODEL_PIN_STEPS)
         engine = DeviceEngine(StarkConfig(sf, 20, 2, MODEL_PIN_STEPS,
                                           trace.constrain_number()), device="cuda")
         t0 = time.time()
         proof = engine.prove(trace)
         secs = time.time() - t0
+        if name == "counter":
+            record(results, "counter", read_counts()[0])
         got = proof_digests(sf, proof)
         if got != want:
             fail(f"models: {name} steps {MODEL_PIN_STEPS}: digests differ from "
@@ -3023,6 +3134,19 @@ KERNELS = {
     "first_match": ("ministark_tpu_torch/csrc/leaf_search.cu",
                     "ministark_tpu/commit/packed_tree.py:87",
                     _PARITY_PATHS + _PARITY_BB_PATHS + ("sharded_parity",)),
+    # the device witnesses XLA fused (ROADMAP X5): Fibonacci's matrix-power
+    # ladder on every 2^20 - 1 path that builds it (a resident rank its own
+    # block), the counter's closed form on phase models' counter proves
+    "fib_witness_gl": ("ministark_tpu_torch/csrc/witness.cu",
+                       "ministark_tpu/models/fibonacci_device.py:19",
+                       ("parity", "fast") + _SHARDED_PATHS),
+    "fib_witness_bb": ("ministark_tpu_torch/csrc/witness.cu",
+                       "ministark_tpu/models/fibonacci_device.py:19",
+                       ("parity_bb", "fast_bb")),
+    "counter_witness_gl": ("ministark_tpu_torch/csrc/witness.cu",
+                           "ministark_tpu/models/counter.py:57", ("counter",)),
+    "counter_witness_bb": ("ministark_tpu_torch/csrc/witness.cu",
+                           "ministark_tpu/models/counter.py:57", ("counter_bb",)),
 }
 
 
@@ -3043,6 +3167,7 @@ def main():
     phase_kernels_digit(results)
     phase_kernels_div_scan(results)
     phase_kernels_first_match(results)
+    phase_kernels_witness(results)
     phase_parity()
     parity_digests = phase_main(results)
     fast_blob, fast_many_blob = phase_fast(results)

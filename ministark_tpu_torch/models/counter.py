@@ -16,6 +16,7 @@ import torch
 
 from ..air import Provable, TraceTable
 from ..ops.field import get_ops
+from ..ops.witness import counter_witness
 from ..poly import DensePolynomial, Radix2EvaluationDomain
 from ..stark.engine import DeviceTrace
 from ..utils.rng import ark_test_rng
@@ -60,41 +61,43 @@ class CounterClaim(Provable):
 
 
 def _counter_cols_on_device(stark_field, steps, start, step, a, b,
-                            device="cuda") -> torch.Tensor:
+                            device="cuda", lo: int = 0,
+                            count: "int | None" = None) -> torch.Tensor:
     """Witness generation on ``device``: the counter trace is closed-form
-    (col0[i] = start + i*step, col1[i] = a*col0[i] + b), so the whole
-    witness is a few broadcast field ops over ``arange``, with no host loop
-    and no upload. Returns the (2, n) column evaluations in the field's
+    (col0[i] = start + i*step, col1[i] = a*col0[i] + b), so the witness is
+    built with no host loop and no upload (ops/witness.py: one kernel
+    launch on the card, a few torch ops on the CPU). Returns rows [lo, lo +
+    count) (default: all n) of the (2, n) column evaluations in the field's
     dtype."""
     base = stark_field.base
-    kb = get_ops(base)
     n = Radix2EvaluationDomain(base, steps + 1).size()
-
-    def scalar(v):
-        return kb.pack_scalar(base.from_int(v), device)
-
-    idx = torch.arange(n, dtype=kb.dtype, device=device)      # i < p: canonical
-    col0 = kb.add(scalar(start).expand(n), kb.mul(idx, scalar(step)))
-    col1 = kb.add(kb.mul(col0, scalar(a)), scalar(b).expand(n))
-    cols = torch.stack([col0, col1])
-    pad = kb.pack_scalar(base.rand(ark_test_rng()), device)
-    return torch.where(idx < steps, cols, pad)
+    count = n - lo if count is None else count
+    if lo < 0 or count < 0 or lo + count > n:
+        raise ValueError(f"rows [{lo}, {lo + count}) of a trace of {n}")
+    out = torch.empty((2, count), dtype=get_ops(base).dtype, device=device)
+    return counter_witness(out, base, steps, int(base.from_int(start)),
+                           int(base.from_int(step)), int(base.from_int(a)),
+                           int(base.from_int(b)), int(base.rand(ark_test_rng())), lo)
 
 
 def counter_device_trace(stark_field, steps: int, start=1, step=3, a=5, b=7,
                          on_device: bool = False, device="cuda") -> DeviceTrace:
     """The counter trace for DeviceEngine and FastStark: columns built on
-    ``device`` in closed form (``on_device``), or by the host loop."""
+    ``device`` in closed form (``on_device``: on demand, a rank of a mesh
+    only its own rows), or by the host loop."""
     base = stark_field.base
     kb = get_ops(base)
     domain = Radix2EvaluationDomain(base, steps + 1)
     n = domain.size()
     p = base.p
 
-    cols = cols_dev = None
+    cols = build = None
     if on_device:
-        cols_dev = _counter_cols_on_device(stark_field, steps, start, step, a, b,
-                                           device)
+        torch.empty(0, device=device)   # fails here when the device does not exist
+
+        def build(lo, count):
+            return _counter_cols_on_device(stark_field, steps, start, step, a, b,
+                                           device, lo, count)
     else:
         rows = np.empty((n, 2), dtype=np.uint64)
         x = start % p
@@ -123,4 +126,4 @@ def counter_device_trace(stark_field, steps: int, start=1, step=3, a=5, b=7,
         return minus_constant(kb.sub(tp[1], kb.scale_base(tp[0], av)), b, rows)
 
     return DeviceTrace(stark_field=stark_field, steps=steps, cols=cols,
-                       transitions=[t_inc, t_affine], cols_dev=cols_dev)
+                       transitions=[t_inc, t_affine], build=build, shape=(2, n))

@@ -12,55 +12,39 @@ import numpy as np
 import torch
 
 from ..ops.field import get_ops
+from ..ops.witness import fib_witness
 from ..poly import Radix2EvaluationDomain
 from ..stark.engine import DeviceTrace
 from ..utils.rng import ark_test_rng
 
 
 def fibonacci_trace_cols_on_device(stark_field, steps: int, secret_b: int = 2,
-                                   device="cuda") -> torch.Tensor:
+                                   device="cuda", lo: int = 0,
+                                   count: "int | None" = None) -> torch.Tensor:
     """Witness generation on ``device``: row i of the trace is
     M^i [a0; b0] with M = [[0, 1], [1, 1]], so every row comes from an
-    exponent-bit ladder of 2x2 matrix powers in log2(n) steps, with no host
-    loop and no upload of the trace.
+    exponent-bit ladder of 2x2 matrix powers, with no host loop and no
+    upload of the trace (ops/witness.py: one kernel launch on the card,
+    torch ops on the CPU).
 
-    Returns the (3, n) column evaluations in the field's dtype (rows >= steps carry the
-    deterministic ZK padding), bit-identical to the host path."""
+    Returns rows [lo, lo + count) (default: all n) of the (3, n) column
+    evaluations in the field's dtype (rows >= steps carry the deterministic
+    ZK padding), bit-identical to the host path."""
     base = stark_field.base
-    kb = get_ops(base)
     n = Radix2EvaluationDomain(base, steps + 1).size()
-
-    def scalar(v):
-        return kb.pack_scalar(base.from_int(v), device)
-
-    def mat_mul(A, B):
-        return [[kb.add(kb.mul(A[r][0], B[0][c]), kb.mul(A[r][1], B[1][c]))
-                 for c in range(2)] for r in range(2)]
-
-    idx = torch.arange(n, device=device)
-    one = torch.ones(n, dtype=kb.dtype, device=device)
-    zero = torch.zeros_like(one)
-    Mp = [[one, zero], [zero, one]]                       # M^(idx & (2^b - 1))
-    M2 = [[scalar(0), scalar(1)], [scalar(1), scalar(1)]]  # M^(2^b)
-    for b in range(max((n - 1).bit_length(), 1)):
-        bit = ((idx >> b) & 1) == 1
-        prod = mat_mul(Mp, M2)
-        Mp = [[torch.where(bit, prod[r][c], Mp[r][c]) for c in range(2)]
-              for r in range(2)]
-        M2 = mat_mul(M2, M2)
-    a0, b0 = scalar(1), scalar(secret_b)
-    a = kb.add(kb.mul(Mp[0][0], a0), kb.mul(Mp[0][1], b0))
-    bcol = kb.add(kb.mul(Mp[1][0], a0), kb.mul(Mp[1][1], b0))
-    cols = torch.stack([a, bcol, kb.add(a, bcol)])       # (3, n)
-    # deterministic ZK padding rows (one constant value)
-    pad = kb.pack_scalar(base.rand(ark_test_rng()), device)
-    return torch.where(idx < steps, cols, pad)
+    count = n - lo if count is None else count
+    if lo < 0 or count < 0 or lo + count > n:
+        raise ValueError(f"rows [{lo}, {lo + count}) of a trace of {n}")
+    out = torch.empty((3, count), dtype=get_ops(base).dtype, device=device)
+    return fib_witness(out, base, steps, int(base.from_int(secret_b)),
+                       int(base.rand(ark_test_rng())), lo)
 
 
 def fibonacci_device_trace(stark_field, steps: int, secret_b: int = 2,
                            on_device: bool = False, device="cuda") -> DeviceTrace:
     """The Fibonacci trace for DeviceEngine: columns built on ``device``
-    with the matrix-power ladder (``on_device``), or on the host."""
+    with the matrix-power ladder (``on_device``: on demand, a rank of a
+    mesh only its own rows), or on the host."""
     base = stark_field.base
     kb = get_ops(base)
     domain = Radix2EvaluationDomain(base, steps + 1)
@@ -68,11 +52,12 @@ def fibonacci_device_trace(stark_field, steps: int, secret_b: int = 2,
     transitions = _fib_transitions(kb, domain.group_gen)
 
     if on_device:
+        torch.empty(0, device=device)   # fails here when the device does not exist
         return DeviceTrace(
             stark_field=stark_field, steps=steps, cols=None,
-            transitions=transitions,
-            cols_dev=fibonacci_trace_cols_on_device(stark_field, steps,
-                                                    secret_b, device),
+            transitions=transitions, shape=(3, n),
+            build=lambda lo, count: fibonacci_trace_cols_on_device(
+                stark_field, steps, secret_b, device, lo, count),
         )
 
     # trace columns (a, b, c): sequential recurrence on host ints

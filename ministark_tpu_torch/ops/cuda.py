@@ -31,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "sha256.cu", "leaf_hash.cu", "gl_mul.cu",
            "ntt_four_step.cu", "ntt_pipe.cu", "ntt_digit.cu", "stream.cu",
-           "div_scan.cu", "field_ew.cu", "leaf_search.cu")
+           "div_scan.cu", "field_ew.cu", "leaf_search.cu", "witness.cu")
 HEADERS = ("gl.cuh", "bb.cuh", "ext_field.cuh", "elementwise.cuh", "ntt_common.cuh",
            "ntt_stages.cuh", "sha256.cuh", "wgmma_s8.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -107,6 +107,10 @@ _SIGNATURES = {
     # n, q, C, word bytes, out (a host int32[4]: blocks, elements a thread
     # keeps in flight, rows held in registers, threads a block)
     "ms_first_match_geometry": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    # csrc/witness.cu: out, plan (int64, ops/witness.py::_fib_plan /
+    # _counter_plan), stream; _bb: 32-bit words
+    "ms_fib_witness_gl": [_P, _I64P, _P], "ms_fib_witness_bb": [_P, _I64P, _P],
+    "ms_counter_witness_gl": [_P, _I64P, _P], "ms_counter_witness_bb": [_P, _I64P, _P],
 }
 
 _lib = None

@@ -354,6 +354,38 @@ def fast(mesh, field, steps, cfg, batch=1, model="fibonacci", device=None):
     return fast_proof_to_bytes(sf, proof), _collectives(before)
 
 
+def witness_blocks(mesh, field, steps, model="fibonacci", mode="parity", cfg=None,
+                   device=None):
+    """A prove of a trace whose witness is built on the device on demand
+    (``DeviceTrace.build``), as the witness tests read it: (proof bytes,
+    the (lo, count) of every block the prove asked ``build`` for, whether
+    the whole was built). ``mode`` "parity" (``DeviceEngine``) or "fast"
+    (``FastStark`` with ``cfg``, FastStarkConfig's keywords); ``mesh`` None
+    proves on one device, ``device`` (the CPU unless given)."""
+    from ..stark import StarkConfig
+    from ..stark.engine import DeviceEngine
+    from ..stark.fast import FastStark, FastStarkConfig
+    from ..stark.proof_io import fast_proof_to_bytes, proof_to_json
+
+    sf, dev = STARK[field], _device(mesh, device)
+    trace = _trace(model, sf, steps, dev)
+    build, built = trace.build, []
+
+    def counted(lo, count):
+        built.append((lo, count))
+        return build(lo, count)
+
+    trace.build = counted
+    if mode == "parity":
+        cfg = StarkConfig(sf, 20, 2, steps, trace.constrain_number())
+        proof = proof_to_json(sf, DeviceEngine(cfg, device=dev, mesh=mesh).prove(trace))
+        proof = proof.encode()
+    else:
+        stark = FastStark(FastStarkConfig(sf, steps, **cfg), device=dev, mesh=mesh)
+        proof = fast_proof_to_bytes(sf, stark.prove(trace))
+    return proof, built, trace._cols_dev is not None
+
+
 def block_coset_lde(mesh, field, polys, N, F, offset=None):
     """(this rank's block of the coset rows of the LDE of (B, m, d)
     extension ``polys`` over N points, one device's whole coset rows), both

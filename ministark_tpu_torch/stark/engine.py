@@ -89,40 +89,81 @@ def merge_query_phases(phases: dict) -> dict:
     return out
 
 
-@dataclass
 class DeviceTrace:
     """Tensor-native TraceTable equivalent.
 
     ``cols``: (width, N) u64 numpy array of column evaluations over the
     trace domain (rows >= steps carry the deterministic ZK padding), OR
-    ``cols_dev``: the same data as a (width, N) tensor in the field's dtype (int64 Goldilocks, int32 BabyBear; witness built
-    on the device). ``transitions`` map the (width, N) trace-polynomial
-    coefficient tensor to one (N,) constraint coefficient tensor. Each
-    takes a keyword ``rows`` (default None): the resident prove on a mesh
-    calls ``f(tp, rows=rows)`` with ``rows`` a ``parallel.Rows`` and tp
-    this rank's (width, N/D) block of the coefficients [rows.lo, rows.lo +
-    rows.count), and wants the same block of the output. A transition that
-    acts on each coefficient alone ignores ``rows``; one that does not (a
-    constant at x^0, a product of evaluations) reads its block's place from
-    ``rows`` and its transforms from ``get_block_ntt_fns(field, N,
-    rows.mesh)`` (models/counter.py, models/mimc.py)."""
+    ``cols_dev``: the same data as a (width, N) tensor in the field's dtype
+    (int64 Goldilocks, int32 BabyBear; witness built on the device), OR
+    ``build`` with ``shape`` (width, N): a witness built on the device on
+    demand, ``build(lo, count)`` -> the (width, count) tensor of rows [lo,
+    lo + count) (models/fibonacci_device.py, models/counter.py, one kernel
+    launch a block on the card). Such a trace builds nothing until it is
+    read: ``width`` and ``domain_size`` come from ``shape``, ``cols_dev``
+    builds the whole once on first read, and ``evals(..., rows)`` builds
+    only a rank's block. ``transitions`` map the (width, N)
+    trace-polynomial coefficient tensor to one (N,) constraint coefficient
+    tensor. Each takes a keyword ``rows`` (default None): the resident
+    prove on a mesh calls ``f(tp, rows=rows)`` with ``rows`` a
+    ``parallel.Rows`` and tp this rank's (width, N/D) block of the
+    coefficients [rows.lo, rows.lo + rows.count), and wants the same block
+    of the output. A transition that acts on each coefficient alone ignores
+    ``rows``; one that does not (a constant at x^0, a product of
+    evaluations) reads its block's place from ``rows`` and its transforms
+    from ``get_block_ntt_fns(field, N, rows.mesh)`` (models/counter.py,
+    models/mimc.py)."""
 
-    stark_field: object
-    steps: int
-    cols: "np.ndarray | None"
-    transitions: List[Callable]
-    cols_dev: "torch.Tensor | None" = None
+    def __init__(self, stark_field, steps: int, cols, transitions: List[Callable],
+                 cols_dev: "torch.Tensor | None" = None, build: "Callable | None" = None,
+                 shape=None):
+        if build is not None and shape is None:
+            raise ValueError("a trace with a build function needs its shape (width, N)")
+        self.stark_field = stark_field
+        self.steps = steps
+        self.cols = cols
+        self.transitions = transitions
+        self.build = build
+        self._cols_dev = cols_dev
+        self._shape = tuple(shape) if shape is not None else tuple(
+            (cols if cols is not None else cols_dev).shape)
+
+    @property
+    def cols_dev(self) -> "torch.Tensor | None":
+        """The (width, N) tensor, built whole on first read by ``build``."""
+        if self._cols_dev is None and self.build is not None:
+            self._cols_dev = self.build(0, self.domain_size)
+        return self._cols_dev
 
     @property
     def width(self) -> int:
-        return (self.cols if self.cols is not None else self.cols_dev).shape[0]
+        return self._shape[0]
 
     @property
     def domain_size(self) -> int:
-        return (self.cols if self.cols is not None else self.cols_dev).shape[1]
+        return self._shape[1]
 
     def constrain_number(self) -> int:
         return self.width + len(self.transitions)
+
+    def evals(self, dtype: torch.dtype, device, rows: "Rows | None" = None) -> torch.Tensor:
+        """(width, N) column evaluations in the field's ``dtype`` on
+        ``device`` (a device trace held in another raises), or with ``rows``
+        this rank's (width, N/D) block [rows.lo, rows.lo + rows.count): a
+        trace with a build function builds only that block (never the whole),
+        any other takes its block from the whole."""
+        if rows is not None and self.build is not None:
+            x = self.build(rows.lo, rows.count)
+        elif self.cols_dev is not None:
+            x = self.cols_dev
+        else:
+            x = pack_words(self.cols, dtype, device)
+        if x.dtype != dtype:
+            raise ValueError(f"trace columns are {x.dtype}, the field is held in {dtype}")
+        x = x.to(device)
+        if rows is not None and self.build is None:
+            x = rows.take(x, 1)
+        return x
 
 
 class DeviceEngine:
@@ -242,15 +283,11 @@ class DeviceEngine:
             coeffs = gather_to_host(self.mesh, coeffs, eff, kind="all_gather")
         return self.ke.unpack(coeffs[:eff])
 
-    def _cols(self, trace: DeviceTrace) -> torch.Tensor:
+    def _cols(self, trace: DeviceTrace, rows: Rows = None) -> torch.Tensor:
         """(width, N) column evaluations on the engine's device, in the base
-        field's dtype (a device trace of another raises)."""
-        if trace.cols_dev is not None:
-            if trace.cols_dev.dtype != self.kb.dtype:
-                raise ValueError(f"trace columns are {trace.cols_dev.dtype}, the "
-                                 f"field is held in {self.kb.dtype}")
-            return trace.cols_dev.to(self.device)
-        return pack_words(trace.cols, self.kb.dtype, self.device)
+        field's dtype (a device trace of another raises), or with ``rows``
+        this rank's block, built alone where the trace has a build function."""
+        return trace.evals(self.kb.dtype, self.device, rows)
 
     def _trace_polys(self, trace: DeviceTrace) -> torch.Tensor:
         """(width, N) evaluations -> (width, N) coefficients, whole on every
@@ -281,9 +318,7 @@ class DeviceEngine:
         rows = self._trace_rows(trace)
         # 1.1 trace commitment over the row-major trace; leafs_per_node is
         # the constraint count (6), so one leaf group spans two rows
-        cols = self._cols(trace)
-        if rows is not None:
-            cols = rows.take(cols, 1)                                # (w, n/D)
+        cols = self._cols(trace, rows)                       # (w, n), or (w, n/D)
         trace_tree = self._tree(base, cols.T.contiguous().reshape(-1),
                                 cfg.merkle_config, rows)
         trace_commit = trace_tree.root()

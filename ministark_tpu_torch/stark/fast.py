@@ -55,7 +55,7 @@ import torch
 from ..fri.batched import BatchedFri, BatchedFriConfig, FastTranscript, _scalar_bytes
 from ..fri.stir import Stir, StirConfig
 from ..fri.whir import Whir, WhirConfig
-from ..ops.field import get_ops, lift_base_array, pack_words
+from ..ops.field import get_ops, lift_base_array
 from ..ops.ntt import check_backend, get_ntt_fns
 from ..ops.poly import eval_many, field_sum
 from ..parallel.mesh import Rows, field_sum_over_ranks
@@ -177,16 +177,11 @@ class FastStark:
 
     def _polys(self, trace: DeviceTrace, ifft, rows: Rows = None) -> torch.Tensor:
         """The constraint polynomials through ``ifft``: whole, or with
-        ``rows`` this rank's (w+t, n/D) block of their coefficients."""
-        if trace.cols_dev is not None:
-            if trace.cols_dev.dtype != self.kb.dtype:
-                raise ValueError(f"trace columns are {trace.cols_dev.dtype}, the "
-                                 f"field is held in {self.kb.dtype}")
-            x = trace.cols_dev.to(self.device)
-        else:
-            x = pack_words(trace.cols, self.kb.dtype, self.device)
+        ``rows`` this rank's (w+t, n/D) block of their coefficients (from
+        its block of the trace, built alone where the trace has a build
+        function)."""
         kw = {} if rows is None else {"rows": rows}
-        tp = ifft(x if rows is None else rows.take(x, 1))
+        tp = ifft(trace.evals(self.kb.dtype, self.device, rows))
         return torch.cat([tp] + [f(tp, **kw)[None] for f in trace.transitions], 0)
 
     def _trace_rows(self, traces: List[DeviceTrace]):

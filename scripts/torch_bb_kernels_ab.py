@@ -8,9 +8,10 @@ DIR's ministark_tpu_torch first on the path, builds that checkout's
 kernels, and runs its phases that hold BabyBear's kernels against their
 plain versions at the main paths' shapes (``phase_kernels_bb``: the NTTs,
 the leaf hash, the BabyBear rows; ``phase_kernels_field_ew``;
-``phase_kernels_div_scan``; ``phase_kernels_first_match``; their Goldilocks
-rows come along and read as the control; ``--phase``, given once or more,
-runs only those). It prints one JSON line: the
+``phase_kernels_div_scan``; ``phase_kernels_first_match``;
+``phase_kernels_witness``, the device witnesses; their Goldilocks rows come
+along and read as the control; ``--phase``, given once or more, runs only
+those). It prints one JSON line: the
 root, the card's name and power limit (nvidia-smi), and each kernel's rows
 (shape, event ms, device ms, bound ms by that checkout's bound model,
 bound_frac). Run it for a parent checkout unpacked beside this one and for
@@ -26,7 +27,7 @@ import os
 import sys
 
 PHASES = ("phase_kernels_bb", "phase_kernels_field_ew", "phase_kernels_div_scan",
-          "phase_kernels_first_match")
+          "phase_kernels_first_match", "phase_kernels_witness")
 KEEP = ("shape", "ms", "device_ms", "warm_device_ms", "bound_ms", "bound_by",
         "bound_frac")
 

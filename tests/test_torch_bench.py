@@ -33,7 +33,7 @@ SCRIPTS = ["chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
            "scripts/torch_digit_stage_probe.py", "scripts/torch_ntt_probe.py",
            "scripts/torch_launch_count.py",
            "scripts/torch_ab_prove.py", "scripts/torch_dist_probe.py",
-           "scripts/torch_first_match_probe.py"]
+           "scripts/torch_first_match_probe.py", "scripts/torch_witness_probe.py"]
 
 # run a script as __main__ with jax and the JAX package unimportable
 _BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "

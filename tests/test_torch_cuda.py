@@ -2,7 +2,9 @@
 NTT passes and levels up to the main path's 2^21, in Goldilocks and in
 BabyBear, the division scan and pow_dot in Fp2 and Fp4, the point
 evaluations on pow_dot and the first-occurrence leaf search with one launch
-a call, the field ops of csrc/field_ew.cu with one launch a call), the engine's proof on the card
+a call, the field ops of csrc/field_ew.cu with one launch a call, the
+device witnesses of csrc/witness.cu whole and in blocks with one launch a
+call), the engine's proof on the card
 against the host oracle, and the
 fast mode's proof on the card against its golden fixture and the CPU's
 bytes, the prove core (stark/core.py) and batch_inverse_full on the card
@@ -1028,3 +1030,51 @@ def test_batch_inverse_full_on_card(dev, field):
     want = batch_inverse_full(field, k, x)
     assert torch.equal(batch_inverse_full(field, k, x.to(dev)).cpu(), want)
     assert k.unpack(want[:4]) == [field.inv(int(a)) for a in v[:4]]
+
+
+# the device witnesses (csrc/witness.cu): (lo, count) of a trace of 2^20
+# rows at steps 2^20 - 1: the whole, a rank's block, a lo and a count that
+# are not multiples of the kernel's chunk; and the whole of n = 8, steps 5
+WITNESS_CASES = [(1 << 20, 0, 1 << 20), (1 << 20, 1 << 19, 1 << 19),
+                 (1 << 20, (1 << 19) + 3, (1 << 18) + 5), (8, 0, 8)]
+
+
+@pytest.mark.parametrize("n,lo,count", WITNESS_CASES)
+@pytest.mark.parametrize("model", ["fibonacci", "counter"])
+@pytest.mark.parametrize("sf", [Goldilocks, BabyBear], ids=["gl", "bb"])
+def test_witness_kernel_matches_plain(dev, sf, model, n, lo, count):
+    from ministark_tpu_torch.ops import witness
+    from ministark_tpu_torch.utils.rng import ark_test_rng
+
+    base = sf.base
+    steps, pad = (n - 1 if n > 8 else 5), int(base.rand(ark_test_rng()))
+    dtype = gl.field_dtype(base)
+    width = 3 if model == "fibonacci" else 2
+    got = torch.empty((width, count), dtype=dtype, device=dev)
+    want = torch.empty_like(got)
+    before = dict(witness.launches)
+    if model == "fibonacci":
+        witness.fib_witness(got, base, steps, 7, pad, lo)
+        witness.fib_witness_plain(want, base, steps, 7, pad, lo)
+    else:
+        witness.counter_witness(got, base, steps, 11, 1_000_003, 9, 424_242, pad, lo)
+        witness.counter_witness_plain(want, base, steps, 11, 1_000_003, 9, 424_242, pad, lo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    moved = {k: witness.launches[k] - before[k] for k in before
+             if witness.launches[k] != before[k]}
+    assert moved == {f"{'fib' if model == 'fibonacci' else 'counter'}_witness_"
+                     f"{'gl' if sf is Goldilocks else 'bb'}": 1}
+
+
+def test_witness_wrappers_refuse_int64_babybear(dev):
+    from ministark_tpu_torch.ops import witness
+
+    before = dict(witness.launches)
+    with pytest.raises(ValueError):
+        witness.fib_witness(torch.zeros((3, 64), dtype=torch.int64, device=dev),
+                            BABYBEAR_FP, 63, 2, 0)
+    with pytest.raises(ValueError):
+        witness.counter_witness_cuda(torch.zeros((2, 64), dtype=torch.int64, device=dev),
+                                     BABYBEAR_FP, 63, 1, 3, 5, 7, 0)
+    assert witness.launches == before
