@@ -1542,10 +1542,10 @@ def phase_kernels_witness(results):
     torch-op ladder and closed form on the card) with tolerance 0: the
     whole at 2^20 (steps 2^20 - 1: one padding row), a rank's block at lo
     2^19 of 2^20, a lo and a count that are not multiples of a block's
-    rows (THREADS x ROWS), steps 5 in n = 8, and Fibonacci's (3,
+    rows (THREADS x CHUNK), steps 5 in n = 8, and Fibonacci's (3,
     2^22) (the bench's 2^22 entry). Each with cold device ms
     (``rf.cold_device_ms``), the bound by the bytes written or the
-    operations as built (``rf.witness_work``), bound_frac and the plain
+    operations the function needs (``rf.witness_work``), bound_frac and the plain
     version's ms; no PyTorch call computes a witness (library_ms null).
     Then each case once more through the model's function
     (``fibonacci_trace_cols_on_device`` / ``_counter_cols_on_device`` on
@@ -1594,9 +1594,7 @@ def phase_kernels_witness(results):
                     out_p, base, steps, *consts, pad, lo)
                 model_fn = lambda: _counter_cols_on_device(  # noqa: E731
                     sf, steps, *consts, "cuda", lo, count)
-            chunk = witness.ROWS[model, tag]
-            work = rf.witness_work(model, tag, lo, count,
-                                   witness.grid(out_k.device, count, chunk), chunk)
+            work = rf.witness_work(model, tag, count)
             rec = compare(name, label, kern, plain, work, plain_reps=1, device=True)
             before, rows = witness.launches[name], witness.rows[name]
             got = model_fn()
@@ -2204,6 +2202,7 @@ def phase_stir_whir(results):
 
         stark, (trace,) = _fast(MAIN_STEPS, **cfg)
         reset_counts()
+        trace.cols_dev                  # built on demand: the witness kernel
         t0 = time.time()
         proof = stark.prove(trace)
         cold = time.time() - t0
@@ -2244,6 +2243,7 @@ def phase_stir_whir(results):
         sf = _stark_field("bb")
         stark, (trace,) = _fast(MAIN_STEPS, field="bb", **cfg)
         reset_counts()
+        trace.cols_dev                  # built on demand: the witness kernel
         t0 = time.time()
         proof = stark.prove(trace)
         secs = time.time() - t0
@@ -2688,6 +2688,7 @@ def phase_models(results):
         _, _, trace = _model_case(name, "gl", MODEL_PIN_STEPS)
         engine = DeviceEngine(StarkConfig(sf, 20, 2, MODEL_PIN_STEPS,
                                           trace.constrain_number()), device="cuda")
+        trace.cols_dev                  # built on demand: the counter's kernel
         t0 = time.time()
         proof = engine.prove(trace)
         secs = time.time() - t0

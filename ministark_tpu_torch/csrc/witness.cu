@@ -16,11 +16,11 @@
 //
 // Bound on the H100: the bytes written (nothing is read) or, for
 // Fibonacci, the products, so the design keeps a row's operations few and
-// every store coalesced. A thread writes R consecutive rows of each column
-// at a time (a chunk: one 16-byte store where R words make 16 bytes, two
-// where they make 32, neighbouring lanes on neighbouring chunks), and the
-// grid walks the chunks with a stride of R x the grid's threads (the host
-// picks R and the grid, ops/witness.py). Fibonacci: a warp runs the ladder
+// every store coalesced. A thread writes R = 2 consecutive rows of each
+// column at a time (a chunk: one 8-byte BabyBear or 16-byte Goldilocks
+// store, neighbouring lanes on neighbouring chunks, so a warp's store is
+// contiguous), and a grid of one block an SM (ops/witness.py::grid) walks
+// the chunks with a stride of R x the grid's threads. Fibonacci: a warp runs the ladder
 // once for its first row (for each set bit b of that index, a product by
 // M^(2^b) from the argument table; the same bits in every lane, so no lane
 // waits on another), each lane then moves to its own first row by
@@ -43,10 +43,11 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int R = 2;        // rows a thread writes at a time (a chunk)
 constexpr int LADDER = 32;  // M^(2^b) for b < 32: row indices below 2^32
 // the host plans (ops/witness.py::_fib_plan, _counter_plan): FIB_HEAD
 // scalars, then the ladder, the lanes' table and the jump, POW words each
-constexpr int FIB_HEAD = 8;
+constexpr int FIB_HEAD = 7;
 constexpr int POW = 3;      // (F(k-2), F(k-1), F(k)) of M^k
 
 struct FibArgs {
@@ -72,30 +73,15 @@ __device__ __forceinline__ void pow_vec(const uint64_t* m, uint64_t& a, uint64_t
   a = na;
 }
 
-// a chunk's R words as one 8- or 16-byte store, or two 16-byte ones
-template <int R, class W>
-__device__ __forceinline__ void store_chunk(W* p, const uint64_t (&v)[R]) {
-  if constexpr (sizeof(W) == 4 && R == 2) {
-    *reinterpret_cast<uint2*>(p) = make_uint2((uint32_t)v[0], (uint32_t)v[1]);
-  } else if constexpr (sizeof(W) == 4 && R == 4) {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4((uint32_t)v[0], (uint32_t)v[1], (uint32_t)v[2], (uint32_t)v[3]);
-  } else if constexpr (R == 2) {
-    *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(v[0], v[1]);
-  } else {
-    static_assert(R == 4, "a chunk is 2 or 4 rows");
-    reinterpret_cast<ulonglong2*>(p)[0] = make_ulonglong2(v[0], v[1]);
-    reinterpret_cast<ulonglong2*>(p)[1] = make_ulonglong2(v[2], v[3]);
-  }
-}
-
-// a chunk of one column at local row i: vectors where every chunk is whole
-// and aligned (VEC), else a word a row up to count
-template <int R, bool VEC, class W>
+// a chunk of one column at local row i: one 8- or 16-byte store where
+// every chunk is whole and aligned (VEC), else a word a row up to count
+template <bool VEC, class W>
 __device__ __forceinline__ void store_rows(W* col, int64_t i, int64_t count,
                                            const uint64_t (&v)[R]) {
-  if constexpr (VEC) {
-    store_chunk<R>(col + i, v);
+  if constexpr (VEC && sizeof(W) == 4) {
+    *reinterpret_cast<uint2*>(col + i) = make_uint2((uint32_t)v[0], (uint32_t)v[1]);
+  } else if constexpr (VEC) {
+    *reinterpret_cast<ulonglong2*>(col + i) = make_ulonglong2(v[0], v[1]);
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -104,7 +90,7 @@ __device__ __forceinline__ void store_rows(W* col, int64_t i, int64_t count,
   }
 }
 
-template <class F, int R, bool VEC>
+template <class F, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     fib_witness_kernel(const __grid_constant__ FibArgs args, word_t<F>* __restrict__ out) {
   __shared__ uint64_t lane_pow[32][POW];
@@ -136,14 +122,14 @@ __global__ void __launch_bounds__(THREADS)
       x = y;
       y = s;
     }
-    store_rows<R, VEC>(out, i, count, va);
-    store_rows<R, VEC>(out + count, i, count, vb);
-    store_rows<R, VEC>(out + 2 * count, i, count, vc);
+    store_rows<VEC>(out, i, count, va);
+    store_rows<VEC>(out + count, i, count, vb);
+    store_rows<VEC>(out + 2 * count, i, count, vc);
     pow_vec<F>(args.jump, a, b);
   }
 }
 
-template <class F, int R, bool VEC>
+template <class F, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     counter_witness_kernel(const __grid_constant__ CounterArgs args,
                            word_t<F>* __restrict__ out) {
@@ -163,53 +149,24 @@ __global__ void __launch_bounds__(THREADS)
       x = F::add(x, args.step);
       y = F::add(y, args.c1_step);
     }
-    store_rows<R, VEC>(out, i, count, v0);
-    store_rows<R, VEC>(out + count, i, count, v1);
+    store_rows<VEC>(out, i, count, v0);
+    store_rows<VEC>(out + count, i, count, v1);
   }
 }
 
 // every chunk whole and aligned: count a multiple of R (so each column
 // starts on a chunk's boundary too) and the output 16-byte aligned
 template <class W>
-bool vectors(const W* out, int64_t count, int64_t rows) {
-  return count % rows == 0 && (uintptr_t)out % 16 == 0;
+bool vectors(const W* out, int64_t count) {
+  return count % R == 0 && (uintptr_t)out % 16 == 0;
 }
 
-bool bad_grid(int64_t lo, int64_t count, int64_t blocks, int64_t rows) {
+bool bad_grid(int64_t lo, int64_t count, int64_t blocks) {
   return lo < 0 || count < 1 || blocks < 1 || blocks > INT_MAX ||
-         lo + count > (int64_t(1) << LADDER) || (rows != 2 && rows != 4);
+         lo + count > (int64_t(1) << LADDER);
 }
 
-template <class F, template <class, int, bool> class Launch, class Args>
-int dispatch(word_t<F>* out, const Args& args, int64_t blocks, int64_t rows,
-             cudaStream_t stream) {
-  const bool vec = vectors(out, args.count, rows);
-  const dim3 grid((unsigned)blocks);
-  if (rows == 2) {
-    if (vec) Launch<F, 2, true>::run(grid, stream, args, out);
-    else Launch<F, 2, false>::run(grid, stream, args, out);
-  } else {
-    if (vec) Launch<F, 4, true>::run(grid, stream, args, out);
-    else Launch<F, 4, false>::run(grid, stream, args, out);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <class F, int R, bool VEC>
-struct FibLaunch {
-  static void run(dim3 grid, cudaStream_t s, const FibArgs& args, word_t<F>* out) {
-    fib_witness_kernel<F, R, VEC><<<grid, THREADS, 0, s>>>(args, out);
-  }
-};
-
-template <class F, int R, bool VEC>
-struct CounterLaunch {
-  static void run(dim3 grid, cudaStream_t s, const CounterArgs& args, word_t<F>* out) {
-    counter_witness_kernel<F, R, VEC><<<grid, THREADS, 0, s>>>(args, out);
-  }
-};
-
-// plan: lo, count, steps, blocks, bits, b0, pad, R, then POW words each of
+// plan: lo, count, steps, blocks, bits, b0, pad, then POW words each of
 // the ladder (M^(2^b), b < 32), the lanes' table (M^(R lane), lane < 32)
 // and M^stride; values canonical
 template <class F>
@@ -222,7 +179,6 @@ int fib_launch(word_t<F>* out, const int64_t* plan, cudaStream_t stream) {
   args.bits = (int)plan[4];
   args.b0 = (uint64_t)plan[5];
   args.pad = (uint64_t)plan[6];
-  const int64_t rows = plan[7];
   const int64_t* p = plan + FIB_HEAD;
   for (int k = 0; k < LADDER; ++k) {
     for (int j = 0; j < POW; ++j) args.ladder[k][j] = (uint64_t)*p++;
@@ -231,14 +187,19 @@ int fib_launch(word_t<F>* out, const int64_t* plan, cudaStream_t stream) {
     for (int j = 0; j < POW; ++j) args.lane[k][j] = (uint64_t)*p++;
   }
   for (int j = 0; j < POW; ++j) args.jump[j] = (uint64_t)*p++;
-  if (bad_grid(args.lo, args.count, blocks, rows) || plan[4] < 1 || plan[4] > LADDER) {
+  if (bad_grid(args.lo, args.count, blocks) || plan[4] < 1 || plan[4] > LADDER) {
     return (int)cudaErrorInvalidValue;
   }
-  return dispatch<F, FibLaunch>(out, args, blocks, rows, stream);
+  if (vectors(out, args.count)) {
+    fib_witness_kernel<F, true><<<(unsigned)blocks, THREADS, 0, stream>>>(args, out);
+  } else {
+    fib_witness_kernel<F, false><<<(unsigned)blocks, THREADS, 0, stream>>>(args, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // plan: lo, count, steps, blocks, start, step, c1 = a start + b, a step,
-// pad, R; values canonical, lo + count <= p
+// pad; values canonical, lo + count <= p
 template <class F>
 int counter_launch(word_t<F>* out, const int64_t* plan, cudaStream_t stream) {
   CounterArgs args;
@@ -251,9 +212,13 @@ int counter_launch(word_t<F>* out, const int64_t* plan, cudaStream_t stream) {
   args.c1 = (uint64_t)plan[6];
   args.c1_step = (uint64_t)plan[7];
   args.pad = (uint64_t)plan[8];
-  const int64_t rows = plan[9];
-  if (bad_grid(args.lo, args.count, blocks, rows)) return (int)cudaErrorInvalidValue;
-  return dispatch<F, CounterLaunch>(out, args, blocks, rows, stream);
+  if (bad_grid(args.lo, args.count, blocks)) return (int)cudaErrorInvalidValue;
+  if (vectors(out, args.count)) {
+    counter_witness_kernel<F, true><<<(unsigned)blocks, THREADS, 0, stream>>>(args, out);
+  } else {
+    counter_witness_kernel<F, false><<<(unsigned)blocks, THREADS, 0, stream>>>(args, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -268,7 +233,7 @@ extern "C" int ms_fib_witness_bb(void* out, const int64_t* plan, void* stream) {
   return fib_launch<bb>((uint32_t*)out, plan, (cudaStream_t)stream);
 }
 
-// out: the (2, count) counter columns; plan: int64[10] on the host
+// out: the (2, count) counter columns; plan: int64[9] on the host
 extern "C" int ms_counter_witness_gl(void* out, const int64_t* plan, void* stream) {
   return counter_launch<gl>((uint64_t*)out, plan, (cudaStream_t)stream);
 }

@@ -36,18 +36,13 @@ launches = {"fib_witness_gl": 0, "fib_witness_bb": 0,
 rows = dict.fromkeys(launches, 0)
 
 THREADS = 256          # csrc/witness.cu: threads a block
+# csrc/witness.cu's R: rows a thread writes at a time. Two make each
+# warp's store contiguous (a Goldilocks chunk is one 16-byte store; four
+# rows were two stores at a 32-byte stride and read 0.0226 ms cold at 2^20
+# against 0.0144 on the H100, PERF.md §6 PR 24)
+CHUNK = 2
 LADDER = 32            # M^(2^b) for b < 32: row indices below 2^32
-FIB_HEAD = 8           # the Fibonacci plan's scalars before its tables
-# consecutive rows a thread writes at a time (2 or 4), by model and field,
-# and blocks an SM, from scripts/torch_witness_probe.py --sweep on the H100
-# (PERF.md §6): a chunk that is one store contiguous across the
-# lanes (Goldilocks 2 rows, 16 bytes) reads 0.0144 ms cold at 2^20 against
-# 0.0226 for two 16-byte stores at a 32-byte stride; BabyBear's Fibonacci
-# 2 rows 0.0103 against 0.0113, its counter the same either way; 1 block
-# an SM at or under 2 and 4 (each warp's ladder spread over more rows)
-ROWS = {("fibonacci", "gl"): 2, ("fibonacci", "bb"): 2,
-        ("counter", "gl"): 2, ("counter", "bb"): 4}
-BLOCKS_PER_SM = 1
+FIB_HEAD = 7           # the Fibonacci plan's scalars before its tables
 
 _PLAIN = {"gl": (field.add_plain, field.mul_plain), "bb": (bb.add_plain, bb.mul_plain)}
 
@@ -120,27 +115,27 @@ def _plan(vals):
     return (ctypes.c_int64 * len(vals))(*(_i64(int(v)) for v in vals))
 
 
-def grid(device, count: int, chunk: int) -> int:
-    """Blocks of the launch: one a THREADS x ``chunk`` rows, at most
-    BLOCKS_PER_SM an SM of the card."""
+def grid(device, count: int) -> int:
+    """Blocks of the launch: one a THREADS x CHUNK rows, at most one an SM
+    of the card (each warp's ladder spread over the most rows)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-count // (THREADS * chunk)), BLOCKS_PER_SM * sms))
+    return max(1, min(-(-count // (THREADS * CHUNK)), sms))
 
 
-def _fib_plan(base, steps, b0, pad, lo, count, blocks, chunk):
+def _fib_plan(base, steps, b0, pad, lo, count, blocks):
     p = base.p
     bits = max((lo + count - 1).bit_length(), 1)
     tables = ([pow_words(m, p) for m in ladder(p)]
-              + [pow_words(mat_pow(chunk * lane, p), p) for lane in range(32)]
-              + [pow_words(mat_pow(blocks * THREADS * chunk, p), p)])
-    return _plan([lo, count, steps, blocks, bits, b0, pad, chunk]
+              + [pow_words(mat_pow(CHUNK * lane, p), p) for lane in range(32)]
+              + [pow_words(mat_pow(blocks * THREADS * CHUNK, p), p)])
+    return _plan([lo, count, steps, blocks, bits, b0, pad]
                  + [w for t in tables for w in t])
 
 
-def _counter_plan(base, steps, start, step, a, b, pad, lo, count, blocks, chunk):
+def _counter_plan(base, steps, start, step, a, b, pad, lo, count, blocks):
     p = base.p
     return _plan([lo, count, steps, blocks, start % p, step % p, (a * start + b) % p,
-                  (a * step) % p, pad, chunk])
+                  (a * step) % p, pad])
 
 
 # ------------------------------------------------------------- Fibonacci
@@ -178,19 +173,16 @@ def fib_witness_plain(out, base, steps, b0, pad, lo=0):
     return out
 
 
-def fib_witness_cuda(out, base, steps, b0, pad, lo=0, blocks=None, chunk=None):
+def fib_witness_cuda(out, base, steps, b0, pad, lo=0):
     """CUDA kernel ``ms_fib_witness_<gl|bb>``, same contract as
-    ``fib_witness_plain``; ``chunk`` (rows a thread writes at a time, 2 or
-    4, default ROWS) and ``blocks`` (default ``grid``) set the launch."""
+    ``fib_witness_plain``."""
     tag = _check(out, base, 3, lo)
     name = f"fib_witness_{tag}"
     cuda.require(out, name, out.dtype, 2)
     count = out.shape[1]
     if count == 0:
         return out
-    chunk = chunk or ROWS["fibonacci", tag]
-    blocks = blocks or grid(out.device, count, chunk)
-    plan = _fib_plan(base, steps, b0, pad, lo, count, blocks, chunk)
+    plan = _fib_plan(base, steps, b0, pad, lo, count, grid(out.device, count))
     err = getattr(cuda.library(), "ms_" + name)(out.data_ptr(), plan, cuda.stream_ptr(out))
     cuda.check(name, err)
     launches[name] += 1
@@ -226,20 +218,17 @@ def counter_witness_plain(out, base, steps, start, step, a, b, pad, lo=0):
     return out
 
 
-def counter_witness_cuda(out, base, steps, start, step, a, b, pad, lo=0, blocks=None,
-                         chunk=None):
+def counter_witness_cuda(out, base, steps, start, step, a, b, pad, lo=0):
     """CUDA kernel ``ms_counter_witness_<gl|bb>``, same contract as
-    ``counter_witness_plain``; ``chunk`` (rows a thread writes at a time, 2
-    or 4, default ROWS) and ``blocks`` (default ``grid``) set the launch."""
+    ``counter_witness_plain``."""
     tag = _check(out, base, 2, lo)
     name = f"counter_witness_{tag}"
     cuda.require(out, name, out.dtype, 2)
     count = out.shape[1]
     if count == 0:
         return out
-    chunk = chunk or ROWS["counter", tag]
-    blocks = blocks or grid(out.device, count, chunk)
-    plan = _counter_plan(base, steps, start, step, a, b, pad, lo, count, blocks, chunk)
+    plan = _counter_plan(base, steps, start, step, a, b, pad, lo, count,
+                         grid(out.device, count))
     err = getattr(cuda.library(), "ms_" + name)(out.data_ptr(), plan, cuda.stream_ptr(out))
     cuda.check(name, err)
     launches[name] += 1

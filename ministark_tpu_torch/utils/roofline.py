@@ -371,31 +371,16 @@ def first_match_work(comps, rows):
     return w * (n * C + q * C) + 8 * q, (w // 4) * n * q
 
 
-def witness_work(model: str, tag: str, lo: int, count: int, blocks: int, chunk: int):
-    """Bytes and ops of csrc/witness.cu's launch over rows [lo, lo + count)
-    with ``blocks`` blocks writing ``chunk`` rows a thread at a time, as
-    built (ops/witness.py): the columns written once in their storage width
-    (nothing is read); Fibonacci (3 columns): each warp's ladder over the
-    set bits of its first row's index (this run's rows), a power of M by a
-    lane's table entry, a jump after each chunk (each three products and
-    three adds) and one add a row; the counter (2 columns): two products
-    and two adds at a chunk's first row and two adds a row. A product and
-    an add by the field: Goldilocks OPS_GL_MUL and 8, BabyBear OPS_BB_MUL
-    and 3."""
-    from ..ops.witness import THREADS
-
-    mul, add = (OPS_GL_MUL, 8) if tag == "gl" else (OPS_BB_MUL, 3)
+def witness_work(model: str, tag: str, count: int):
+    """Bytes and ops of ``count`` rows of a device witness: the columns
+    written once in their storage width (nothing is read); the operations
+    the function itself needs, not those of a design: Fibonacci (3
+    columns) one add a row (a + b is both the third column and the next
+    row's b), the counter (2 columns) two adds a row (each column an
+    arithmetic progression). An add: Goldilocks 8 operations, BabyBear 3."""
+    add = 8 if tag == "gl" else 3
     width = 3 if model == "fibonacci" else 2
-    nbytes = width * count * WIDTH[tag]
-    chunks = -(-count // chunk)
-    if model != "fibonacci":
-        return nbytes, chunks * (2 * mul + 2 * add) + count * 2 * add
-    threads = min(chunks, blocks * THREADS)
-    warps = -(-threads // 32)
-    ladders = sum(bin(lo + chunk * 32 * w).count("1") * min(32, threads - 32 * w)
-                  for w in range(warps))
-    powers = ladders + threads + chunks
-    return nbytes, powers * (3 * mul + 3 * add) + count * add
+    return width * count * WIDTH[tag], count * (width - 1) * add
 
 
 def leaf_hash_work(comps, k, fmt, max_digits=20):

@@ -5,7 +5,7 @@ and the counter's (``models/counter.py::_counter_cols_on_device``), each
 built whole on the card in Goldilocks and in BabyBear.
 
     python3 scripts/torch_witness_probe.py [--root DIR] [--log-n 20[,22]]
-                                           [--reps 5] [--sweep 1,2,4,8]
+                                           [--reps 5]
 
 For each field, model and size (steps = 2^log_n - 1) it builds the witness
 once to warm up (and build the kernels), then prints one JSON line: the
@@ -21,10 +21,7 @@ scalar packed on the host and copied over does; there it is "not
 measured"). ``--root`` names the checkout whose ministark_tpu_torch is
 imported (default: the one holding this script), so that a parent commit
 unpacked beside this one reads in the same call: run parent, change,
-change, parent. ``--sweep`` (a checkout with ops/witness.py) reads each
-kernel's cold device ms with the grid at each of those blocks an SM and
-each chunk of 2 and 4 rows a thread instead (``fib_witness_cuda`` /
-``counter_witness_cuda``'s ``blocks`` and ``chunk``).
+change, parent.
 Needs a CUDA device; exits 1 without one.
 """
 
@@ -107,44 +104,12 @@ def measure(fn, reps):
             "own_launches": None if before is None else after - before}
 
 
-def sweep(smi, root, log_n, per_sm, reps):
-    """Each kernel's cold device ms over a grid of k blocks an SM, with
-    each chunk (rows a thread writes at a time)."""
-    import torch
-
-    from ministark_tpu_torch.fields import BabyBear, Goldilocks
-    from ministark_tpu_torch.ops import witness
-    from ministark_tpu_torch.utils import roofline as rf
-    from ministark_tpu_torch.utils.rng import ark_test_rng
-
-    n = 1 << log_n
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for sf in (Goldilocks, BabyBear):
-        base = sf.base
-        pad = int(base.rand(ark_test_rng()))
-        dtype = witness.field.field_dtype(base)
-        fib = torch.empty((3, n), dtype=dtype, device="cuda")
-        ctr = torch.empty((2, n), dtype=dtype, device="cuda")
-        for model, out, call in (
-                ("fibonacci", fib, lambda o, k, c: witness.fib_witness_cuda(
-                    o, base, n - 1, 2, pad, 0, k, c)),
-                ("counter", ctr, lambda o, k, c: witness.counter_witness_cuda(
-                    o, base, n - 1, 1, 3, 5, 7, pad, 0, k, c))):
-            ms = {f"{k}x{c}": rf.cold_device_ms(lambda: call(out, k * sms, c), reps)
-                  for c in (2, 4) for k in per_sm}
-            print(json.dumps({"root": root, "gpu": smi, "sweep": model,
-                              "field": "gl" if sf is Goldilocks else "bb", "n": n,
-                              "sms": sms, "cold_device_ms_by_blocks_per_sm_x_chunk": ms}),
-                  flush=True)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--log-n", default="20")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--sweep", default=None)
     args = ap.parse_args()
 
     import torch
@@ -158,9 +123,6 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     for log_n in (int(v) for v in args.log_n.split(",")):
-        if args.sweep:
-            sweep(smi, root, log_n, [int(v) for v in args.sweep.split(",")], args.reps)
-            continue
         for field in ("gl", "bb"):
             for model, build in witnesses(field):
                 steps = (1 << log_n) - 1

@@ -111,22 +111,22 @@ def _unsigned(plan):
 
 def _replay(model, plan, p):
     """csrc/witness.cu's route on host integers: each thread of the grid
-    (plan's blocks x THREADS) writes R consecutive rows a chunk from row R
-    x its index and jumps by the stride; Fibonacci's thread starts from its
+    (plan's blocks x THREADS) writes R = CHUNK consecutive rows a chunk from
+    row R x its index and jumps by the stride; Fibonacci's thread starts from its
     warp's ladder over the warp's first row and its lane's table entry,
     the counter's from two products at each chunk."""
     plan = _unsigned(list(plan))
     lo, count, steps, blocks = plan[:4]
-    T = witness.THREADS
+    T, R = witness.THREADS, witness.CHUNK
     width = 3 if model == "fibonacci" else 2
     out = np.zeros((width, count), dtype=np.uint64)
     if model == "fibonacci":
-        bits, b0, pad, R = plan[4:8]
+        bits, b0, pad = plan[4:7]
         words = plan[witness.FIB_HEAD:]
         table = [words[3 * k: 3 * k + 3] for k in range(2 * witness.LADDER + 1)]
         ladder, lanes, jump = table[:32], table[32:64], table[64]
     else:
-        start, step, c1, c1_step, pad, R = plan[4:10]
+        start, step, c1, c1_step, pad = plan[4:9]
     stride = blocks * T * R
     for g in range(blocks * T):
         i, first = g * R, (g - g % 32) * R
@@ -156,27 +156,28 @@ def _replay(model, plan, p):
     return out
 
 
-# (steps, lo, count, blocks, chunk): several chunks a thread (one block
-# over 2^12 rows), a grid wider than the rows, a block of rows not a chunk
-# multiple from a lo that is not, and one crossing steps
-ROUTES = ((4095, 0, 4096, 1, 4), (4095, 0, 4096, 1, 2), (4095, 0, 4096, 5, 4),
-          (2000, 1000, 1027, 1, 2), (2000, 1001, 1027, 1, 4), (3000, 2048, 2048, 2, 4))
+# (steps, lo, count, blocks): several chunks a thread (one block over 2^12
+# rows), a stride that does not divide the rows, a grid wider than the
+# rows, a block of rows not a chunk multiple from a lo that is and from one
+# that is not, and one crossing steps
+ROUTES = ((4095, 0, 4096, 1), (4095, 0, 4096, 3), (4095, 0, 4096, 9),
+          (2000, 1000, 1027, 1), (2000, 1001, 1027, 1), (3000, 2048, 2048, 2))
 
 
 @pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("model", ["fibonacci", "counter"])
 @pytest.mark.parametrize("field", ["gl", "bb"])
 def test_kernel_route_replayed_matches_plain(field, model, route):
-    steps, lo, count, blocks, chunk = route
+    steps, lo, count, blocks = route
     sf = FIELDS[field][0]
     base = sf.base
     pad = base.rand(ark_test_rng())
     if model == "fibonacci":
-        plan = witness._fib_plan(base, steps, 5, pad, lo, count, blocks, chunk)
+        plan = witness._fib_plan(base, steps, 5, pad, lo, count, blocks)
         want = fibonacci_trace_cols_on_device(sf, steps, 5, "cpu", lo, count)
     else:
         consts = (7, 2**35 + 1, 12345, 99)
-        plan = witness._counter_plan(base, steps, *consts, pad, lo, count, blocks, chunk)
+        plan = witness._counter_plan(base, steps, *consts, pad, lo, count, blocks)
         want = _counter_cols_on_device(sf, steps, *consts, "cpu", lo, count)
     assert np.array_equal(_replay(model, plan, base.p), unpack_u64(want))
 
